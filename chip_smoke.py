@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port: builds its CUDA kernels, holds
-each against its plain PyTorch version at the main path's shapes, checks
+each against its plain PyTorch version at the main paths' shapes, checks
 the tiny config on the card against the port on the CPU, and drives the
-reenactment path (ReenactmentPipeline.animate) at the flagship 256x256
-width with seeded random weights, uint8 frames in and out as bench.py runs
-it; then profiles one frame batch of it, to show where its time goes.
+port's two paths at the flagship 256x256 width with seeded random weights:
+- the reenactment path (ReenactmentPipeline.animate), uint8 frames in and
+  out as bench.py runs it, then a profile of one frame batch of it;
+- the training step (training.Trainer.train_step) of options/train.yml,
+  batch 2, bf16 compute, then a profile of one step of it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -20,7 +22,7 @@ import os
 import subprocess
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 
@@ -35,9 +37,13 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 FRAMES = 64        # driving frames of the main path: 4 frame batches
 FRAME_BATCH = 16   # bench.py's frame batch; also the B of every K1 shape
 
+TRAIN_STEPS = 5    # timed steps of the training path, after one warm-up
+TRAIN_BATCH = 2    # options/train.yml's batch per card
+
 # profiled kernel-name substrings -> kind, first match wins
 KINDS = [
     ("attention K1", ("attn_packed_kernel",)),
+    ("conv3x3 K3", ("conv3x3_kernel",)),
     ("warp (grid_sample)", ("grid_sampler",)),
     ("norm", ("norm", "welford", "rowwisemoments", "computefusedparams")),
     ("resize", ("upsample", "interpolate", "bilinear", "nearest")),
@@ -191,6 +197,154 @@ def timings(torch, F, fa, q, k, v, bias, H):
 
 
 # ---------------------------------------------------------------------------
+# kernel K3: every 3x3 conv shape of the training step's decoder region
+# ---------------------------------------------------------------------------
+
+def k3_forward_convs(net_cfg):
+    """Counter of (C, Cout, H) over the 3x3 convs that one training forward
+    runs in the decoder region, derived from the config alone: the blocks
+    from the generator's first Upsample to its final RGB conv (exclusive)
+    run on the main stream and on the parallel low-res stream; each fusion
+    inside the region adds a resblock on the concatenated 2C channels
+    (C->C after it), the two scale and the two shift convs, and the
+    fuse_ms conv."""
+    from synergize_motion_appearance_tpu_torch.models.appmotion_former \
+        import generator_tap_indices
+    from synergize_motion_appearance_tpu_torch.models.vqgan import (
+        generator_block_defs,
+    )
+    n = len(net_cfg["ch_mult"])
+    img = net_cfg["img_size"]
+    args = (net_cfg["nf"], net_cfg["embed_dim_app"], net_cfg["ch_mult"], 2,
+            img, net_cfg["attn_resolutions"])
+    defs = generator_block_defs(*args)
+    connect = _scales(net_cfg, "connect_list")[1:] if not net_cfg.get(
+        "connect_list") else [int(r) for r in net_cfg["connect_list"]]
+    taps = {generator_tap_indices(*args)[r] for r in connect}
+    convs = Counter()
+    ch, res, region = net_cfg["embed_dim_app"], img // 2 ** (n - 1), False
+    for i, (kind, out) in enumerate(defs):
+        region = (region or kind == "up") and i < len(defs) - 1
+        res *= 2 if kind == "up" else 1
+        block = {"res": [(ch, out), (out, out)], "up": [(ch, ch)],
+                 "conv": [(ch, out)]}.get(kind, [])
+        ch = out if kind in ("res", "conv") else ch
+        if not region:
+            continue
+        for cin, cout in block:
+            convs[(cin, cout, res)] += 2       # main and low-res streams
+        if i in taps:
+            convs[(2 * ch, ch, res)] += 1
+            convs[(ch, ch, res)] += 6
+    return convs
+
+
+def _scales(net_cfg, key):
+    """The config's list of resolutions ``key``, or every decoder scale."""
+    if net_cfg.get(key):
+        return [int(r) for r in net_cfg[key]]
+    n = len(net_cfg["ch_mult"])
+    return [net_cfg["img_size"] // 2 ** (n - 1 - i) for i in range(n)]
+
+
+def k1_per_train_step(net_cfg):
+    """K1 launches of one training forward: self- and cross-attention in
+    every transformer layer of the motion pass at the token scale and at
+    each connected scale, and of the appearance pass at the token scale
+    and at each connected scale up to the largest appearance scale (the
+    backward differentiates the plain version and launches none)."""
+    connect = _scales(net_cfg, "connect_list")
+    if not net_cfg.get("connect_list"):
+        connect = connect[1:]
+    app = 1 + sum(r <= max(_scales(net_cfg, "connect_app_list"))
+                  for r in connect)
+    return 2 * ((1 + len(connect)) * net_cfg["n_layers_motion"]
+                + app * net_cfg["n_layers_app"])
+
+
+def check_conv3x3(torch, k3, fwd_convs, B):
+    """Hold K3 against its plain version at every forward and input-
+    gradient shape of one training step, in float32 and bfloat16; time
+    kernel, plain version and the PyTorch call for the same function
+    (F.conv2d forward, torch.nn.grad.conv2d_input for the input
+    gradient)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cases = Counter()
+    for (c, co, h), n in fwd_convs.items():
+        cases[("forward", c, co, h)] += n
+        cases[("dgrad", co, c, h)] += n      # dy (Cout) -> dx (C)
+    rows = []
+    for (kind, cin, cout, h), per_step in sorted(cases.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            def randn(*shape, scale=1.0):
+                return (scale * torch.randn(*shape, generator=gen,
+                                            device="cuda")).to(dtype)
+
+            x = randn(B, cin, h, h)
+            if kind == "forward":
+                w = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
+                b = randn(cout)
+
+                def library():
+                    return F.conv2d(x, w, b, padding=1)
+            else:  # the conv C=cout -> Cout=cin, differentiated
+                w0 = randn(cin, cout, 3, 3, scale=(9 * cin) ** -0.5)
+                w, b = k3.flipped_weights(w0), None
+
+                def library():
+                    return torch.nn.grad.conv2d_input(
+                        (B, cout, h, h), w0, x, padding=1)
+
+            with torch.no_grad():
+                out = k3.conv3x3(x, w, b)
+                ref = k3.conv3x3_reference(x, w, b)
+                lib = library()
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:
+                # outputs are O(1); the kernel and the plain version sum
+                # the same 9*C float32 products in other orders
+                torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+            else:
+                # both accumulate in float32 and round once to bf16: a
+                # result on a rounding boundary differs by one bf16 ulp,
+                # at most 2^-7 of its magnitude
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=1e-3, rtol=2 ** -7)
+            torch.testing.assert_close(out.float(), lib.float(),
+                                       atol=5e-2, rtol=5e-2)
+            with torch.no_grad():
+                ms = time_ms(torch, lambda: k3.conv3x3(x, w, b), iters=20)
+                plain = time_ms(torch, lambda: k3.conv3x3_reference(x, w, b),
+                                iters=5)
+                library_ms = time_ms(torch, library, iters=20)
+            s = x.element_size()
+            nbytes = (x.numel() + w.numel() + out.numel()
+                      + (b.numel() if b is not None else 0)) * s
+            flops = 2 * B * h * h * 9 * cin * cout
+            name = str(dtype).split(".")[1]
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = flops / PEAK_FLOPS[name]
+            rows.append({"case": kind, "dtype": name, "B": B, "C": cin,
+                         "Cout": cout, "H": h, "W": h,
+                         "launches_per_step": per_step, "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain, "library_ms": library_ms,
+                         "bound_ms": 1e3 * max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes > t_ops
+                         else "operations"})
+            r = rows[-1]
+            print(f"  K3 {kind:7s} {cin:3d}->{cout:3d} @{h:3d}^2 {name:8s} "
+                  f"x{per_step:2d} max_abs_err {err:.3e}  kernel "
+                  f"{ms:.4f} ms  plain {plain:.4f} ms  library "
+                  f"{library_ms:.4f} ms  bound {r['bound_ms']:.4f} ms",
+                  flush=True)
+            del x, w, b, out, ref, lib
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # pipeline phases
 # ---------------------------------------------------------------------------
 
@@ -300,17 +454,33 @@ def profile_frame_batch(torch, pipe, src, drv, card):
     wall time) and once under torch.profiler: device time summed over
     kernels (one stream, so kernels do not overlap), the idle share
     1 - device / unprofiled wall, and device time by kind of kernel."""
+    # animate returns host frames: the work is done when it returns
+    report = profile(torch, lambda: pipe.animate(src, drv))
+    report["frame_batch"] = drv.shape[0]
+    print(f"profile, one frame batch of {drv.shape[0]} on {card}: wall "
+          f"{report['wall_ms']:.2f} ms ({report['wall_ms_profiled']:.2f} ms "
+          f"under the profiler), device {report['device_ms']:.2f} ms, idle "
+          f"share {report['idle_share']:.4f}", flush=True)
+    print_profile(report)
+    return report
+
+
+def profile(torch, run):
+    """``run`` three times unprofiled (median wall time, each ending in a
+    synchronize) and once under torch.profiler, summarised by kernel and
+    by kind of kernel."""
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        pipe.animate(src, drv)  # returns host frames: the work is done
+        run()
+        torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall_ms = float(np.median(walls))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.animate(src, drv)
+        run()
         torch.cuda.synchronize()
         wall_profiled_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -329,22 +499,351 @@ def profile_frame_batch(torch, pipe, src, drv, card):
     for name, (ms, _) in per_kernel.items():
         by_kind[kind_of(name)] += ms
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
-    report = {
-        "frame_batch": drv.shape[0], "wall_ms": wall_ms,
-        "wall_ms_profiled": wall_profiled_ms, "device_ms": device_ms,
-        "idle_share": 1.0 - device_ms / wall_ms,
+    return {
+        "wall_ms": wall_ms, "wall_ms_profiled": wall_profiled_ms,
+        "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
         "by_kind_ms": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "kernels": [{"name": n[:200], "kind": kind_of(n), "ms": ms,
                      "calls": c} for n, (ms, c) in ranked],
     }
-    print(f"profile, one frame batch of {drv.shape[0]} on {card}: wall "
-          f"{wall_ms:.2f} ms ({wall_profiled_ms:.2f} ms under the "
-          f"profiler), device {device_ms:.2f} ms, idle share "
-          f"{report['idle_share']:.4f}", flush=True)
+
+
+def print_profile(report):
     for kind, ms in report["by_kind_ms"].items():
         print(f"  {kind:24s} {ms:9.3f} ms")
     for row in report["kernels"][:15]:
         print(f"  {row['ms']:9.3f} ms {row['calls']:5d}x {row['name'][:110]}")
+
+
+# ---------------------------------------------------------------------------
+# training phases
+# ---------------------------------------------------------------------------
+
+def train_batch(torch, size, seed, device):
+    """Seeded synthetic uint8 frames as a batch of TRAIN_BATCH (source,
+    driving) pairs in [-1, 1], NCHW float32."""
+    def to_model(u8):
+        x = torch.from_numpy(u8).to(device).float() * (2.0 / 255.0) - 1.0
+        return x.permute(0, 3, 1, 2).contiguous()
+
+    return {"source": to_model(frames(TRAIN_BATCH, size, seed)),
+            "driving": to_model(frames(TRAIN_BATCH, size, seed + 1))}
+
+
+def smooth_train_batch(torch, size, seed):
+    """A CPU batch of TRAIN_BATCH image-like (source, driving) pairs in
+    [-1, 1], NCHW float32: a seeded 8x8 random field, bilinearly
+    upsampled, plus a little noise. White-noise frames blur to nearly
+    constant images at the keypoint detector's quarter scale, where
+    train-mode BatchNorm divides rounding noise by ~sqrt(eps): the motion
+    networks' gradients then differ between the card and the CPU by more
+    than compare_updates allows (3.11e-3 against 1.41e-3 on the keypoint
+    detector's first conv, on an H100)."""
+    rng = np.random.RandomState(seed)
+    low = torch.from_numpy(rng.uniform(-1, 1, (2 * TRAIN_BATCH, 3, 8, 8))
+                           .astype(np.float32))
+    img = torch.nn.functional.interpolate(low, size=(size, size),
+                                          mode="bilinear")
+    img = (img + 0.05 * torch.from_numpy(rng.randn(*img.shape)
+                                         .astype(np.float32))).clamp(-1, 1)
+    return {"source": img[:TRAIN_BATCH].contiguous(),
+            "driving": img[TRAIN_BATCH:].contiguous()}
+
+
+def sync_trainer(src, dst):
+    """dst's weights (VGG's too), BatchNorm statistics and TrainState
+    become src's (from one device to another)."""
+    from synergize_motion_appearance_tpu_torch.training import (
+        AdamState, TrainState,
+    )
+
+    for a, b in ((src.net_g, dst.net_g),
+                 (src.motion_estimator, dst.motion_estimator),
+                 (src.net_d, dst.net_d), (src.vgg, dst.vgg),
+                 (src.vgg_c, dst.vgg_c)):
+        b.load_state_dict(a.state_dict())
+
+    def moved(tensors):
+        return {k: v.to(dst.device, copy=True) for k, v in tensors.items()}
+
+    st = src.state
+    dst.state = TrainState(st.step, moved(st.ema_g), *(
+        AdamState(o.count, moved(o.mu), moved(o.nu))
+        for o in (st.opt_g, st.opt_m, st.opt_d)))
+
+
+def train_state(tr):
+    """A float32 CPU copy of a trainer's state: each network's weights and
+    BatchNorm statistics, the EMA, and the Adam counts and moments."""
+    def copied(tensors):
+        return {k: v.detach().float().cpu().clone()
+                for k, v in tensors.items()}
+
+    st = tr.state
+    out = {"g": copied(tr.net_g.state_dict()),
+           "m": copied(tr.motion_estimator.state_dict()),
+           "d": copied(tr.net_d.state_dict()), "ema": copied(st.ema_g)}
+    for name, o in (("g", st.opt_g), ("m", st.opt_m), ("d", st.opt_d)):
+        out[name + "_count"] = o.count
+        out[name + "_mu"], out[name + "_nu"] = copied(o.mu), copied(o.nu)
+    return out
+
+
+# card vs CPU bounds on one train step's update, as the port's CPU step
+# test holds it against the JAX step: gradients per leaf within r of the
+# leaf's largest plus a floor of 2e-5 of the network's largest, and within
+# 1e-3 relative in each network's 2-norm; r is 1e-3, and for the motion
+# networks, whose float32 gradient is ill-conditioned, r is 2e-3 and the
+# 2-norm bound 3e-3
+GRAD_LEAF_BOUND = {"g": 1e-3, "m": 2e-3, "d": 1e-3}
+GRAD_NORM_BOUND = {"g": 1e-3, "m": 3e-3, "d": 1e-3}
+
+
+def compare_updates(torch, before, cpu, card, lr, betas):
+    """Holds the card's step against the CPU's, both from the state
+    ``before``. Gradients are recovered from the Adam first moments as
+    (mu_t - b1 mu_{t-1}) / (1 - b1), and the second moments' increments
+    (1 - b2) g^2 are held in each network's 2-norm at twice the gradient's
+    bound. Weights, BatchNorm statistics and EMA after the update agree
+    within 2 lr everywhere (Adam's first steps move an entry by about lr
+    times the sign of its gradient, so a gradient near 0 may flip), and
+    within 1e-6 on at least 99.9% of the entries whose gradient is above
+    the floor. Returns the worst relative 2-norm gradient difference."""
+    b1, b2 = betas
+    worst, grads = 0.0, {}
+    for net in ("g", "m", "d"):
+        assert card[net + "_count"] == cpu[net + "_count"], net
+        mu0, nu0 = before[net + "_mu"], before[net + "_nu"]
+        if cpu[net + "_count"] == before[net + "_count"]:  # gated off
+            for k in mu0:
+                assert torch.equal(card[net + "_mu"][k], cpu[net + "_mu"][k])
+                assert torch.equal(card[net + "_nu"][k], cpu[net + "_nu"][k])
+            continue
+        g = {side: {k: (st[net + "_mu"][k] - b1 * mu0[k]) / (1 - b1)
+                    for k in mu0} for side, st in (("cpu", cpu),
+                                                   ("card", card))}
+        grads[net] = g["cpu"]
+        floor = 2e-5 * max(float(v.abs().max()) for v in g["cpu"].values())
+        for k, want in g["cpu"].items():
+            err = float((g["card"][k] - want).abs().max())
+            bound = GRAD_LEAF_BOUND[net] * float(want.abs().max()) + floor
+            assert err <= bound, (net, k, err, bound)
+
+        def rel_norm(a, b):
+            num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+            den = sum(float((b[k] ** 2).sum()) for k in b)
+            return (num / max(den, 1e-30)) ** 0.5
+
+        r = rel_norm(g["card"], g["cpu"])
+        assert r <= GRAD_NORM_BOUND[net], (net, "grad", r)
+        worst = max(worst, r)
+        dnu = {side: {k: st[net + "_nu"][k] - b2 * nu0[k] for k in nu0}
+               for side, st in (("cpu", cpu), ("card", card))}
+        r = rel_norm(dnu["card"], dnu["cpu"])
+        assert r <= 2 * GRAD_NORM_BOUND[net], (net, "nu", r)
+    for group in ("g", "m", "d", "ema"):
+        want, got = cpu[group], card[group]
+        assert sorted(got) == sorted(want), group
+        keys = [k for k in want if not k.endswith("num_batches_tracked")]
+        for k in want:
+            if k.endswith("num_batches_tracked"):
+                assert torch.equal(got[k], want[k]), (group, k)
+        diffs = torch.cat([(got[k] - want[k]).abs().flatten() for k in keys])
+        assert float(diffs.max()) <= 2 * lr * (1 + 1e-3), (group,
+                                                          float(diffs.max()))
+        g = grads.get("g" if group == "ema" else group)
+        if g is None:  # gated off: unchanged on both devices
+            assert float(diffs.max()) == 0.0, group
+            continue
+        floor = 2e-5 * max(float(v.abs().max()) for v in g.values())
+        above = torch.cat([g[k].abs().flatten() > floor if k in g
+                           else torch.ones(want[k].numel(), dtype=torch.bool)
+                           for k in keys])
+        close = (diffs[above] <= 1e-6).float().mean()
+        assert float(close) >= 0.999, (group, 1 - float(close))
+    return worst
+
+
+def tiny_train_parity(torch, configs, Trainer, sample_random_tps, k3, seed):
+    """TINY_TRAIN in float32 from one seed, three steps on both devices
+    with the same image-like batch (smooth_train_batch) and TPS warps; net_d_start_iter 1, so the third
+    step runs the D phase and the adaptive weight. Before each step the
+    card's trainer takes the CPU's state, so each step is compared from
+    one state: at initialisation the codebook entries are ~1/K, so which
+    entry is nearest to an embedding is decided in the last bits of its
+    distances, and the two devices' rounding picks other entries for some
+    embeddings, after which the trajectories part. Every log agrees
+    within rtol 1e-3 + atol 1e-4: the card sums convolutions and attention
+    in other orders than the CPU (~1e-6 relative per layer), and a nearest
+    entry picked differently moves the motion-codebook losses. After each
+    step the updates are held against each other too (compare_updates):
+    the gradients, which on the card run through K3's input gradient, the
+    Adam moments, and the weights, BatchNorm statistics and EMA after the
+    update."""
+    cfg = configs.get("tiny_train")
+    cfg["train"]["net_d_start_iter"] = 1
+    gen = torch.Generator().manual_seed(seed + 30)
+    tp = cfg["train"]["equivariance_opt"]["transform_params"]
+    warps = [sample_random_tps(gen, TRAIN_BATCH, tp["sigma_affine"],
+                               tp["sigma_tps"], tp["points_tps"])
+             for _ in range(3)]
+    trainers = {d: Trainer(cfg, device=d, seed=seed) for d in ("cpu", "cuda")}
+    batch = smooth_train_batch(torch, 64, seed + 31)
+    batches = {d: {k: v.to(d) for k, v in batch.items()} for d in trainers}
+    logs = {d: [] for d in trainers}
+    launches = {d: 0 for d in trainers}
+    betas = [float(b) for b in cfg["train"]["optim_g"]["betas"]]
+    worst_grad = 0.0
+    for w in warps:
+        sync_trainer(trainers["cpu"], trainers["cuda"])
+        before = train_state(trainers["cpu"])
+        step = trainers["cpu"].state.step
+        lr = max(f(step) for f in (trainers["cpu"].lr_g,
+                                   trainers["cpu"].lr_m,
+                                   trainers["cpu"].lr_d))
+        for d, tr in trainers.items():
+            k3.reset_launches()
+            logs[d].append({k: float(v) for k, v in
+                            tr.train_step(batches[d], tps=w).items()})
+            launches[d] += k3.launches
+        worst_grad = max(worst_grad, compare_updates(
+            torch, before, train_state(trainers["cpu"]),
+            train_state(trainers["cuda"]), lr, betas))
+    assert launches["cpu"] == 0
+    assert launches["cuda"] > 0, "tiny training on the card missed K3"
+    worst = 0.0
+    for cpu, card in zip(logs["cpu"], logs["cuda"]):
+        assert sorted(cpu) == sorted(card)
+        for k, v in cpu.items():
+            err = abs(card[k] - v)
+            worst = max(worst, err / (abs(v) + 1e-1))
+            assert err <= 1e-3 * abs(v) + 1e-4, (k, card[k], v)
+    assert logs["cuda"][2]["d_weight"] > 0, "the third step runs the probe"
+    print(f"parity tiny train f32 card vs CPU, 3 steps, each from the CPU's "
+          f"state: logs worst |diff| / (|cpu| + 0.1) {worst:.3e}; gradients "
+          f"worst relative 2-norm diff {worst_grad:.3e}; weights, statistics,"
+          f" EMA and Adam moments within bounds; K3 launches "
+          f"{launches['cuda']}",
+          flush=True)
+    return {"steps": 3, "worst_rel_diff": worst,
+            "worst_grad_rel_norm_diff": worst_grad,
+            "k3_launches": launches["cuda"], "logs_cuda": logs["cuda"],
+            "logs_cpu": logs["cpu"]}
+
+
+def train_path(torch, configs, Trainer, fa, k3, seed, card):
+    """Trainer.train_step at FLAGSHIP_TRAIN (options/train.yml: 256^2,
+    batch 2, bf16 compute with f32 master weights) on seeded random
+    weights and seeded synthetic frames, with net_d_start_iter 1 so that
+    the D phase and the adaptive weight run from the third step. One
+    warm-up step, then TRAIN_STEPS timed steps, each with the kernel
+    counts reset just before it and read just after."""
+    cfg = configs.get("flagship_train")
+    cfg["train"]["net_d_start_iter"] = 1
+    g_cfg = cfg["network_g"]
+    k3_per_step = 2 * sum(k3_forward_convs(g_cfg).values())  # fwd + dgrad
+    k1_per_step = k1_per_train_step(g_cfg)
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device="cuda", seed=seed)
+    setup_s = time.perf_counter() - t0
+    n_params = {name: sum(p.numel() for p in m.parameters()) for name, m in (
+        ("net_g", tr.net_g), ("motion_estimator", tr.motion_estimator),
+        ("net_d", tr.net_d), ("vgg", tr.vgg))}
+    batch = train_batch(torch, 256, seed + 40, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+
+    def snapshot(module):
+        return [p.detach().clone() for p in module.parameters()]
+
+    def moved(before, module):
+        return any(not torch.equal(a, b)
+                   for a, b in zip(before, module.parameters()))
+
+    g0, m0, d0 = snapshot(tr.net_g), snapshot(tr.motion_estimator), \
+        snapshot(tr.net_d)
+    torch.cuda.reset_peak_memory_stats()
+    steps = [{"logs": {k: float(v) for k, v in
+                       tr.train_step(batch, generator=gen).items()}}]
+    for _ in range(TRAIN_STEPS):
+        if tr.state.step == 2:
+            d_pre = snapshot(tr.net_d)
+        fa.reset_launches()
+        k3.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = tr.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        steps.append({"ms": ms, "k1_launches": fa.launches,
+                      "k3_launches": k3.launches,
+                      "k3_shapes": dict(k3.launch_shapes),
+                      "logs": {k: float(v) for k, v in logs.items()}})
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, st in enumerate(steps):
+        for k, v in st["logs"].items():
+            assert math.isfinite(v), f"step {i}: {k} = {v}"
+        assert st["logs"]["step_skipped_nonfinite"] == 0.0, f"step {i}"
+        assert (st["logs"]["d_weight"] > 0) == (i >= 2), (
+            f"step {i}: d_weight {st['logs']['d_weight']}")
+    timed = steps[1:]
+    for st in timed:
+        assert st["k1_launches"] == k1_per_step, (st["k1_launches"],
+                                                  k1_per_step)
+        assert st["k3_launches"] == k3_per_step, (st["k3_launches"],
+                                                  k3_per_step)
+    want_shapes = Counter()
+    for (c, co, h), n in k3_forward_convs(g_cfg).items():
+        want_shapes[(TRAIN_BATCH, c, co, h, h, "bfloat16")] += n
+        want_shapes[(TRAIN_BATCH, co, c, h, h, "bfloat16")] += n
+    assert Counter(timed[-1]["k3_shapes"]) == want_shapes, (
+        "K3 ran at other shapes than the config's decoder region")
+    assert moved(g0, tr.net_g) and moved(m0, tr.motion_estimator), (
+        "G or M did not move")
+    assert not any(not torch.equal(a, b) for a, b in zip(d0, d_pre)), (
+        "D moved before its onset")
+    assert moved(d_pre, tr.net_d), "D did not move after its onset"
+
+    ms = [st["ms"] for st in timed]
+    med = float(np.median(ms))
+    report = {
+        "config": "flagship_train (options/train.yml), net_d_start_iter 1",
+        "batch": TRAIN_BATCH, "size": 256, "setup_s": setup_s,
+        "params": n_params, "step_ms": ms, "step_ms_median": med,
+        "step_ms_min": min(ms), "step_ms_max": max(ms),
+        "samples_per_s": TRAIN_BATCH / (med / 1e3),
+        "max_memory_allocated_bytes": peak,
+        "k1_launches_per_step": k1_per_step,
+        "k3_launches_per_step": k3_per_step,
+        "k1_launches": sum(st["k1_launches"] for st in timed),
+        "k3_launches": sum(st["k3_launches"] for st in timed),
+        "steps": [{k: v for k, v in st.items() if k != "k3_shapes"}
+                  for st in steps],
+    }
+    print(f"train path flagship_train (options/train.yml; net_d_start_iter "
+          f"set to 1) bf16, batch {TRAIN_BATCH} at 256^2 on {card}: "
+          f"{TRAIN_STEPS} steps after 1 warm-up, median {med:.2f} ms/step "
+          f"(min {min(ms):.2f}, max {max(ms):.2f}) = "
+          f"{report['samples_per_s']:.3f} samples/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; K1 {k1_per_step} and K3 "
+          f"{k3_per_step} launches per step; set-up {setup_s:.1f} s; "
+          f"params {n_params}", flush=True)
+    print(f"  last step logs: "
+          f"{ {k: round(v, 5) for k, v in timed[-1]['logs'].items()} }",
+          flush=True)
+    return report, (tr, batch, gen)
+
+
+def profile_train_step(torch, tr, batch, gen, card):
+    """One training step of the train path, profiled as a frame batch of
+    the reenactment path is."""
+    report = profile(torch, lambda: tr.train_step(batch, generator=gen))
+    print(f"profile, one flagship train step (batch {TRAIN_BATCH}) on "
+          f"{card}: wall {report['wall_ms']:.2f} ms "
+          f"({report['wall_ms_profiled']:.2f} ms under the profiler), device "
+          f"{report['device_ms']:.2f} ms, idle share "
+          f"{report['idle_share']:.4f}", flush=True)
+    print_profile(report)
     return report
 
 
@@ -360,8 +859,11 @@ def main():
     from synergize_motion_appearance_tpu_torch.inference import (
         ReenactmentPipeline,
     )
+    from synergize_motion_appearance_tpu_torch.ops import conv3x3 as k3
     from synergize_motion_appearance_tpu_torch.ops import cuda_build
     from synergize_motion_appearance_tpu_torch.ops import fused_attention as fa
+    from synergize_motion_appearance_tpu_torch.ops import sample_random_tps
+    from synergize_motion_appearance_tpu_torch.training import Trainer
     from synergize_motion_appearance_tpu_torch.weights import seeded_nets
 
     torch.backends.cudnn.allow_tf32 = False
@@ -371,17 +873,28 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
-    build_s = cuda_build.build("fused_attention_packed")
-    print(f"built fused_attention_packed in {build_s:.2f} s", flush=True)
+    build_s = cuda_build.build("fused_attention_packed", "conv3x3")
+    print(f"built fused_attention_packed and conv3x3 (one nvcc each, in "
+          f"parallel) in {build_s:.2f} s", flush=True)
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s}
     report["k1_cases"] = check_attention(torch, fa, FRAME_BATCH)
+    train_cfg = configs.get("flagship_train")
+    report["k3_cases"] = check_conv3x3(
+        torch, k3, k3_forward_convs(train_cfg["network_g"]), TRAIN_BATCH)
     report["tiny_parity"] = tiny_parity(torch, configs, ReenactmentPipeline,
                                         seeded_nets, fa, args.seed)
     report["main_path"], run = main_path(
         torch, configs, ReenactmentPipeline, seeded_nets, fa, args.seed, card)
     report["profile"] = profile_frame_batch(torch, *run, card)
+    del run
+    torch.cuda.empty_cache()
+    report["tiny_train_parity"] = tiny_train_parity(
+        torch, configs, Trainer, sample_random_tps, k3, args.seed)
+    report["train_path"], train_run = train_path(
+        torch, configs, Trainer, fa, k3, args.seed, card)
+    report["train_profile"] = profile_train_step(torch, *train_run, card)
 
     bf16 = [r for r in report["k1_cases"] if r["dtype"] == "bfloat16"]
 
@@ -411,7 +924,37 @@ def main():
         "times_are": f"sum over the 32 bf16 launches of one frame batch of "
                      f"{FRAME_BATCH} (chiprun_out/chip_smoke.json has "
                      f"each shape)",
+        "launches_train_path": report["train_path"]["k1_launches"],
     }]
+    k3_bf16 = [r for r in report["k3_cases"] if r["dtype"] == "bfloat16"]
+
+    def per_step(key):  # one train step's forward and dgrad launches
+        return sum(r[key] * r["launches_per_step"] for r in k3_bf16)
+
+    k3_bound = per_step("bound_ms")
+    kernels.append({
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "synergize_motion_appearance_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "synergize_motion_appearance_tpu/ops/"
+                    "pallas_conv_wl.py:39",
+        "launches": report["train_path"]["k3_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3_bf16),
+        "max_abs_err_f32": max(r["max_abs_err"] for r in report["k3_cases"]
+                               if r["dtype"] == "float32"),
+        "ms": per_step("ms"),
+        "plain_ms": per_step("plain_ms"),
+        "bound_ms": k3_bound,
+        "bound_by": ("bytes" if sum(
+            r["bound_ms"] * r["launches_per_step"] for r in k3_bf16
+            if r["bound_by"] == "bytes") > k3_bound / 2 else "operations"),
+        "library_ms": per_step("library_ms"),
+        "times_are": f"sum over the "
+                     f"{report['train_path']['k3_launches_per_step']} bf16 "
+                     f"launches (forward and input gradient) of one "
+                     f"flagship train step at batch {TRAIN_BATCH} "
+                     f"(chiprun_out/chip_smoke.json has each shape)",
+    })
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

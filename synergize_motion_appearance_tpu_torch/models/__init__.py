@@ -1,4 +1,4 @@
-"""Networks of the reenactment path and their registry.
+"""Networks of the reenactment and training paths, and their registry.
 
 ``build_network({'type': ..., **kwargs})`` takes the same ``type`` strings
 as the JAX package's, including the reference alias
@@ -11,10 +11,11 @@ from .appmotion_former import AppMotionCompFormer
 from .dense_motion import DenseMotionNetwork, MotionEstimator
 from .keypoint_detector import KPDetector
 from .transformer import MultiheadAttention, TransformerLayer
-from .vqgan import Encoder, Generator, VectorQuantizer
+from .vgg import VGG19Features
+from .vqgan import Encoder, Generator, VectorQuantizer, VQGANDiscriminator
 
 for _cls in (KPDetector, DenseMotionNetwork, MotionEstimator,
-             AppMotionCompFormer):
+             AppMotionCompFormer, VQGANDiscriminator):
     ARCH_REGISTRY.register(_cls)
 # reference alias (archs/motion_estimator_arch.py:15)
 ARCH_REGISTRY.register(MotionEstimator,
@@ -22,14 +23,15 @@ ARCH_REGISTRY.register(MotionEstimator,
 
 
 # keys of the JAX configs that the port does not take: switches fixed at
-# the value every config uses, and keys that choose a TPU layout (wl_*) or
-# act only in training (quantizer_type, beta)
+# the value every config uses, and the keys that choose the TPU's
+# W-in-lanes layout (wl_*; the port's training forward always runs its
+# decoder region on kernel K3, and inference never does)
 _FIXED = {"with_position_emb": True, "warp_s_d_kp_query": True,
           "MRFA_motion_enc": True, "motion_codebook_split": True,
           "multiscale_feature_fusion": True, "app_codebook_split": True,
           "estimate_jacobian": True, "estimate_occlusion_map": True,
-          "multi_mask": False}
-_IGNORED = ("wl_decoder", "wl_train", "wl_xlr", "quantizer_type", "beta")
+          "multi_mask": False, "quantizer_type": "nearest"}
+_IGNORED = ("wl_decoder", "wl_train", "wl_xlr")
 
 
 def _port_options(opt: Dict[str, Any]) -> Dict[str, Any]:
@@ -57,5 +59,6 @@ def build_network(opt: Dict[str, Any]):
 __all__ = [
     "AppMotionCompFormer", "DenseMotionNetwork", "Encoder", "Generator",
     "KPDetector", "MotionEstimator", "MultiheadAttention",
-    "TransformerLayer", "VectorQuantizer", "build_network",
+    "TransformerLayer", "VGG19Features", "VQGANDiscriminator",
+    "VectorQuantizer", "build_network",
 ]

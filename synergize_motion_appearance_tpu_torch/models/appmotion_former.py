@@ -1,4 +1,4 @@
-"""AppMotionCompFormer, the generator (net_g), inference forward, NCHW.
+"""AppMotionCompFormer, the generator (net_g), NCHW.
 
 Counterpart of the JAX package's models/appmotion_former.py (reference
 archs/appmotioncodebook_arch.py:170-764). At each of the four decoder
@@ -8,9 +8,16 @@ cross-attention, with nested codebook prefixes per scale. Feature maps are
 NCHW; flows are (B, H, W, 2) in [-1, 1] and stay float32 whatever the
 compute dtype. Module names are the reference's torch names.
 
-Only the ``inference=True`` forward and ``encode_source`` are ported here;
-the training forward (quantizer losses, the parallel low-res decode) comes
-with the training slice and raises ``NotImplementedError`` until then.
+The training forward (``inference=False``) adds what the trainer reads:
+the motion-codebook reconstructions and commit losses, the appearance
+commit losses on the driving frame (``gt``), the parallel low-res decode
+``out_lr`` and ``pre_final``, the activation entering the final RGB conv.
+Its decoder region, from the first ``Upsample`` of the generator sweep to
+the final RGB conv (both streams and the fusion blocks inside it, as the
+JAX package's ``wl_layout`` region off the TPU), runs every 3x3 conv on
+kernel K3 (``layers.decoder_region``). The JAX package's training-only
+telemetry that the trainer does not read (``deform_feat_list``,
+``app_recon_list``, ``app_before_comp_list``) is not computed.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ from ..ops import (
     resize_tap_plan,
     tap_reduce,
 )
-from .layers import GroupNorm32, PatchEmbed, PatchUnembed
+from .layers import (Conv2d, GroupNorm32, PatchEmbed, PatchUnembed,
+                     decoder_region)
 from .transformer import TransformerLayer
 from .vqgan import (
     Downsample,
@@ -134,11 +142,11 @@ class FuseSftBlock(nn.Module):
         super().__init__()
         self.encode_enc = VQGANResBlock(2 * in_ch, out_ch)
         self.scale = nn.Sequential(
-            nn.Conv2d(out_ch, out_ch, 3, padding=1), nn.LeakyReLU(0.2),
-            nn.Conv2d(out_ch, out_ch, 3, padding=1))
+            Conv2d(out_ch, out_ch, 3, padding=1), nn.LeakyReLU(0.2),
+            Conv2d(out_ch, out_ch, 3, padding=1))
         self.shift = nn.Sequential(
-            nn.Conv2d(out_ch, out_ch, 3, padding=1), nn.LeakyReLU(0.2),
-            nn.Conv2d(out_ch, out_ch, 3, padding=1))
+            Conv2d(out_ch, out_ch, 3, padding=1), nn.LeakyReLU(0.2),
+            Conv2d(out_ch, out_ch, 3, padding=1))
 
     def forward(self, enc_feat, dec_feat, w=1.0):
         enc = self.encode_enc(torch.cat([enc_feat, dec_feat], dim=1))
@@ -184,7 +192,7 @@ class RefineFlow(nn.Module):
 class AppMotionCompFormer(nn.Module):
     def __init__(self, img_size: int = 256, nf: int = 64,
                  ch_mult: Sequence[int] = (1, 2, 2, 4), res_blocks: int = 2,
-                 attn_resolutions: Sequence[int] = (32,),
+                 attn_resolutions: Sequence[int] = (32,), beta: float = 0.25,
                  codebook_size_motion: int = 1024, embed_dim_motion: int = 32,
                  codebook_size_app: int = 1024, embed_dim_app: int = 256,
                  n_head: int = 8, dim_embd_motion: int = 32,
@@ -248,13 +256,14 @@ class AppMotionCompFormer(nn.Module):
             self.add_module(f"app_feat_emb_{r}", emb)
             self.add_module(f"to_app_feat_{r}", unemb)
 
-        self.quantize_app = VectorQuantizer(codebook_size_app, embed_dim_app)
+        self.quantize_app = VectorQuantizer(codebook_size_app, embed_dim_app,
+                                            beta)
         self.quantize_motion = VectorQuantizer(codebook_size_motion,
-                                               embed_dim_motion)
+                                               embed_dim_motion, beta)
         self.fuse_convs_dict = nn.ModuleDict(
             {str(r): FuseSftBlock(ch[r], ch[r]) for r in self.connect})
         self.fuse_ms_dict = nn.ModuleDict(
-            {str(r): nn.Conv2d(ch[r], ch[r], 3, padding=1)
+            {str(r): Conv2d(ch[r], ch[r], 3, padding=1)
              for r in self.connect})
         self.position_emb_app = nn.Parameter(torch.zeros(t * t, dim_embd_app))
         self.position_emb_motion = nn.Parameter(
@@ -264,8 +273,7 @@ class AppMotionCompFormer(nn.Module):
         self.motion_emb = nn.Sequential(
             nn.Conv2d(2, dm, 3, padding=1), Downsample(dm),
             VQGANResBlock(dm, dm))
-        # the reconstruction head of the training losses; loaded with the
-        # weights, not run at inference
+        # the reconstruction head of the training losses
         self.to_motion = nn.Sequential(
             Upsample(dm), VQGANResBlock(dm, dm), GroupNorm32(dm),
             nn.Conv2d(dm, 2, 3, padding=1))
@@ -301,18 +309,20 @@ class AppMotionCompFormer(nn.Module):
             quantizer.codebook_size // split_count * scale_idx)
 
     def motion_codebook_compensation(self, motion, query_feat, res,
-                                     warp_ctx):
-        """appmotioncodebook_arch.py:373-427, inference.
+                                     warp_ctx, train: bool = False):
+        """appmotioncodebook_arch.py:373-427.
 
         motion: (B, Hd, Wd, 2) flow residual in pixels; query_feat:
         (B, dim, t, t); warp_ctx: relu(to_context(warped source)) at
-        (Hd, Wd). Returns (B, 3, Hd, Wd): flow residual and occlusion
-        logit."""
+        (Hd, Wd). Returns the (B, 3, Hd, Wd) flow residual and occlusion
+        logit, and with ``train`` the (B, Hd, Wd, 2) reconstruction of the
+        motion from its quantized embedding and the commit loss (else
+        None, None)."""
         B, Hd, Wd, _ = motion.shape
         t = self.token_hw
         dim = self.dim_embd_motion
         m = motion.permute(0, 3, 1, 2).to(self.compute_dtype)
-        m_feat = self.motion_emb(m)                           # (B, dim, t, t)
+        m_feat = self.motion_emb(m.detach())                  # (B, dim, t, t)
         if query_feat.shape[2:] != m_feat.shape[2:]:
             query_feat = resize_bilinear(query_feat, tuple(m_feat.shape[2:]),
                                          align_corners=True)
@@ -327,7 +337,15 @@ class AppMotionCompFormer(nn.Module):
         query_emb = tokens.transpose(1, 2).reshape(B, dim, t, t)
         motion_f = resize_bilinear(query_emb, (Hd, Wd), align_corners=True)
         m_f = self.BasicMotionEncoder(m, motion_f)
-        return self.refine(m_f, warp_ctx)
+        m_res = self.refine(m_f, warp_ctx)
+        if not train:
+            return m_res, None, None
+        chunk = self.quantize_motion.codebook_size // (1 + len(self.connect))
+        num = chunk * (self.scales.index(res) + 1)
+        z_q, loss, _ = self.quantize_motion(m_feat.permute(0, 2, 3, 1),
+                                            num=num)
+        m_recon = self.to_motion(z_q.permute(0, 3, 1, 2))
+        return m_res, m_recon.permute(0, 2, 3, 1), loss
 
     def _app_tokens(self, feat, res):
         """(B, C, r, r) -> (B, t*t, dim_embd_app) patch embedding."""
@@ -364,6 +382,23 @@ class AppMotionCompFormer(nn.Module):
                            query_pos=pos)
         return self._app_untokens(tokens, r)
 
+    def app_codebook_loss(self, gt):
+        """Commit losses of the driving frame's encoder features against
+        the appearance codebook prefix of each scale
+        (appmotioncodebook_arch.py:429-469)."""
+        taps = {self.enc_taps[r]: r for r in self.connect_app}
+        _, feats = self.encoder(gt, taps=taps)
+        t = self.token_hw
+        chunk = self.quantize_app.codebook_size // len(self.connect_app)
+        losses = []
+        for r in self.connect_app:
+            tokens = self._app_tokens(feats[self.enc_taps[r]], r)
+            grid = tokens.reshape(-1, t, t, self.dim_embd_app)
+            _, loss, _ = self.quantize_app(
+                grid, num=chunk * (self.scales.index(r) + 1))
+            losses.append(loss)
+        return losses
+
     def encode_source(self, x):
         """One encoder sweep -> {'latent', 'feats'}; pass it as
         ``source_feats`` so a source is encoded once, not per frame batch.
@@ -377,18 +412,17 @@ class AppMotionCompFormer(nn.Module):
 
     def forward(self, x, dense_motion, w: float = 1.0,
                 inference: bool = False, gt=None, source_feats=None):
-        """x: (1 or B, 3, H, W) source in [-1, 1]; dense_motion from
-        MotionEstimator.estimate_motion_w_kp. Returns a dict whose 'out' is
-        the (B, 3, H, W) generated frame."""
-        if not inference or gt is not None:
-            raise NotImplementedError(
-                "the training forward of AppMotionCompFormer is not "
-                "ported yet; call with inference=True")
+        """x: (1 or B, 3, H, W) source in [-1, 1]; dense_motion from the
+        MotionEstimator; gt: (B, 3, H, W) driving frame, whose appearance
+        commit losses the training forward adds. Returns a dict whose 'out'
+        is the (B, 3, H, W) generated frame; ``inference=False`` adds the
+        training outputs (see the module docstring)."""
         if x.shape[2] != self.img_size or x.shape[3] != self.img_size:
             raise ValueError(
                 f"AppMotionCompFormer(img_size={self.img_size}) got source "
                 f"of shape {tuple(x.shape)}; resize inputs to "
                 f"({self.img_size}, {self.img_size}) first.")
+        train = not inference
         if source_feats is None:
             source_feats = self.encode_source(x)
         enc_feat_dict = source_feats["feats"]
@@ -403,6 +437,8 @@ class AppMotionCompFormer(nn.Module):
         motion_list = [deformation]
         res_motion_list = []
         out_occ = []
+        motion_recon_list = []
+        codebook_loss_motion_list = []
         dense_occ = dense_motion["occlusion_map"]          # (B, 1, Hd, Wd)
 
         kp_heat = resize_bilinear(dense_motion["driving_kp_heatmap"], (t, t),
@@ -435,10 +471,13 @@ class AppMotionCompFormer(nn.Module):
             else:
                 warp_ctx = deform_input_resized(feat, motion_q, Hd,
                                                 point_fn=ctx_fn)
-            m_res = self.motion_codebook_compensation(
-                (motion_q - grid) * half, q_feat, res, warp_ctx)
+            m_res, m_recon, cb_loss = self.motion_codebook_compensation(
+                (motion_q - grid) * half, q_feat, res, warp_ctx, train)
             res_motion_list.append(m_res[:, 0:2].permute(0, 2, 3, 1) / half)
             motion_list.append(motion_q + res_motion_list[-1])
+            if train:
+                motion_recon_list.append(m_recon / half)
+                codebook_loss_motion_list.append(cb_loss)
             return m_res[:, 2:3]
 
         # base scale (the token grid)
@@ -447,13 +486,28 @@ class AppMotionCompFormer(nn.Module):
         m_com = motion_list[-1]
         lq_feat = occlude_input(deform_input(x, m_com), out_occ[0])
         lq_feat = self.app_codebook_compensation(lq_feat, m_com)
+        codebook_loss_app_list = (self.app_codebook_loss(gt)
+                                  if train and gt is not None else None)
 
-        # generator sweep with per-scale fusion
+        # generator sweep with per-scale fusion; in training also the
+        # parallel low-res decode of lq_feat through the same blocks
         xg = lq_feat
+        x_lr = lq_feat if train else None
         gen_tap_idx = {self.gen_taps[r]: r for r in self.connect}
         max_app_res = max(self.connect_app)
+        last = len(self.generator.blocks) - 1
+        region = False
+        pre_final = None
         for i, block in enumerate(self.generator.blocks):
-            xg = block(xg)
+            if train and isinstance(block, Upsample):
+                region = True
+            if i == last:
+                region = False
+                pre_final = xg
+            with decoder_region(region):
+                xg = block(xg)
+                if x_lr is not None:
+                    x_lr = block(x_lr)
             if i not in gen_tap_idx:
                 continue
             f_res = gen_tap_idx[i]
@@ -466,13 +520,21 @@ class AppMotionCompFormer(nn.Module):
             if f_res <= max_app_res:
                 enc_feat_warped = self.app_codebook_compensation(
                     enc_feat_warped, m_com)
-            xg = self.fuse_convs_dict[str(f_res)](enc_feat_warped, xg, w)
-            xg = xg + self.fuse_ms_dict[str(f_res)](enc_feat_warped)
+            with decoder_region(region):
+                xg = self.fuse_convs_dict[str(f_res)](enc_feat_warped, xg, w)
+                xg = xg + self.fuse_ms_dict[str(f_res)](enc_feat_warped)
 
-        return {
+        out = {
             "out": xg,
             "lq_feat": lq_feat,
             "out_occ": out_occ,
             "deformation_list": motion_list,
             "res_deform_list": res_motion_list,
         }
+        if train:
+            out.update(pre_final=pre_final, out_lr=[x_lr],
+                       motion_recon_list=motion_recon_list,
+                       codebook_loss_motion_list=codebook_loss_motion_list)
+            if codebook_loss_app_list is not None:
+                out["codebook_loss_app_list"] = codebook_loss_app_list
+        return out

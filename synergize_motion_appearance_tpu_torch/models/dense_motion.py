@@ -124,6 +124,15 @@ class MotionEstimator(nn.Module):
         self.dense_motion_network = DenseMotionNetwork(
             **common_params, **dense_motion_params)
 
+    def forward(self, driving_image, source_image):
+        """Keypoints of both frames and the dense motion from the source to
+        the driving frame (the JAX module's ``__call__``, which the
+        training step runs). In train mode the BatchNorm statistics update
+        in call order: driving keypoints, source keypoints, dense motion."""
+        kp_driving = self.kp_detector(driving_image)
+        kp_source = self.kp_detector(source_image)
+        return self.estimate_motion_w_kp(kp_source, kp_driving, source_image)
+
     def estimate_kp(self, image, pre_downsampled: bool = False):
         return self.kp_detector(image, pre_downsampled)
 

@@ -1,20 +1,85 @@
 """Shared building blocks (counterpart of the JAX package's models/layers.py).
 
-The JAX package's ``Conv2d`` is ``nn.Conv2d`` here and its ``BatchNorm2d``
-(eval mode, eps 1e-5) is ``nn.BatchNorm2d``. Its ``Dense`` with
-``patch=p`` / ``transpose_patch=p`` (a stride-p conv / transposed conv as
-a matmul over (p_row, p_col, C)-ordered patches) is ``PatchEmbed`` /
-``PatchUnembed``: ``nn.Sequential``s that hold the ``nn.Linear`` at the
-index the upstream reference gives it, so its state_dict names load. The
-W-in-lanes layout, the shift+matmul conv routing and the remat names are
-TPU execution strategies over the same parameters and are not ported.
+The JAX package's ``Conv2d`` is ``nn.Conv2d`` here, or this module's
+``Conv2d`` where a conv may run inside the decoder region (below). Its
+``BatchNorm2d`` (momentum 0.1, eps 1e-5) is this module's ``BatchNorm2d``.
+Its ``Dense`` with ``patch=p`` / ``transpose_patch=p`` (a stride-p conv /
+transposed conv as a matmul over (p_row, p_col, C)-ordered patches) is
+``PatchEmbed`` / ``PatchUnembed``: ``nn.Sequential``s that hold the
+``nn.Linear`` at the index the upstream reference gives it, so its
+state_dict names load. The shift+matmul conv routing and the remat names
+are TPU execution strategies over the same parameters and are not ported.
+
+The decoder region. The JAX package's ``wl_layout`` scope (layers.py:
+298-340) runs the training graph's decoder convs on the Pallas 3x3 kernel,
+in a (B, H, C, W) layout that only served the TPU. Here the region is a
+plain flag with no layout change: inside ``decoder_region()``, every 3x3,
+stride-1, pad-1, ungrouped ``Conv2d`` runs kernel K3 (``ops.conv3x3``);
+every other conv stays on ``F.conv2d``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.conv3x3 import conv3x3
+
+_DECODER_REGION = contextvars.ContextVar("samt_decoder_region",
+                                         default=False)
+
+
+@contextlib.contextmanager
+def decoder_region(enable: bool = True):
+    """Scope in which the 3x3 convs of ``Conv2d`` run kernel K3."""
+    tok = _DECODER_REGION.set(enable)
+    try:
+        yield
+    finally:
+        _DECODER_REGION.reset(tok)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and names) whose 3x3, stride-1,
+    pad-1, ungrouped form runs kernel K3 inside ``decoder_region()``."""
+
+    def forward(self, x):
+        if (_DECODER_REGION.get() and self.kernel_size == (3, 3)
+                and self.stride == (1, 1) and self.padding == (1, 1)
+                and self.dilation == (1, 1) and self.groups == 1
+                and self.padding_mode == "zeros"):
+            return conv3x3(x, self.weight, self.bias)
+        return super().forward(x)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (momentum 0.1, eps 1e-5, same buffers) with the
+    JAX package's training rule (flax ``nn.BatchNorm``, layers.py:519-542):
+    in train mode it normalises with the batch statistics and moves the
+    running variance toward the *biased* batch variance, where torch's own
+    module uses the unbiased one. Statistics in float32, output in the
+    input's dtype."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.copy_(
+                ((1 - m) * self.running_mean.float() + m * mean)
+                .to(self.running_mean.dtype))
+            self.running_var.copy_(
+                ((1 - m) * self.running_var.float() + m * var)
+                .to(self.running_var.dtype))
+        y = F.batch_norm(xf, None, None, self.weight.float(),
+                         self.bias.float(), True, 0.0, self.eps)
+        return y.to(x.dtype)
 
 
 def swish(x):

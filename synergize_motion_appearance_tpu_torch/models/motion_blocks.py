@@ -3,8 +3,9 @@
 Counterpart of the JAX package's models/motion_blocks.py; module names are
 the reference's (utils/motion_estimator_util.py: ResBlock2d :163-185,
 UpBlock2d :214-231, DownBlock2d :363-380, SameBlock2d :383-398, Encoder
-:440-459, Decoder :462-492, Hourglass :551-563). BatchNorm runs with its
-running statistics (the port is inference only).
+:440-459, Decoder :462-492, Hourglass :551-563). BatchNorm is
+``layers.BatchNorm2d``: running statistics in eval mode, batch statistics
+with the JAX package's update rule in train mode.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import avg_pool_2x, upsample_nearest
+from .layers import BatchNorm2d
 
 
 class ResBlock2d(nn.Module):
@@ -25,8 +27,8 @@ class ResBlock2d(nn.Module):
                                padding=padding)
         self.conv2 = nn.Conv2d(in_features, in_features, kernel_size,
                                padding=padding)
-        self.norm1 = nn.BatchNorm2d(in_features)
-        self.norm2 = nn.BatchNorm2d(in_features)
+        self.norm1 = BatchNorm2d(in_features)
+        self.norm2 = BatchNorm2d(in_features)
 
     def forward(self, x):
         out = self.conv1(F.relu(self.norm1(x)))
@@ -38,7 +40,7 @@ class UpBlock2d(nn.Module):
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.conv = nn.Conv2d(in_features, out_features, 3, padding=1)
-        self.norm = nn.BatchNorm2d(out_features)
+        self.norm = BatchNorm2d(out_features)
 
     def forward(self, x):
         return F.relu(self.norm(self.conv(upsample_nearest(x, 2))))
@@ -48,7 +50,7 @@ class DownBlock2d(nn.Module):
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
         self.conv = nn.Conv2d(in_features, out_features, 3, padding=1)
-        self.norm = nn.BatchNorm2d(out_features)
+        self.norm = BatchNorm2d(out_features)
 
     def forward(self, x):
         return avg_pool_2x(F.relu(self.norm(self.conv(x))))
@@ -60,7 +62,7 @@ class SameBlock2d(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_features, out_features, kernel_size,
                               padding=padding)
-        self.norm = nn.BatchNorm2d(out_features)
+        self.norm = BatchNorm2d(out_features)
 
     def forward(self, x):
         return F.relu(self.norm(self.conv(x)))

@@ -1,20 +1,21 @@
-"""VQGAN encoder/generator blocks and the codebook, NCHW.
+"""VQGAN encoder/generator blocks, the codebook and the discriminator, NCHW.
 
-Counterpart of the parts of the JAX package's models/vqgan.py that
-inference reaches (reference archs/vqgan_arch.py). The encoder and
-generator are ``nn.ModuleList``s with the reference's per-index structure,
-because AppMotionCompFormer taps skip features at fixed block indices.
+Counterpart of the JAX package's models/vqgan.py (reference
+archs/vqgan_arch.py). The encoder and generator are ``nn.ModuleList``s with
+the reference's per-index structure, because AppMotionCompFormer taps skip
+features at fixed block indices. Their 3x3 convs are ``layers.Conv2d``,
+which runs kernel K3 inside the training forward's decoder region.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import upsample_nearest
-from .layers import GroupNorm32, swish
+from ..ops import upsample_nearest, vq_quantize
+from .layers import BatchNorm2d, Conv2d, GroupNorm32, swish
 
 
 class VQGANResBlock(nn.Module):
@@ -24,9 +25,9 @@ class VQGANResBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.norm1 = GroupNorm32(in_channels)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1)
         self.norm2 = GroupNorm32(out_channels)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_out = (nn.Conv2d(in_channels, out_channels, 1)
                          if in_channels != out_channels else None)
 
@@ -79,7 +80,7 @@ class Upsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(upsample_nearest(x, 2))
@@ -140,7 +141,7 @@ def make_blocks(defs, in_channels: int) -> nn.ModuleList:
     ch = in_channels
     for kind, out in defs:
         if kind == "conv":
-            blocks.append(nn.Conv2d(ch, out, 3, padding=1))
+            blocks.append(Conv2d(ch, out, 3, padding=1))
             ch = out
         elif kind == "res":
             blocks.append(VQGANResBlock(ch, out))
@@ -194,16 +195,45 @@ class Generator(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """The codebook (vqgan_arch.py:24-111). Inference reads slices of it
-    as attention context; quantizing belongs to the training slice."""
+    """The codebook (vqgan_arch.py:24-111): read in slices as attention
+    context, and quantized against in the training forward."""
 
-    def __init__(self, codebook_size: int, emb_dim: int):
+    def __init__(self, codebook_size: int, emb_dim: int, beta: float = 0.25):
         super().__init__()
         self.codebook_size = codebook_size
+        self.beta = beta
         self.embedding = nn.Embedding(codebook_size, emb_dim)
         nn.init.uniform_(self.embedding.weight, -1.0 / codebook_size,
                          1.0 / codebook_size)
 
+    def forward(self, z, start: int = 0, num: Optional[int] = None):
+        """Quantize channel-last ``z`` (..., emb_dim) against
+        codebook[start:start + num]: (z_q, commit loss, stats)."""
+        return vq_quantize(z, self.embedding.weight, self.beta, start, num)
+
     def codebook_slice(self, num: int):
         """The first ``num`` codebook entries, (num, emb_dim)."""
         return self.embedding.weight[:num]
+
+
+class VQGANDiscriminator(nn.Module):
+    """PatchGAN discriminator (vqgan_arch.py:535-575) with train-mode
+    BatchNorm. ``main`` is the reference's Sequential, so its state_dict
+    names are the reference's."""
+
+    def __init__(self, nc: int = 3, ndf: int = 64, n_layers: int = 4):
+        super().__init__()
+        layers: List[nn.Module] = [nn.Conv2d(nc, ndf, 4, 2, 1),
+                                   nn.LeakyReLU(0.2)]
+        mult = 1
+        for n in range(1, n_layers + 1):
+            prev, mult = mult, min(2 ** n, 8)
+            stride = 2 if n < n_layers else 1
+            layers += [nn.Conv2d(ndf * prev, ndf * mult, 4, stride, 1,
+                                 bias=False),
+                       BatchNorm2d(ndf * mult), nn.LeakyReLU(0.2)]
+        layers.append(nn.Conv2d(ndf * mult, 1, 4, 1, 1))
+        self.main = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.main(x)

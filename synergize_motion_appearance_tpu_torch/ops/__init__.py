@@ -1,5 +1,7 @@
-"""Ops of the reenactment path: coordinates, resampling and the fused
-attention kernel."""
+"""Ops of the port: coordinates, resampling, vector quantization, the TPS
+warps of the equivariance loss, and kernel K1 (fused attention). Kernel K3
+is the module ``ops.conv3x3`` (its function of the same name is not
+re-exported here, so that ``ops.conv3x3`` stays the module)."""
 from .coords import (
     antialias_downsample,
     antialias_weight,
@@ -23,12 +25,22 @@ from .interp import (
     tap_reduce,
     upsample_nearest,
 )
+from .tps import (
+    RandomTPSParams,
+    sample_random_tps,
+    tps_jacobian,
+    tps_warp_coordinates,
+    tps_warp_frame_grid,
+)
+from .vq import vq_lookup, vq_nearest_indices, vq_quantize
 
 __all__ = [
-    "antialias_downsample", "antialias_weight", "avg_pool_2x",
-    "convex_hull_area", "fused_attention_packed",
-    "fused_attention_packed_reference", "grid_sample",
-    "grid_sample_grouped", "interpolate_flow", "kp2gaussian",
+    "RandomTPSParams", "antialias_downsample", "antialias_weight",
+    "avg_pool_2x", "convex_hull_area",
+    "fused_attention_packed", "fused_attention_packed_reference",
+    "grid_sample", "grid_sample_grouped", "interpolate_flow", "kp2gaussian",
     "make_coordinate_grid", "resize_bilinear", "resize_bilinear_at",
-    "resize_tap_plan", "softargmax_kp", "tap_reduce", "upsample_nearest",
+    "resize_tap_plan", "sample_random_tps", "softargmax_kp", "tap_reduce",
+    "tps_jacobian", "tps_warp_coordinates", "tps_warp_frame_grid",
+    "upsample_nearest", "vq_lookup", "vq_nearest_indices", "vq_quantize",
 ]

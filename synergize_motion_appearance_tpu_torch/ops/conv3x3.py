@@ -1,0 +1,162 @@
+"""3x3, stride-1, pad-1 convolution plus bias (kernel K3 of the port).
+
+Counterpart of ``synergize_motion_appearance_tpu/ops/pallas_conv_wl.py``'s
+``conv3x3_wl`` and its differentiable wrapper ``conv3x3_wl_ad``, in the
+port's NCHW layout: x (B, C, H, W), w (Cout, C, 3, 3) as ``nn.Conv2d``
+holds it, optional bias (Cout,). Returns (B, Cout, H, W) in x's dtype,
+accumulated in float32 (float64 for float64 inputs, as the JAX package).
+
+On a CUDA tensor the call launches the hand-written kernel
+``csrc/conv3x3.cu`` or raises; on a CPU tensor it runs
+``conv3x3_reference``, the plain PyTorch version, which the tests hold
+against the JAX package and the on-card check holds the kernel against.
+The gradient is laid out like ``conv3x3_wl_ad``'s custom VJP: the input
+gradient is the same kernel on dy with the weights rotated 180 degrees and
+their channels swapped, the weight gradient 9 shifted float32 contractions,
+the bias gradient a sum.
+"""
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+
+# Kernel launches made by `conv3x3` (forward and input gradient) since the
+# last reset, and how many of them ran at each
+# (B, C, Cout, H, W, dtype name).
+launches = 0
+launch_shapes: Counter = Counter()
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+    launch_shapes.clear()
+
+
+def _acc_dtype(x):
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def conv3x3_reference(x, w, b=None):
+    """Plain version: 9 shifted multiply-accumulates in float32 (float64
+    for float64 inputs), the output rounded once to x's dtype."""
+    B, C, H, W = x.shape
+    acc = _acc_dtype(x)
+    xp = F.pad(x.to(acc), (1, 1, 1, 1))
+    wf = w.to(acc)
+    out = torch.zeros(B, w.shape[0], H, W, dtype=acc, device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            out = out + torch.einsum("bchw,oc->bohw",
+                                     xp[:, :, ky:ky + H, kx:kx + W],
+                                     wf[:, :, ky, kx])
+    if b is not None:
+        out = out + b.to(acc)[None, :, None, None]
+    return out.to(x.dtype)
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(x, w, b):
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (3, 3):
+        raise ValueError(f"want x (B, C, H, W) and w (Cout, C, 3, 3); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if w.shape[1] != x.shape[1]:
+        raise ValueError(f"w {tuple(w.shape)} does not take {x.shape[1]} "
+                         f"input channels")
+    if b is not None and tuple(b.shape) != (w.shape[0],):
+        raise ValueError(f"bias must be ({w.shape[0]},), got "
+                         f"{tuple(b.shape)}")
+
+
+def _launch_cuda(x, w, b):
+    global launches
+    B, C, H, W = x.shape
+    Cout = w.shape[0]
+    tensors = [x, w] + ([b] if b is not None else [])
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError(f"x, w and bias must share float32 or bfloat16; got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, w and bias must be on one CUDA device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("x, w and bias must be contiguous")
+    lib = cuda_build.load("conv3x3")
+    fn = lib.samt_conv3x3
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(),
+                 b.data_ptr() if b is not None else None, y.data_ptr(),
+                 B, C, H, W, Cout, _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 kernel launch failed with CUDA error "
+                           f"{err}")
+    launches += 1
+    launch_shapes[(B, C, Cout, H, W, str(x.dtype).split(".")[1])] += 1
+    return y
+
+
+def _forward(x, w, b):
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, w, b)
+    if x.device.type == "cuda":
+        return _launch_cuda(x.contiguous(), w.contiguous(),
+                            None if b is None else b.contiguous())
+    raise ValueError(f"no conv3x3 for device {x.device}")
+
+
+def flipped_weights(w):
+    """(Cout, C, 3, 3) -> (C, Cout, 3, 3): rotated 180 degrees, channels
+    swapped; the conv with these is the input gradient of the conv with w."""
+    return w.flip(2, 3).transpose(0, 1).contiguous()
+
+
+def weight_grad(x, dy):
+    """dw[o, c, ky, kx] = sum over (b, h, w) of xpad[b, c, h+ky, w+kx] *
+    dy[b, o, h, w], as 9 float32 (float64) contractions; in x's dtype."""
+    B, C, H, W = x.shape
+    acc = _acc_dtype(x)
+    xp = F.pad(x.to(acc), (1, 1, 1, 1))
+    dyf = dy.to(acc).reshape(B, dy.shape[1], H * W)
+    taps = [torch.einsum("bop,bcp->oc", dyf,
+                         xp[:, :, ky:ky + H, kx:kx + W].reshape(B, C, H * W))
+            for ky in range(3) for kx in range(3)]
+    dw = torch.stack(taps, dim=-1).reshape(dy.shape[1], C, 3, 3)
+    return dw.to(x.dtype)
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return _forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _forward(dy, flipped_weights(w), None)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, dy).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = dy.to(_acc_dtype(dy)).sum(dim=(0, 2, 3)).to(dy.dtype)
+        return dx, dw, db
+
+
+def conv3x3(x, w, b: Optional[torch.Tensor] = None):
+    """3x3, stride-1, pad-1 conv plus bias (see the module docstring)."""
+    _check(x, w, b)
+    return _Conv3x3.apply(x, w, b)

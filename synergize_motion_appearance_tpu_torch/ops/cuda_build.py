@@ -1,6 +1,6 @@
-"""Build the package's CUDA source into a shared library at first use.
+"""Build the package's CUDA sources into shared libraries at first use.
 
-``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into ``build/cuda/<name>-<hash>.so`` beside the
 package, where ``<hash>`` covers every file under ``csrc/`` and the flags,
 so an edited source is rebuilt and an unchanged one is loaded as it is. The
@@ -50,23 +50,34 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> float:
-    """Compile csrc/<name>.cu unless its library is up to date; returns
-    the seconds nvcc took (0.0 when nothing was built)."""
-    final = _library_path(name)
-    if final.exists():
+def build(*names: str) -> float:
+    """Compile csrc/<name>.cu for each name whose library is not up to
+    date, one nvcc process per source, all started together; returns the
+    seconds until the last one finished (0.0 when nothing was built)."""
+    todo = [n for n in names if not _library_path(n).exists()]
+    if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, final)  # atomic: a concurrent build never sees half a file
+    jobs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            Path(tmp).unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+        else:
+            # atomic: a concurrent build never sees half a file
+            os.replace(tmp, _library_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
 
 

@@ -2,7 +2,8 @@
 JAX package's parameter trees to the port's state_dicts.
 
 No trained weights ship with the repository; ``seeded_nets`` builds the
-two networks of a config with weights made from a seed.
+two networks of a config with weights made from a seed, and
+``seeded_train_nets`` the four networks of a training config.
 
 The JAX package keeps each network's variables as ``{"params": ...,
 "batch_stats": ...}`` trees; given as nested dicts of numpy arrays, these
@@ -12,7 +13,12 @@ of the reverse direction of tools/convert_reference_checkpoint.py
 (``Converter.mha``, ``map_motion_estimator``, ``map_net_g``): conv kernels
 HWIO -> OIHW, linear (I, O) -> (O, I), attention wq/wk/wv -> the packed
 (3E, E) ``in_proj_weight``, BatchNorm scale/bias + running stats, and the
-fixed anti-alias blur buffers, which have no JAX parameter.
+fixed anti-alias blur buffers, which have no JAX parameter. The
+discriminator's names follow ``map_net_d`` of that tool, and VGG19's are
+torchvision's, the reverse of tools/convert_vgg_weights.py's
+``torch_vgg_to_flax``. ``load_train_state`` carries a whole JAX
+``TrainState`` (weights, BatchNorm statistics, EMA, Adam moments and
+counts) into a ``training.Trainer``.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .models import build_network
+from .models import VGG19Features, build_network
+from .models.vgg import CONV_INDICES
 from .models.vqgan import encoder_block_defs, generator_block_defs
 from .ops import antialias_weight
 
@@ -42,6 +49,16 @@ def seeded_nets(cfg, seed: int):
                 m.running_var.copy_(
                     0.5 + torch.rand(m.running_var.shape, generator=gen))
     return g, me
+
+
+def seeded_train_nets(opt, seed: int):
+    """(net_g, motion_estimator, net_d, vgg) of a training config
+    (``opt['network_d']`` too) with PyTorch's default init from ``seed``,
+    built on the CPU. The VGG19 weights are random as well, since no
+    pretrained ones are in the repository."""
+    g, me = seeded_nets(opt, seed)
+    torch.manual_seed(seed + 2)
+    return g, me, build_network(opt["network_d"]), VGG19Features()
 
 
 class _Exporter:
@@ -241,3 +258,81 @@ def net_g_state_dict(variables, net_cfg) -> Dict[str, torch.Tensor]:
     e.conv2d("motion_query_enc_1", "motion_query_enc_1")
     e.conv2d("motion_query_enc_2", "motion_query_enc_2")
     return e.state_dict()
+
+
+def net_d_state_dict(variables, n_layers: int = 4) -> Dict[str, torch.Tensor]:
+    """VQGANDiscriminator variables -> the port's (reference-named,
+    ``main.<i>``) state_dict."""
+    e = _Exporter(variables)
+    e.conv2d("main.0", "conv0")
+    idx = 2
+    for n in range(1, n_layers + 1):
+        e.conv2d(f"main.{idx}", f"conv{n}")
+        e.bn(f"main.{idx + 1}", f"bn{n}")
+        idx += 3
+    e.conv2d(f"main.{idx}", "conv_out")
+    return e.state_dict()
+
+
+def vgg_state_dict(params) -> Dict[str, torch.Tensor]:
+    """VGG19Features params (``conv<i>/Conv_0/{kernel,bias}``) -> the
+    torchvision-named state_dict of the port's ``VGG19Features``."""
+    e = _Exporter({"params": params})
+    for i, idx in enumerate(CONV_INDICES):
+        e.conv2d(f"features.{idx}", f"conv{i}")
+    return e.state_dict()
+
+
+def _param_part(sd, module) -> Dict[str, torch.Tensor]:
+    """The entries of ``sd`` that are parameters of ``module``."""
+    names = dict(module.named_parameters())
+    return {k: v for k, v in sd.items() if k in names}
+
+
+def load_train_state(trainer, jax_state, vgg_params=None) -> None:
+    """Load a JAX ``TrainState`` (training/trainer.py:51: step, params and
+    BatchNorm statistics of the three networks, the generator's EMA, and
+    the ``optax.scale_by_adam`` states ``opt_g/m/d`` with count, mu and
+    nu), and optionally the VGG19Features params, into ``trainer``: its
+    modules' weights and statistics, and its ``state``. Leaves may be JAX
+    or numpy arrays."""
+    from .training import AdamState, TrainState
+
+    opt = trainer.opt
+    g_cfg, me_cfg = opt["network_g"], opt["network_motion_estimator"]
+    n_layers = opt["network_d"].get("n_layers", 4)
+    st = jax_state
+
+    def g_sd(tree):
+        return net_g_state_dict({"params": tree}, g_cfg)
+
+    def m_sd(tree):
+        return motion_estimator_state_dict(
+            {"params": tree, "batch_stats": st.stats_m}, me_cfg)
+
+    def d_sd(tree):
+        return net_d_state_dict({"params": tree, "batch_stats": st.stats_d},
+                                n_layers)
+
+    dev = trainer.device
+    modules = ((trainer.net_g, g_sd, st.params_g, st.opt_g, "opt_g"),
+               (trainer.motion_estimator, m_sd, st.params_m, st.opt_m,
+                "opt_m"),
+               (trainer.net_d, d_sd, st.params_d, st.opt_d, "opt_d"))
+    adam = {}
+    for module, to_sd, params, opt_state, name in modules:
+        module.load_state_dict(to_sd(params), strict=True)
+
+        def moments(tree):  # copies: the state is updated in place
+            return {k: v.to(dev, copy=True) for k, v in
+                    _param_part(to_sd(tree), module).items()}
+
+        adam[name] = AdamState(int(np.asarray(opt_state.count)),
+                               moments(opt_state.mu), moments(opt_state.nu))
+    if vgg_params is not None:
+        trainer.vgg.load_state_dict(vgg_state_dict(vgg_params), strict=True)
+    trainer.reset_optimizers(int(np.asarray(st.step)))
+    trainer.state = TrainState(
+        step=trainer.state.step,
+        ema_g={k: v.to(dev, copy=True) for k, v in g_sd(st.ema_g).items()},
+        **adam)

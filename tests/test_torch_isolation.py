@@ -31,9 +31,13 @@ def _imported_roots(tree):
 def test_port_has_sources():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     for expected in ("inference.py", "weights.py", "configs.py",
-                     "ops/fused_attention.py", "models/appmotion_former.py"):
+                     "losses.py", "training/trainer.py",
+                     "ops/fused_attention.py", "ops/conv3x3.py",
+                     "ops/vq.py", "ops/tps.py", "models/vgg.py",
+                     "models/appmotion_former.py"):
         assert expected in names
-    assert (PORT / "csrc" / "fused_attention_packed.cu").exists()
+    for source in ("fused_attention_packed.cu", "conv3x3.cu"):
+        assert (PORT / "csrc" / source).exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

@@ -263,7 +263,8 @@ def test_encode_source(nets):
 
 def test_generator_inference_call(nets):
     """AppMotionCompFormer(inference=True) on a batch-1 source and a
-    batch-2 motion, from the same dense-motion inputs."""
+    batch-2 motion, from the same dense-motion inputs; the training
+    forward on them gives the same frame."""
     _, jg, jme, g_vars, m_vars, tg, _ = nets
     src, drv = _images(1, 13), _images(2, 14)
     kp_s = jme.apply(m_vars, jnp.asarray(src), method="estimate_kp")
@@ -284,8 +285,13 @@ def test_generator_inference_call(nets):
     _close(_nhwc(out["out"]), ref["out"], 2e-4)
     for got, want in zip(out["deformation_list"], ref["deformation_list"]):
         _close(got, want, 2e-4)
-    with pytest.raises(NotImplementedError):
-        tg(_nchw(src), dm_t, inference=False)
+    # the training forward (no gt): the same frame, on kernel K3's plain
+    # version in the decoder region, plus the training outputs
+    with torch.no_grad():
+        train = tg(_nchw(src), dm_t, inference=False)
+    _close(_nhwc(train["out"]), _nhwc(out["out"]), 1e-5)
+    assert len(train["motion_recon_list"]) == 4
+    assert "codebook_loss_app_list" not in train
 
 
 @pytest.mark.parametrize("yml,name", [("tiny.yml", "tiny"),
