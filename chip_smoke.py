@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port: builds its CUDA kernels, holds
-each against its plain PyTorch version at the main paths' shapes, checks
-the tiny config on the card against the port on the CPU, and drives the
-port's two paths at the flagship 256x256 width with seeded random weights:
+each against its plain PyTorch version (K1 and K3 at the main paths'
+shapes, K2 and K4, which no path calls, at those shapes relaid to their
+layouts), checks the tiny config on the card against the port on the CPU,
+and drives the port's three paths at the flagship 256x256 width with
+seeded random weights:
 - the reenactment path (ReenactmentPipeline.animate), uint8 frames in and
   out as bench.py runs it, then a profile of one frame batch of it;
 - the training step (training.Trainer.train_step) of options/train.yml,
-  batch 2, bf16 compute, then a profile of one step of it.
+  batch 2, bf16 compute, then a profile of one step of it;
+- the training entry point (train.run) at the same config over a native
+  frame cache of seeded image-like frames: 4 steps with checkpoints at
+  steps 2 and 4, the step-2 checkpoint restored bit for bit, and a second
+  run that resumes from it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -19,6 +25,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -39,6 +46,15 @@ FRAME_BATCH = 16   # bench.py's frame batch; also the B of every K1 shape
 
 TRAIN_STEPS = 5    # timed steps of the training path, after one warm-up
 TRAIN_BATCH = 2    # options/train.yml's batch per card
+
+CLI_STEPS = 4                  # steps of the training entry point's run
+CACHE_VIDEOS, CACHE_FRAMES = 8, 8  # its native frame cache: 12.6 MB
+CACHE_SIZE = 256                   # frames of the flagship's img_size
+
+# K1 per frame batch and K3 per train step, bf16 (chip call 16 of the
+# previous slice, NVIDIA H100 80GB HBM3, 700.00 W); on a card at that
+# power limit, neither may be more than 10% slower now
+PREVIOUS_MS = {"fused_attention_packed": 13.59, "conv3x3": 54.24}
 
 # profiled kernel-name substrings -> kind, first match wins
 KINDS = [
@@ -157,16 +173,8 @@ def check_attention(torch, fa, B, L=1024):
                    "max_abs_err": err}
             if dtype == torch.bfloat16:
                 row.update(timings(torch, F, fa, q, k, v, bias, H))
-                s = q.element_size()
-                nbytes = (2 * q.numel() + k.numel() + v.numel()) * s + (
-                    bias.numel() * 4 if bias is not None else 0)
-                flops = 4 * B * L * K * E
-                row["bound_ms"] = 1e3 * max(
-                    nbytes / HBM_BYTES_PER_S,
-                    flops / PEAK_FLOPS[row["dtype"]])
-                row["bound_by"] = ("bytes" if nbytes / HBM_BYTES_PER_S
-                                   > flops / PEAK_FLOPS[row["dtype"]]
-                                   else "operations")
+                row.update(attention_bound(q, k, v, bias, B * L * K * E,
+                                           row["dtype"]))
             rows.append(row)
             print(f"  K1 {name:16s} {row['dtype']:8s} max_abs_err {err:.3e}"
                   + (f"  kernel {row['ms']:.4f} ms  plain "
@@ -194,6 +202,92 @@ def timings(torch, F, fa, q, k, v, bias, H):
         library = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask), iters=20)
     return {"ms": kernel, "plain_ms": plain, "library_ms": library}
+
+
+# ---------------------------------------------------------------------------
+# kernel K2: K1's shapes in the head-split layout (no path calls it)
+# ---------------------------------------------------------------------------
+
+def check_attention_split(torch, fa, B, L=1024):
+    """Hold K2 against its plain version at K1's main-path shapes relaid to
+    (B, H, L, d), plus a ragged K on no path, in float32 and bfloat16, with
+    K1's tolerances; time kernel, plain version and
+    F.scaled_dot_product_attention on the same head-split tensors at
+    bfloat16."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2345)
+    cases = attention_cases(B, L) + [("ragged_K1000_bias", 256, 8, 1000,
+                                      False, True, 0)]
+    rows = []
+    for name, E, H, K, shared, with_bias, per_batch in cases:
+        d = E // H
+        for dtype in (torch.float32, torch.bfloat16):
+            def randn(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(dtype)
+
+            q = randn(B, H, L, d)
+            k = randn(1 if shared else B, H, K, d)
+            v = randn(1 if shared else B, H, K, d)
+            bias = None
+            if with_bias:
+                drop = torch.rand(B, K, generator=gen, device="cuda") < 0.3
+                drop[0] = True  # batch row 0: every key masked -> 0
+                bias = torch.where(drop, -1e30, 0.0).to(torch.float32)
+            with torch.no_grad():
+                out = fa.fused_attention(q, k, v, bias)
+                ref = fa.fused_attention_reference(q, k, v, bias)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:  # K1's bounds (check_attention)
+                torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+            else:
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=1e-3, rtol=2 ** -7)
+            if with_bias:
+                assert out[0].abs().max().item() == 0.0, "all-masked row"
+                assert torch.isfinite(out).all()
+            row = {"case": name, "dtype": str(dtype).split(".")[1], "B": B,
+                   "H": H, "L": L, "K": K, "d": d, "shared_kv": shared,
+                   "bias": with_bias, "k1_launches_per_frame_batch":
+                   per_batch, "max_abs_err": err}
+            if dtype == torch.bfloat16:
+                kk = k.expand(B, H, K, d).contiguous()
+                vv = v.expand(B, H, K, d).contiguous()
+                mask = None if bias is None else \
+                    bias.to(dtype)[:, None, None, :]
+                with torch.no_grad():
+                    row["ms"] = time_ms(torch, lambda: fa.fused_attention(
+                        q, k, v, bias), iters=20)
+                    row["plain_ms"] = time_ms(
+                        torch, lambda: fa.fused_attention_reference(
+                            q, k, v, bias), iters=5)
+                    row["library_ms"] = time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            q, kk, vv, attn_mask=mask), iters=20)
+                row.update(attention_bound(q, k, v, bias, B * L * K * H * d,
+                                           row["dtype"]))
+                del kk, vv, mask
+            rows.append(row)
+            print(f"  K2 {name:17s} {row['dtype']:8s} max_abs_err {err:.3e}"
+                  + (f"  kernel {row['ms']:.4f} ms  plain "
+                     f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f}"
+                     f" ms  bound {row['bound_ms']:.4f} ms"
+                     if "ms" in row else ""), flush=True)
+            del q, k, v, bias, out, ref
+    return rows
+
+
+def attention_bound(q, k, v, bias, macs, dtype):
+    """Bytes (q, k, v and the bias read once, the output written once) over
+    the HBM rate against 2 FLOP per multiply-add of QK and of PV (4 per
+    (row, key, head channel)) over the type's peak."""
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
+        bias.numel() * 4 if bias is not None else 0)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * macs / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +438,72 @@ def check_conv3x3(torch, k3, fwd_convs, B):
     return rows
 
 
+def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
+    """Hold K4 against its plain version at the training step's forward
+    3x3 shapes (K3's forward rows) in NHWC with HWIO weights and a float32
+    bias, in float32 and bfloat16, with K3's tolerances; time kernel,
+    plain version and F.conv2d on channels_last tensors (the same
+    function in PyTorch's NHWC layout). No path calls K4."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5432)
+    rows = []
+    for (cin, cout, h), per_step in sorted(fwd_convs.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(B, h, h, cin, generator=gen,
+                            device="cuda").to(dtype)
+            w = ((9 * cin) ** -0.5 * torch.randn(3, 3, cin, cout,
+                                                 generator=gen,
+                                                 device="cuda")).to(dtype)
+            b = torch.randn(cout, generator=gen, device="cuda")
+            # the library's NHWC: channels_last NCHW views of the same data
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            b_lib = b.to(dtype)
+            with torch.no_grad():
+                out = k3.conv3x3_nhwc(x, w, b)
+                ref = k3.conv3x3_nhwc_reference(x, w, b)
+                lib = F.conv2d(x_cl, w_cl, b_lib, padding=1)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.float32:  # K3's bounds (check_conv3x3)
+                torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+            else:
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=1e-3, rtol=2 ** -7)
+            torch.testing.assert_close(out.float(),
+                                       lib.permute(0, 2, 3, 1).float(),
+                                       atol=5e-2, rtol=5e-2)
+            with torch.no_grad():
+                ms = time_ms(torch, lambda: k3.conv3x3_nhwc(x, w, b),
+                             iters=20)
+                plain = time_ms(torch, lambda: k3.conv3x3_nhwc_reference(
+                    x, w, b), iters=5)
+                library_ms = time_ms(torch, lambda: F.conv2d(
+                    x_cl, w_cl, b_lib, padding=1), iters=20)
+            name = str(dtype).split(".")[1]
+            nbytes = (x.numel() + w.numel() + out.numel()) * \
+                x.element_size() + b.numel() * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = 2 * B * h * h * 9 * cin * cout / PEAK_FLOPS[name]
+            rows.append({"case": "forward", "dtype": name, "B": B, "H": h,
+                         "W": h, "C": cin, "Cout": cout,
+                         "k3_launches_per_step": per_step,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "library_ms": library_ms,
+                         "bound_ms": 1e3 * max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes > t_ops
+                         else "operations"})
+            r = rows[-1]
+            print(f"  K4 {cin:3d}->{cout:3d} @{h:3d}^2 {name:8s} max_abs_err "
+                  f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                  f"channels_last conv2d {library_ms:.4f} ms  bound "
+                  f"{r['bound_ms']:.4f} ms", flush=True)
+            del x, w, b, x_cl, w_cl, b_lib, out, ref, lib
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # pipeline phases
 # ---------------------------------------------------------------------------
@@ -408,7 +568,7 @@ def main_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
     t0 = time.perf_counter()
     out = pipe.animate(src, drv)
     seconds = time.perf_counter() - t0
-    launches = fa.launches
+    launches, k2_launches = fa.launches, fa.split_launches
     hook.remove()
 
     n_batches = math.ceil(FRAMES / FRAME_BATCH)
@@ -420,6 +580,7 @@ def main_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
     assert launches == 32 * n_batches, (
         f"K1 launched {launches} times, want 32 per frame batch "
         f"x {n_batches}")
+    assert k2_launches == 0, "the reenactment path launched K2"
     fps = FRAMES / seconds
     # two more timed runs, for the spread (launches already read)
     repeats = [seconds]
@@ -436,6 +597,7 @@ def main_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
               "seconds": repeats, "frames_per_s": fps,
               "frames_per_s_repeats": [FRAMES / s for s in repeats],
               "params": n_params, "k1_launches": launches,
+              "k2_launches": k2_launches,
               "out_range": [int(out.min()), int(out.max())],
               "out_std": float(out.std())}
     return report, (pipe, src, drv[:FRAME_BATCH])
@@ -775,7 +937,9 @@ def train_path(torch, configs, Trainer, fa, k3, seed, card):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         steps.append({"ms": ms, "k1_launches": fa.launches,
+                      "k2_launches": fa.split_launches,
                       "k3_launches": k3.launches,
+                      "k4_launches": k3.nhwc_launches,
                       "k3_shapes": dict(k3.launch_shapes),
                       "logs": {k: float(v) for k, v in logs.items()}})
     peak = torch.cuda.max_memory_allocated()
@@ -792,6 +956,7 @@ def train_path(torch, configs, Trainer, fa, k3, seed, card):
                                                   k1_per_step)
         assert st["k3_launches"] == k3_per_step, (st["k3_launches"],
                                                   k3_per_step)
+        assert st["k2_launches"] == st["k4_launches"] == 0, st
     want_shapes = Counter()
     for (c, co, h), n in k3_forward_convs(g_cfg).items():
         want_shapes[(TRAIN_BATCH, c, co, h, h, "bfloat16")] += n
@@ -817,6 +982,8 @@ def train_path(torch, configs, Trainer, fa, k3, seed, card):
         "k3_launches_per_step": k3_per_step,
         "k1_launches": sum(st["k1_launches"] for st in timed),
         "k3_launches": sum(st["k3_launches"] for st in timed),
+        "k2_launches": sum(st["k2_launches"] for st in timed),
+        "k4_launches": sum(st["k4_launches"] for st in timed),
         "steps": [{k: v for k, v in st.items() if k != "k3_shapes"}
                   for st in steps],
     }
@@ -845,6 +1012,210 @@ def profile_train_step(torch, tr, batch, gen, card):
           f"{report['idle_share']:.4f}", flush=True)
     print_profile(report)
     return report
+
+
+# ---------------------------------------------------------------------------
+# the training entry point
+# ---------------------------------------------------------------------------
+
+def write_frame_cache(torch, native_loader, path, seed):
+    """A native frame cache of CACHE_VIDEOS videos of CACHE_FRAMES seeded
+    image-like CACHE_SIZE^2 RGB frames (smooth_train_batch's recipe: a random
+    8x8 field, bilinearly upsampled, plus a little noise), written with the
+    port's write_cache."""
+    rng = np.random.RandomState(seed)
+    n = CACHE_VIDEOS * CACHE_FRAMES
+    low = torch.from_numpy(rng.uniform(-1, 1, (n, 3, 8, 8))
+                           .astype(np.float32))
+    img = torch.nn.functional.interpolate(
+        low, size=(CACHE_SIZE, CACHE_SIZE), mode="bilinear")
+    img = (img + 0.05 * torch.from_numpy(rng.randn(*img.shape)
+                                         .astype(np.float32))).clamp(-1, 1)
+    u8 = ((img + 1) * 127.5).round().to(torch.uint8).permute(0, 2, 3, 1)
+    u8 = u8.contiguous().numpy()
+    native_loader.write_cache(
+        path, ((CACHE_FRAMES, iter(u8[i * CACHE_FRAMES:
+                                      (i + 1) * CACHE_FRAMES]))
+               for i in range(CACHE_VIDEOS)), CACHE_SIZE, CACHE_SIZE, 3)
+
+
+def checkpoint_equals(torch, ckpt, tr):
+    """Whether a trainer holds exactly the state of a loaded checkpoint:
+    every tensor bit for bit, the step and the Adam counts."""
+    st = tr.state
+    pairs = [(ckpt["ema_g"], st.ema_g)]
+    pairs += [(ckpt[n], getattr(tr, n).state_dict())
+              for n in ("net_g", "motion_estimator", "net_d", "vgg")]
+    for n in ("opt_g", "opt_m", "opt_d"):
+        o = getattr(st, n)
+        if ckpt[n]["count"] != o.count:
+            return False
+        pairs += [(ckpt[n]["mu"], o.mu), (ckpt[n]["nu"], o.nu)]
+    return ckpt["step"] == st.step and all(
+        sorted(a) == sorted(b) and all(torch.equal(a[k], b[k].cpu())
+                                       for k in a) for a, b in pairs)
+
+
+def train_cli(torch, configs, fa, k3, seed, card):
+    """train.run at FLAGSHIP_TRAIN (256^2, batch 2, bf16,
+    net_d_start_iter 1) over a native frame cache: CLI_STEPS steps with
+    print_freq 1 and checkpoints every 2 steps; the step-2 checkpoint
+    restored into a fresh Trainer (other seed) must equal the saved state
+    bit for bit; a second run resumes from it and reaches step CLI_STEPS.
+    Kernel counts are set to 0 just before each run and read just after.
+    Everything it writes, under build/chip_smoke, is removed afterwards."""
+    from synergize_motion_appearance_tpu_torch import train
+    from synergize_motion_appearance_tpu_torch.data import native_loader
+    from synergize_motion_appearance_tpu_torch.training import (
+        Trainer, restore_checkpoint, save_checkpoint,
+    )
+    from synergize_motion_appearance_tpu_torch.utils.options import (
+        derive_paths,
+    )
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cache = os.path.join(work, "frames.fc")
+    t0 = time.perf_counter()
+    write_frame_cache(torch, native_loader, cache, seed + 50)
+    cache_s = time.perf_counter() - t0
+
+    def options(resume=None):
+        opt = configs.get("flagship_train")
+        opt.update(name="chip-smoke-train", manual_seed=seed)
+        opt["train"].update(net_d_start_iter=1, total_iter=CLI_STEPS)
+        opt["datasets"]["train"].update(
+            name="seeded image-like frames", native_cache=cache,
+            num_worker_per_gpu=4, dataset_enlarge_ratio=1)
+        opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": 2,
+                         "use_tb_logger": False}
+        opt["path"] = {"save_path": work, "resume_state": resume}
+        return derive_paths(opt)
+
+    g_cfg = configs.get("flagship_train")["network_g"]
+    per_step = {"k1": k1_per_train_step(g_cfg),
+                "k3": 2 * sum(k3_forward_convs(g_cfg).values())}
+    report = {"config": "flagship_train (options/train.yml), "
+                        "net_d_start_iter 1, native frame cache",
+              "cache_bytes": os.path.getsize(cache), "cache_write_s": cache_s,
+              "cache_videos": CACHE_VIDEOS, "cache_frames": CACHE_FRAMES}
+    ckpt2 = None
+    for run_name, first_iter in (("fresh", 1), ("resumed", 3)):
+        opt = options(ckpt2)
+        fa.reset_launches()
+        k3.reset_launches()
+        t0 = time.perf_counter()
+        records = train.run(opt, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"k1": fa.launches, "k2": fa.split_launches,
+                    "k3": k3.launches, "k4": k3.nhwc_launches}
+        steps = CLI_STEPS - first_iter + 1
+        assert [r["iter"] for r in records] == list(
+            range(first_iter, CLI_STEPS + 1)), [r["iter"] for r in records]
+        for r in records:
+            for k, v in r.items():
+                if isinstance(v, float):
+                    assert math.isfinite(v), (run_name, r["iter"], k, v)
+            assert r["step_skipped_nonfinite"] == 0.0, (run_name, r["iter"])
+            assert (r["d_weight"] > 0) == (r["iter"] >= 3), r
+        assert launches["k1"] == steps * per_step["k1"], launches
+        assert launches["k3"] == steps * per_step["k3"], launches
+        assert launches["k2"] == launches["k4"] == 0, launches
+        states = opt["path"]["training_states"]
+        assert os.path.exists(os.path.join(states, f"iter_{CLI_STEPS}"))
+        report[run_name] = {
+            "wall_s": wall, "launches": launches,
+            "step_ms": [1e3 * r["time"] for r in records],
+            "data_ms": [1e3 * r["data_time"] for r in records],
+            "logs": [{k: v for k, v in r.items() if k not in ("time",
+                                                              "data_time")}
+                     for r in records]}
+        if run_name == "fresh":
+            ckpt2 = os.path.join(states, "iter_2")
+            report["checkpoint_bytes"] = os.path.getsize(ckpt2)
+            t0 = time.perf_counter()
+            saved = torch.load(ckpt2, map_location="cpu", weights_only=True)
+            read_s = time.perf_counter() - t0
+            fresh = Trainer(options(), device="cuda", seed=seed + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore_checkpoint(ckpt2, fresh)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            assert checkpoint_equals(torch, saved, fresh), (
+                "the restored step-2 state differs from the saved one")
+            t0 = time.perf_counter()
+            path = save_checkpoint(os.path.join(work, "save_timing"), fresh,
+                                   saved["epoch"])
+            save_s = time.perf_counter() - t0
+            assert os.path.getsize(path) > 0
+            report.update(checkpoint_read_s=read_s, checkpoint_load_s=load_s,
+                          checkpoint_save_s=save_s, restored_bit_exact=True)
+            del saved, fresh
+            shutil.rmtree(os.path.join(work, "save_timing"))
+            torch.cuda.empty_cache()
+    shutil.rmtree(work)
+
+    fresh = report["fresh"]
+    # a step's time runs from the end of the previous step's logging, so,
+    # as in the JAX entry point, it holds any checkpoint saved in between;
+    # step 1 holds first-call set-up: the steady steps are the others
+    steady = [i for i in range(1, CLI_STEPS) if i % 2 == 1]
+    report["steady_steps"] = [i + 1 for i in steady]
+    report["step_ms_median"] = float(np.median(
+        [fresh["step_ms"][i] for i in steady]))
+    report["data_ms_median"] = float(np.median(
+        [fresh["data_ms"][i] for i in steady]))
+    report["data_share"] = sum(fresh["data_ms"][i] for i in steady) / sum(
+        fresh["step_ms"][i] for i in steady)
+    print(f"train CLI flagship_train (net_d_start_iter 1) bf16 batch "
+          f"{TRAIN_BATCH} on {card}, native cache of {CACHE_VIDEOS}x"
+          f"{CACHE_FRAMES} frames ({report['cache_bytes']} bytes): "
+          f"{CLI_STEPS} steps, ms/step "
+          f"{[round(x, 2) for x in fresh['step_ms']]}"
+          f" (step 1 with set-up, step 3 with the step-2 checkpoint's save; "
+          f"median of steps {report['steady_steps']} "
+          f"{report['step_ms_median']:.2f}), data_time ms "
+          f"{[round(x, 3) for x in fresh['data_ms']]} (share of those steps "
+          f"{report['data_share']:.5f}); checkpoint "
+          f"{report['checkpoint_bytes']} bytes, save "
+          f"{report['checkpoint_save_s']:.2f} s, load into a Trainer "
+          f"{report['checkpoint_load_s']:.2f} s (file read "
+          f"{report['checkpoint_read_s']:.2f} s), restored bit for bit; "
+          f"resumed from step 2 to {CLI_STEPS}: ms/step "
+          f"{[round(x, 2) for x in report['resumed']['step_ms']]}; K1 "
+          f"{per_step['k1']} and K3 {per_step['k3']} launches per step, "
+          f"K2 and K4 none", flush=True)
+    return report
+
+
+def kernel_entry(name, source, replaces, rows, weight, launches,
+                 times_are, **extra):
+    """One kernel's entry of the kernels line: errors over its f32 and bf16
+    cases; times and bound summed over its bf16 cases, each weighted by
+    ``weight`` (its launches in one unit of the path)."""
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+
+    def total(key):
+        return sum(r[key] * r[weight] for r in bf16)
+
+    bound = total("bound_ms")
+    by_bytes = sum(r["bound_ms"] * r[weight] for r in bf16
+                   if r["bound_by"] == "bytes")
+    return {
+        "name": name, "route": "cuda",
+        "source": f"synergize_motion_appearance_tpu_torch/csrc/{source}",
+        "replaces": f"synergize_motion_appearance_tpu/ops/{replaces}",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in bf16),
+        "max_abs_err_f32": max(r["max_abs_err"] for r in rows
+                               if r["dtype"] == "float32"),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": bound,
+        "bound_by": "bytes" if by_bytes > bound / 2 else "operations",
+        "library_ms": total("library_ms"), "times_are": times_are, **extra}
 
 
 def main():
@@ -880,9 +1251,12 @@ def main():
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s}
     report["k1_cases"] = check_attention(torch, fa, FRAME_BATCH)
+    report["k2_cases"] = check_attention_split(torch, fa, FRAME_BATCH)
     train_cfg = configs.get("flagship_train")
-    report["k3_cases"] = check_conv3x3(
-        torch, k3, k3_forward_convs(train_cfg["network_g"]), TRAIN_BATCH)
+    fwd_convs = k3_forward_convs(train_cfg["network_g"])
+    report["k3_cases"] = check_conv3x3(torch, k3, fwd_convs, TRAIN_BATCH)
+    report["k4_cases"] = check_conv3x3_nhwc(torch, k3, fwd_convs,
+                                            TRAIN_BATCH)
     report["tiny_parity"] = tiny_parity(torch, configs, ReenactmentPipeline,
                                         seeded_nets, fa, args.seed)
     report["main_path"], run = main_path(
@@ -895,66 +1269,71 @@ def main():
     report["train_path"], train_run = train_path(
         torch, configs, Trainer, fa, k3, args.seed, card)
     report["train_profile"] = profile_train_step(torch, *train_run, card)
+    del train_run
+    torch.cuda.empty_cache()
+    report["train_cli"] = train_cli(torch, configs, fa, k3, args.seed, card)
 
-    bf16 = [r for r in report["k1_cases"] if r["dtype"] == "bfloat16"]
-
-    def per_batch(key):  # one frame batch's 32 launches, summed
-        return sum(r[key] * r["launches_per_frame_batch"] for r in bf16)
-
-    bound = per_batch("bound_ms")
-    kernels = [{
-        "name": "fused_attention_packed",
-        "route": "cuda",
-        "source": "synergize_motion_appearance_tpu_torch/csrc/"
-                  "fused_attention_packed.cu",
-        "replaces": "synergize_motion_appearance_tpu/ops/"
-                    "fused_attention.py:227",
-        "launches": report["main_path"]["k1_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in bf16),
-        "max_err": max(r["max_abs_err"] for r in report["k1_cases"]),
-        "max_abs_err_f32": max(r["max_abs_err"] for r in report["k1_cases"]
-                               if r["dtype"] == "float32"),
-        "ms": per_batch("ms"),
-        "plain_ms": per_batch("plain_ms"),
-        "bound_ms": bound,
-        "bound_by": ("bytes" if sum(
-            r["bound_ms"] * r["launches_per_frame_batch"] for r in bf16
-            if r["bound_by"] == "bytes") > bound / 2 else "operations"),
-        "library_ms": per_batch("library_ms"),
-        "times_are": f"sum over the 32 bf16 launches of one frame batch of "
-                     f"{FRAME_BATCH} (chiprun_out/chip_smoke.json has "
-                     f"each shape)",
-        "launches_train_path": report["train_path"]["k1_launches"],
-    }]
-    k3_bf16 = [r for r in report["k3_cases"] if r["dtype"] == "bfloat16"]
-
-    def per_step(key):  # one train step's forward and dgrad launches
-        return sum(r[key] * r["launches_per_step"] for r in k3_bf16)
-
-    k3_bound = per_step("bound_ms")
-    kernels.append({
-        "name": "conv3x3",
-        "route": "cuda",
-        "source": "synergize_motion_appearance_tpu_torch/csrc/conv3x3.cu",
-        "replaces": "synergize_motion_appearance_tpu/ops/"
-                    "pallas_conv_wl.py:39",
-        "launches": report["train_path"]["k3_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in k3_bf16),
-        "max_abs_err_f32": max(r["max_abs_err"] for r in report["k3_cases"]
-                               if r["dtype"] == "float32"),
-        "ms": per_step("ms"),
-        "plain_ms": per_step("plain_ms"),
-        "bound_ms": k3_bound,
-        "bound_by": ("bytes" if sum(
-            r["bound_ms"] * r["launches_per_step"] for r in k3_bf16
-            if r["bound_by"] == "bytes") > k3_bound / 2 else "operations"),
-        "library_ms": per_step("library_ms"),
-        "times_are": f"sum over the "
-                     f"{report['train_path']['k3_launches_per_step']} bf16 "
-                     f"launches (forward and input gradient) of one "
-                     f"flagship train step at batch {TRAIN_BATCH} "
-                     f"(chiprun_out/chip_smoke.json has each shape)",
-    })
+    cli = report["train_cli"]["fresh"]["launches"]
+    k3_per_step = report["train_path"]["k3_launches_per_step"]
+    kernels = [
+        kernel_entry(
+            "fused_attention_packed", "fused_attention_packed.cu",
+            "fused_attention.py:227", report["k1_cases"],
+            "launches_per_frame_batch", report["main_path"]["k1_launches"],
+            f"sum over the 32 bf16 launches of one frame batch of "
+            f"{FRAME_BATCH} (chiprun_out/chip_smoke.json has each shape)",
+            launches_train_path=report["train_path"]["k1_launches"],
+            launches_train_cli=cli["k1"]),
+        kernel_entry(
+            "fused_attention (head-split)", "fused_attention_packed.cu",
+            "fused_attention.py:56", report["k2_cases"],
+            "k1_launches_per_frame_batch",
+            report["main_path"]["k2_launches"],
+            "sum over K1's 32 launches of one frame batch, relaid to "
+            "(B, H, L, d), bf16; the ragged-K case is checked, not summed",
+            launches_note="no path calls it, in the port or the JAX "
+                          "package: 0 launches on the inference path, the "
+                          "train step and the train CLI",
+            launches_train_path=report["train_path"]["k2_launches"],
+            launches_train_cli=cli["k2"]),
+        kernel_entry(
+            "conv3x3", "conv3x3.cu", "pallas_conv_wl.py:39",
+            report["k3_cases"], "launches_per_step",
+            report["train_path"]["k3_launches"],
+            f"sum over the {k3_per_step} bf16 launches (forward and input "
+            f"gradient) of one flagship train step at batch {TRAIN_BATCH} "
+            f"(chiprun_out/chip_smoke.json has each shape)",
+            launches_train_cli=cli["k3"]),
+        kernel_entry(
+            "conv3x3_nhwc", "conv3x3.cu", "pallas_conv.py:39",
+            report["k4_cases"], "k3_launches_per_step",
+            report["train_path"]["k4_launches"],
+            f"sum over the {k3_per_step // 2} forward 3x3 convs of one "
+            f"flagship train step at batch {TRAIN_BATCH}, in NHWC, bf16; "
+            f"library_ms is F.conv2d on channels_last tensors",
+            launches_note="no path calls it, in the port or the JAX "
+                          "package: 0 launches on the inference path, the "
+                          "train step and the train CLI",
+            launches_train_cli=cli["k4"]),
+    ]
+    watts = float(card.rsplit(",", 1)[-1].split()[0])
+    report["speed_check"] = {}
+    for k in kernels:
+        prev = PREVIOUS_MS.get(k["name"])
+        if prev is None:
+            continue
+        checked = watts >= 700.0
+        report["speed_check"][k["name"]] = {
+            "ms": k["ms"], "previous_ms": prev, "watts": watts,
+            "checked": checked}
+        print(f"{k['name']}: {k['ms']:.2f} ms against {prev} ms before "
+              f"({k['ms'] / prev:.3f}x) at {watts} W; speed check "
+              + ("(at most 1.1x) run" if checked else
+                 "SKIPPED: this card's power limit is below the 700 W "
+                 "of the previous time"),
+              flush=True)
+        if checked:
+            assert k["ms"] <= 1.1 * prev, (k["name"], k["ms"], prev)
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

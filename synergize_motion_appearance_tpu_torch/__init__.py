@@ -9,3 +9,5 @@ names follow the upstream torch reference, so a reference-named
 state_dict loads with ``strict=True``; ``weights.py`` turns the JAX
 package's parameter trees into such state_dicts.
 """
+
+__version__ = "0.1.0"

@@ -1,10 +1,16 @@
-// 3x3, stride-1, pad-1 convolution plus bias for Hopper (sm_90a), NCHW.
+// 3x3, stride-1, pad-1 convolution plus bias for Hopper (sm_90a), in NCHW
+// or NHWC.
 //
-// Replaces the TPU kernel `_conv_wl_kernel`
-// (synergize_motion_appearance_tpu/ops/pallas_conv_wl.py:39, launched by
-// `conv3x3_wl` at :144). Same function, in the port's NCHW layout instead
-// of the TPU's (B, H, C, W) W-in-lanes layout, which only served the TPU's
-// vector registers:
+// Replaces two TPU kernels that compute one function in two layouts:
+// - `_conv_wl_kernel` (synergize_motion_appearance_tpu/ops/
+//   pallas_conv_wl.py:39, launched by `conv3x3_wl` at :144; kernel K3 of
+//   the port), here in the port's NCHW layout with (Cout, C, 3, 3) weights
+//   instead of the TPU's (B, H, C, W) W-in-lanes layout, which only served
+//   the TPU's vector registers;
+// - `_conv_kernel` (synergize_motion_appearance_tpu/ops/pallas_conv.py:39,
+//   launched by `conv3x3_pallas` at :96; kernel K4): NHWC x, HWIO
+//   (3, 3, C, Cout) weights, NHWC y, and a float32 bias.
+// The function, written for NCHW:
 //   y[b, o, h, w] = bias[o] + sum_{c, ky, kx} x[b, c, h+ky-1, w+kx-1]
 //                                             * wt[o, c, ky, kx]
 // with zero padding, f32 accumulation whatever the input type (f32 or
@@ -20,6 +26,13 @@
 // runs the multiply-adds on the CUDA cores in f32 (a tensor-core version
 // with wgmma is later work), so its ceiling is the f32 FMA rate, not the
 // bf16 tensor-core rate the bound in chip_smoke.py is stated against.
+//
+// The layout is a template parameter, and each layout has its own staging
+// and store code, so the NCHW instantiation is the one K3 had before NHWC
+// was added. In NHWC the staging loops walk the channels fastest, so
+// neighbouring threads read neighbouring channels; a pixel's channel chunk
+// is 16 or 32 bytes, so these loads are not coalesced across pixels (a
+// faster NHWC design is later work).
 //
 // Design: one block computes a tile of 64 output channels x 8 rows x 32
 // columns of one image. Input channels are walked in chunks of 8: the
@@ -57,10 +70,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as .to(bfloat16)
 }
 
-template <typename T>
+// TB is the bias type: T in NCHW (K3), float in NHWC (K4).
+template <typename T, typename TB, bool NHWC>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wt,
-               const T* __restrict__ bias, T* __restrict__ y, int C, int H,
+               const TB* __restrict__ bias, T* __restrict__ y, int C, int H,
                int W, int Cout, int tiles_w) {
   __shared__ float xs[kChunk][kInH][kInW];
   __shared__ __align__(16) float ws[kChunk][9][kTileCo];
@@ -86,29 +100,55 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wt,
 
   for (int c0 = 0; c0 < C; c0 += kChunk) {
     __syncthreads();  // the previous chunk is no longer read
-    for (int idx = t; idx < kChunk * kInH * kInW; idx += kThreads) {
-      const int c = idx / (kInH * kInW);
-      const int r = (idx / kInW) % kInH;
-      const int q = idx % kInW;
-      const int gy = y0 - 1 + r;
-      const int gx = x0 - 1 + q;
-      float v = 0.f;
-      if (c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        v = to_f32(xb[(c0 + c) * plane + static_cast<long long>(gy) * W +
-                      gx]);
+    if constexpr (NHWC) {
+      for (int idx = t; idx < kChunk * kInH * kInW; idx += kThreads) {
+        const int c = idx % kChunk;  // channels fastest, as they lie in x
+        const int r = (idx / kChunk) / kInW;
+        const int q = (idx / kChunk) % kInW;
+        const int gy = y0 - 1 + r;
+        const int gx = x0 - 1 + q;
+        float v = 0.f;
+        if (c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          v = to_f32(xb[(static_cast<long long>(gy) * W + gx) * C + c0 + c]);
+        }
+        xs[c][r][q] = v;
       }
-      xs[c][r][q] = v;
-    }
-    for (int idx = t; idx < kTileCo * kChunk * 9; idx += kThreads) {
-      const int o = idx / (kChunk * 9);
-      const int c = (idx / 9) % kChunk;
-      const int k = idx % 9;
-      float v = 0.f;
-      if (co0 + o < Cout && c0 + c < C) {
-        v = to_f32(wt[(static_cast<long long>(co0 + o) * C + c0 + c) * 9 +
-                      k]);
+      for (int idx = t; idx < kTileCo * kChunk * 9; idx += kThreads) {
+        const int o = idx % kTileCo;  // HWIO: output channels fastest
+        const int c = (idx / kTileCo) % kChunk;
+        const int k = idx / (kTileCo * kChunk);
+        float v = 0.f;
+        if (co0 + o < Cout && c0 + c < C) {
+          v = to_f32(wt[(static_cast<long long>(k) * C + c0 + c) * Cout +
+                        co0 + o]);
+        }
+        ws[c][k][o] = v;
       }
-      ws[c][k][o] = v;
+    } else {
+      for (int idx = t; idx < kChunk * kInH * kInW; idx += kThreads) {
+        const int c = idx / (kInH * kInW);
+        const int r = (idx / kInW) % kInH;
+        const int q = idx % kInW;
+        const int gy = y0 - 1 + r;
+        const int gx = x0 - 1 + q;
+        float v = 0.f;
+        if (c0 + c < C && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          v = to_f32(xb[(c0 + c) * plane + static_cast<long long>(gy) * W +
+                        gx]);
+        }
+        xs[c][r][q] = v;
+      }
+      for (int idx = t; idx < kTileCo * kChunk * 9; idx += kThreads) {
+        const int o = idx / (kChunk * 9);
+        const int c = (idx / 9) % kChunk;
+        const int k = idx % 9;
+        float v = 0.f;
+        if (co0 + o < Cout && c0 + c < C) {
+          v = to_f32(wt[(static_cast<long long>(co0 + o) * C + c0 + c) * 9 +
+                        k]);
+        }
+        ws[c][k][o] = v;
+      }
     }
     __syncthreads();
 
@@ -144,28 +184,43 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ wt,
     const int o = co0 + cg * kCo + j;
     if (o >= Cout) break;
     const float bv = bias ? to_f32(bias[o]) : 0.f;
-    T* yp = y + (static_cast<long long>(b) * Cout + o) * plane +
-            static_cast<long long>(oy) * W;
+    if constexpr (NHWC) {
+      T* yp = y + (static_cast<long long>(b) * H + oy) * W * Cout + o;
 #pragma unroll
-    for (int i = 0; i < kPix; ++i) {
-      const int ox = x0 + px + i;
-      if (ox < W) store(yp + ox, acc[j][i] + bv);
+      for (int i = 0; i < kPix; ++i) {
+        const int ox = x0 + px + i;
+        if (ox < W) store(yp + static_cast<long long>(ox) * Cout,
+                          acc[j][i] + bv);
+      }
+    } else {
+      T* yp = y + (static_cast<long long>(b) * Cout + o) * plane +
+              static_cast<long long>(oy) * W;
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) {
+        const int ox = x0 + px + i;
+        if (ox < W) store(yp + ox, acc[j][i] + bv);
+      }
     }
   }
 }
 
-template <typename T>
+template <typename T, typename TB, bool NHWC>
 cudaError_t launch(const void* x, const void* wt, const void* bias, void* y,
                    int B, int C, int H, int W, int Cout,
                    cudaStream_t stream) {
   const int tiles_w = (W + kTileW - 1) / kTileW;
   const int tiles_h = (H + kTileH - 1) / kTileH;
   const dim3 grid(tiles_w * tiles_h, (Cout + kTileCo - 1) / kTileCo, B);
-  conv3x3_kernel<T><<<grid, kThreads, 0, stream>>>(
+  conv3x3_kernel<T, TB, NHWC><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wt),
-      static_cast<const T*>(bias), static_cast<T*>(y), C, H, W, Cout,
+      static_cast<const TB*>(bias), static_cast<T*>(y), C, H, W, Cout,
       tiles_w);
   return cudaGetLastError();
+}
+
+bool bad_sizes(int B, int C, int H, int W, int Cout) {
+  return B <= 0 || C <= 0 || H <= 0 || W <= 0 || Cout <= 0 || B > 65535 ||
+         (Cout + kTileCo - 1) / kTileCo > 65535;
 }
 
 }  // namespace
@@ -177,16 +232,40 @@ cudaError_t launch(const void* x, const void* wt, const void* bias, void* y,
 extern "C" int samt_conv3x3(const void* x, const void* wt, const void* bias,
                             void* y, int B, int C, int H, int W, int Cout,
                             int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || Cout <= 0 || B > 65535 ||
-      (Cout + kTileCo - 1) / kTileCo > 65535) {
+  if (bad_sizes(B, C, H, W, Cout)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(x, wt, bias, y, B, C, H, W, Cout, s);
+    err = launch<float, float, false>(x, wt, bias, y, B, C, H, W, Cout, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(x, wt, bias, y, B, C, H, W, Cout, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16, false>(x, wt, bias, y, B, C,
+                                                      H, W, Cout, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// C entry of the NHWC layout (kernel K4), bound with ctypes. x (B, H, W, C),
+// wt (3, 3, C, Cout) HWIO in x's type, bias (Cout) float32 or null, y
+// (B, H, W, Cout), all contiguous; dtype 0 = float32, 1 = bfloat16.
+// Returns the CUDA error of the launch (0 on success).
+extern "C" int samt_conv3x3_nhwc(const void* x, const void* wt,
+                                 const void* bias, void* y, int B, int H,
+                                 int W, int C, int Cout, int dtype,
+                                 void* stream) {
+  if (bad_sizes(B, C, H, W, Cout)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch<float, float, true>(x, wt, bias, y, B, C, H, W, Cout, s);
+  } else if (dtype == 1) {
+    err = launch<__nv_bfloat16, float, true>(x, wt, bias, y, B, C, H, W,
+                                             Cout, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -1,15 +1,20 @@
-// Head-packed fused softmax attention for Hopper (sm_90a).
+// Fused softmax attention for Hopper (sm_90a), in two layouts.
 //
-// Replaces the TPU kernel `_attn_kernel_packed`
-// (synergize_motion_appearance_tpu/ops/fused_attention.py:227, launched by
-// `_fused_attention_packed_pallas` at :266). Same function:
-//   q (B, L, E) token-major, H heads of d = E / H read as the column slice
-//   [h*d, (h+1)*d) of each row; k, v (B, K, E), or one (K, E) context shared
-//   by every batch row (batch stride 0, never broadcast in memory); optional
-//   (B, K) f32 additive bias where -1e30 masks a key. Scores q.k * 1/sqrt(d)
-//   in f32, f32 max-subtracted softmax, f32 accumulation of p.v, output in
-//   q's dtype. With a bias, a row whose max score is <= -1e29 (every key
-//   masked) outputs 0, never NaN.
+// Replaces two TPU kernels that compute one function in two layouts:
+// - `_attn_kernel_packed` (synergize_motion_appearance_tpu/ops/
+//   fused_attention.py:227, launched by `_fused_attention_packed_pallas` at
+//   :266; kernel K1 of the port): q (B, L, E) token-major, H heads of
+//   d = E / H read as the column slice [h*d, (h+1)*d) of each row; k, v
+//   (B, K, E), or one (K, E) context shared by every batch row;
+// - `_attn_kernel` (same file, :56, launched by `_fused_attention_pallas`
+//   at :100; kernel K2): q (B, H, L, d) head-split; k, v (B, H, K, d), or
+//   one (1, H, K, d) context shared by every batch row.
+// Shared k/v is read at batch stride 0, never broadcast in memory. Optional
+// (B, K) f32 additive bias where -1e30 masks a key. Scores q.k * 1/sqrt(d)
+// in f32, f32 max-subtracted softmax, f32 accumulation of p.v, output in
+// q's dtype and q's layout. With a bias, a row whose max score is <= -1e29
+// (every key masked) outputs 0, never NaN. The two layouts differ only in
+// the batch, row and head strides the kernel is given (`Strides`).
 //
 // What bounds it on this card: at the main path's shapes (L = 1024 queries,
 // K <= 1024 keys) the inputs are a few MB while the work is B*H*L*K scores,
@@ -24,9 +29,10 @@
 // of 64 staged in shared memory as f32 (every thread reads the same key at
 // once, a broadcast). Scores are taken 8 keys at a time so the running max
 // rescales the accumulator once per 8 keys. Only q, k, v and the bias are
-// read from device memory and only the (B, L, E) output is written: the
-// (L, K) score tile never leaves the SM, and no (B, H, L, d) copy is made.
-// The kernel allocates nothing and runs on the caller's stream.
+// read from device memory and only the output is written: the
+// (L, K) score tile never leaves the SM, and the token-major layout is
+// never copied to a head-split one or back. The kernel allocates nothing
+// and runs on the caller's stream.
 
 #include <cfloat>
 #include <cmath>
@@ -50,6 +56,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);  // round to nearest even, as astype does
 }
 
+// Element strides of a layout: q and out share (q_batch, q_row, q_head);
+// k and v share (kv_batch, kv_row, kv_head), with kv_batch 0 for a context
+// shared by the batch. Within a head the d values are contiguous.
+struct Strides {
+  long long q_batch, q_row, q_head;
+  long long kv_batch, kv_row, kv_head;
+};
+
 // DMAX is the head width rounded up to a power of two; d is the real one.
 // Shared-memory columns d..DMAX-1 hold zeros, so the unrolled loops over
 // DMAX add nothing for them.
@@ -57,8 +71,8 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(kRows)
 attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ bias,
-                   T* __restrict__ out, int L, int K, int E, int d,
-                   long long kv_batch_stride, float scale) {
+                   T* __restrict__ out, int L, int K, int d, Strides st,
+                   float scale) {
   __shared__ __align__(16) float ks[kKeys][DMAX];
   __shared__ __align__(16) float vs[kKeys][DMAX];
   __shared__ float bs[kKeys];
@@ -67,11 +81,13 @@ attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int row = blockIdx.x * kRows + threadIdx.x;
   const bool active = row < L;
-  const long long col = static_cast<long long>(h) * d;
+  const long long q_off =
+      b * st.q_batch + static_cast<long long>(row) * st.q_row +
+      h * st.q_head;
 
   float qr[DMAX];
   float acc[DMAX];
-  const T* qp = q + (static_cast<long long>(b) * L + row) * E + col;
+  const T* qp = q + q_off;
 #pragma unroll
   for (int i = 0; i < DMAX; ++i) {
     qr[i] = (active && i < d) ? to_f32(qp[i]) : 0.f;
@@ -80,8 +96,9 @@ attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = -FLT_MAX;  // running max of the scores
   float l = 0.f;       // running sum of exp(score - m)
 
-  const T* kb = k + static_cast<long long>(b) * kv_batch_stride + col;
-  const T* vb = v + static_cast<long long>(b) * kv_batch_stride + col;
+  const long long kv_off = b * st.kv_batch + h * st.kv_head;
+  const T* kb = k + kv_off;
+  const T* vb = v + kv_off;
   const float* biasb =
       bias ? bias + static_cast<long long>(b) * K : nullptr;
 
@@ -96,7 +113,8 @@ attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = idx % DMAX;
       float kx = 0.f, vx = 0.f;
       if (j < nk && i < d) {
-        const long long off = static_cast<long long>(k0 + j) * E + i;
+        const long long off =
+            static_cast<long long>(k0 + j) * st.kv_row + i;
         kx = to_f32(kb[off]);
         vx = to_f32(vb[off]);
       }
@@ -142,7 +160,7 @@ attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // all keys masked: 0, as the TPU kernel's (m > -1e29) factor gives
   const bool keep = (biasb == nullptr) || (m > -1e29f);
   const float inv = keep ? 1.f / l : 0.f;
-  T* op = out + (static_cast<long long>(b) * L + row) * E + col;
+  T* op = out + q_off;
 #pragma unroll
   for (int i = 0; i < DMAX; ++i) {
     if (i < d) store(op + i, keep ? acc[i] * inv : 0.f);
@@ -151,10 +169,9 @@ attn_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, int B, int L, int K, int E,
-                   int H, long long kv_batch_stride, float scale,
+                   const float* bias, void* out, int B, int L, int K, int H,
+                   int d, const Strides& st, float scale,
                    cudaStream_t stream) {
-  const int d = E / H;
   const dim3 grid((L + kRows - 1) / kRows, H, B);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -162,7 +179,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   T* ot = static_cast<T*>(out);
 #define SAMT_LAUNCH(DM)                                                    \
   attn_packed_kernel<T, DM><<<grid, kRows, 0, stream>>>(                   \
-      qt, kt, vt, bias, ot, L, K, E, d, kv_batch_stride, scale)
+      qt, kt, vt, bias, ot, L, K, d, st, scale)
   if (d <= 4) {
     SAMT_LAUNCH(4);
   } else if (d <= 8) {
@@ -178,31 +195,58 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Both layouts' entries: checks the sizes, then launches in dtype 0
+// (float32) or 1 (bfloat16).
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* bias, void* out, int B, int L, int K, int H,
+                     int d, const Strides& st, float scale, int dtype,
+                     void* stream) {
+  if (d < 2 || d > 64 || B <= 0 || L <= 0 || K <= 0 || H <= 0 ||
+      B > 65535 || H > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return launch<float>(q, k, v, b, out, B, L, K, H, d, st, scale, s);
+  }
+  if (dtype == 1) {
+    return launch<__nv_bfloat16>(q, k, v, b, out, B, L, K, H, d, st, scale,
+                                 s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// C entry, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 (q, k, v and
-// out share it; bias is float32 or null). kv_batch_stride is K*E for
-// per-batch k/v and 0 for a shared (K, E) context. Returns the CUDA error of
-// the launch (0 on success); the caller checks shapes before calling.
+// C entries, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 (q, k, v
+// and out share it; bias is float32 or null). Each returns the CUDA error
+// of the launch (0 on success); the caller checks shapes before calling.
+
+// Token-major (kernel K1): q, out (B, L, E); k, v (B, K, E) with
+// kv_batch_stride K*E, or a shared (K, E) with kv_batch_stride 0.
 extern "C" int samt_fused_attention_packed(
     const void* q, const void* k, const void* v, const void* bias, void* out,
     int B, int L, int K, int E, int H, long long kv_batch_stride, float scale,
     int dtype, void* stream) {
-  if (H <= 0 || E % H != 0 || E / H < 2 || E / H > 64 || B <= 0 || L <= 0 ||
-      K <= 0 || B > 65535 || H > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const float* b = static_cast<const float*>(bias);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float>(q, k, v, b, out, B, L, K, E, H, kv_batch_stride,
-                        scale, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(q, k, v, b, out, B, L, K, E, H,
-                                kv_batch_stride, scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  if (H <= 0 || E % H != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int d = E / H;
+  const Strides st{static_cast<long long>(L) * E, E, d,
+                   kv_batch_stride, E, d};
+  return static_cast<int>(
+      dispatch(q, k, v, bias, out, B, L, K, H, d, st, scale, dtype, stream));
+}
+
+// Head-split (kernel K2): q, out (B, H, L, d); k, v (B, H, K, d), or a
+// shared (1, H, K, d) when kv_shared is 1.
+extern "C" int samt_fused_attention_split(
+    const void* q, const void* k, const void* v, const void* bias, void* out,
+    int B, int H, int L, int K, int d, int kv_shared, float scale, int dtype,
+    void* stream) {
+  const long long kv_head = static_cast<long long>(K) * d;
+  const Strides st{H * static_cast<long long>(L) * d, d,
+                   static_cast<long long>(L) * d,
+                   kv_shared ? 0 : H * kv_head, d, kv_head};
+  return static_cast<int>(
+      dispatch(q, k, v, bias, out, B, L, K, H, d, st, scale, dtype, stream));
 }

@@ -1,7 +1,8 @@
 """Ops of the port: coordinates, resampling, vector quantization, the TPS
-warps of the equivariance loss, and kernel K1 (fused attention). Kernel K3
-is the module ``ops.conv3x3`` (its function of the same name is not
-re-exported here, so that ``ops.conv3x3`` stays the module)."""
+warps of the equivariance loss, and kernel K1 (fused attention; K2, its
+head-split layout, is ``ops.fused_attention.fused_attention``). Kernels K3
+and K4 are in the module ``ops.conv3x3`` (its function of the same name
+is not re-exported here, so that ``ops.conv3x3`` stays the module)."""
 from .coords import (
     antialias_downsample,
     antialias_weight,

@@ -1,4 +1,5 @@
-"""3x3, stride-1, pad-1 convolution plus bias (kernel K3 of the port).
+"""3x3, stride-1, pad-1 convolution plus bias (kernels K3 and K4 of the
+port).
 
 Counterpart of ``synergize_motion_appearance_tpu/ops/pallas_conv_wl.py``'s
 ``conv3x3_wl`` and its differentiable wrapper ``conv3x3_wl_ad``, in the
@@ -14,6 +15,13 @@ The gradient is laid out like ``conv3x3_wl_ad``'s custom VJP: the input
 gradient is the same kernel on dy with the weights rotated 180 degrees and
 their channels swapped, the weight gradient 9 shifted float32 contractions,
 the bias gradient a sum.
+
+``conv3x3_nhwc`` (K4) is the counterpart of ``ops/pallas_conv.py``'s
+``conv3x3_pallas``: NHWC x, HWIO w, the same kernel in its NHWC
+instantiation, with ``conv3x3_nhwc_reference`` as its plain version. It
+keeps that function's own rules (w rounded to x's dtype, float32
+accumulation for every input type, the bias added in float32) and, like
+it, has no gradient.
 """
 from __future__ import annotations
 
@@ -28,14 +36,16 @@ from . import cuda_build
 
 # Kernel launches made by `conv3x3` (forward and input gradient) since the
 # last reset, and how many of them ran at each
-# (B, C, Cout, H, W, dtype name).
+# (B, C, Cout, H, W, dtype name); and those made by `conv3x3_nhwc`.
 launches = 0
 launch_shapes: Counter = Counter()
+nhwc_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, nhwc_launches
     launches = 0
+    nhwc_launches = 0
     launch_shapes.clear()
 
 
@@ -160,3 +170,98 @@ def conv3x3(x, w, b: Optional[torch.Tensor] = None):
     """3x3, stride-1, pad-1 conv plus bias (see the module docstring)."""
     _check(x, w, b)
     return _Conv3x3.apply(x, w, b)
+
+
+# ---------------------------------------------------------------------------
+# K4: the NHWC layout of conv3x3_pallas
+# ---------------------------------------------------------------------------
+
+def conv3x3_nhwc_reference(x, w, b=None):
+    """Plain version of ``conv3x3_pallas`` (ops/pallas_conv.py:96-127): x
+    (B, H, W, C), w (3, 3, C, Cout) rounded to x's dtype, 9 shifted
+    products accumulated in float32 whatever x's dtype (each tap's sum in
+    x's dtype promoted to float32, then rounded to float32), the bias (zeros
+    when None) added in float32 from its own dtype; the output in x's
+    dtype."""
+    B, H, W, C = x.shape
+    tap_dt = _acc_dtype(x)
+    xp = F.pad(x.to(tap_dt), (0, 0, 1, 1, 1, 1))
+    wq = w.to(x.dtype).to(tap_dt)
+    out = torch.zeros(B, H, W, w.shape[-1], dtype=torch.float32,
+                      device=x.device)
+    for ky in range(3):
+        for kx in range(3):
+            out = out + torch.einsum("bhwc,co->bhwo",
+                                     xp[:, ky:ky + H, kx:kx + W, :],
+                                     wq[ky, kx]).float()
+    if b is None:
+        b = torch.zeros(w.shape[-1], dtype=x.dtype, device=x.device)
+    return (out + b.float()).to(x.dtype)
+
+
+def _check_nhwc(x, w, b):
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
+        raise ValueError(f"want x (B, H, W, C) and w (3, 3, C, Cout); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if w.shape[2] != x.shape[3]:
+        raise ValueError(f"w {tuple(w.shape)} does not take {x.shape[3]} "
+                         f"input channels")
+    if b is not None and tuple(b.shape) != (w.shape[3],):
+        raise ValueError(f"bias must be ({w.shape[3]},), got "
+                         f"{tuple(b.shape)}")
+
+
+def _launch_cuda_nhwc(x, w, b):
+    global nhwc_launches
+    B, H, W, C = x.shape
+    Cout = w.shape[3]
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    tensors = [x, w] + ([b] if b is not None else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, w and bias must be on one CUDA device")
+    # the function's own roundings: w to x's dtype, the bias to float32
+    # (exact from float32 and bfloat16)
+    x = x.contiguous()
+    w = w.to(x.dtype).contiguous()
+    b = None if b is None else b.float().contiguous()
+    lib = cuda_build.load("conv3x3")
+    fn = lib.samt_conv3x3_nhwc
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    y = torch.empty(B, H, W, Cout, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(),
+                 b.data_ptr() if b is not None else None, y.data_ptr(),
+                 B, H, W, C, Cout, _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_nhwc kernel launch failed with CUDA "
+                           f"error {err}")
+    nhwc_launches += 1
+    return y
+
+
+class _Conv3x3NHWC(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        if x.device.type == "cpu":
+            return conv3x3_nhwc_reference(x, w, b)
+        if x.device.type == "cuda":
+            return _launch_cuda_nhwc(x, w, b)
+        raise ValueError(f"no conv3x3_nhwc for device {x.device}")
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "conv3x3_nhwc has no gradient: conv3x3_pallas, its JAX "
+            "counterpart, is a raw pallas_call without a VJP")
+
+
+def conv3x3_nhwc(x, w, b: Optional[torch.Tensor] = None):
+    """3x3, stride-1, pad-1 conv plus bias in NHWC with HWIO weights, as
+    ``conv3x3_pallas`` computes it (see ``conv3x3_nhwc_reference``).
+    Forward only: a backward through it raises NotImplementedError."""
+    _check_nhwc(x, w, b)
+    return _Conv3x3NHWC.apply(x, w, b)

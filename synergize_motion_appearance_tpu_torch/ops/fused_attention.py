@@ -1,17 +1,22 @@
-"""Head-packed fused softmax attention (kernel K1 of the port).
+"""Fused softmax attention in two layouts (kernels K1 and K2 of the port).
 
-Counterpart of ``synergize_motion_appearance_tpu/ops/fused_attention.py``'s
-``fused_attention_packed``. Token-major layout: q (B, L, E) with H heads of
-d = E / H; k, v (B, K, E), or one (K, E) context shared by the batch (the
-codebook, never broadcast in memory); optional (B, K) float32 additive bias
-where -1e30 masks a key. Returns (B, L, E) in q's dtype.
+Counterparts of ``synergize_motion_appearance_tpu/ops/fused_attention.py``'s
+``fused_attention_packed`` (K1) and ``fused_attention`` (K2):
+- ``fused_attention_packed``: token-major q (B, L, E) with H heads of
+  d = E / H; k, v (B, K, E), or one (K, E) context shared by the batch (the
+  codebook, never broadcast in memory). Returns (B, L, E).
+- ``fused_attention``: head-split q (B, H, L, d); k, v (B, H, K, d), or one
+  (1, H, K, d) context shared by the batch. Returns (B, H, L, d).
+Both take an optional (B, K) float32 additive bias where -1e30 masks a key,
+and return q's dtype.
 
-On a CUDA tensor the call launches the hand-written kernel
-``csrc/fused_attention_packed.cu`` or raises; on a CPU tensor it runs
-``fused_attention_packed_reference``, the plain PyTorch version, which the
-tests hold against the JAX package and the on-card check holds the kernel
-against. The gradient differentiates the plain version, as the JAX
-package's custom VJP does (there is no backward kernel).
+On a CUDA tensor each call launches the hand-written kernel
+``csrc/fused_attention_packed.cu`` (one kernel, given each layout's
+strides) or raises; on a CPU tensor it runs the plain PyTorch version
+(``fused_attention_packed_reference``, ``fused_attention_reference``),
+which the tests hold against the JAX package and the on-card check holds
+the kernel against. The gradient differentiates the plain version, as the
+JAX package's custom VJPs do (there is no backward kernel).
 """
 from __future__ import annotations
 
@@ -23,25 +28,47 @@ import torch
 
 from . import cuda_build
 
-# Kernel launches made by `fused_attention_packed` since the last reset.
+# Kernel launches since the last reset: by `fused_attention_packed` (K1)
+# and by `fused_attention` (K2).
 launches = 0
+split_launches = 0
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, split_launches
     launches = 0
+    split_launches = 0
 
 
-def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
-    """Plain version: the JAX package's ``_dense_reference_packed`` and
-    ``_dense_reference`` (ops/fused_attention.py:38-53, :210-224),
-    transliterated, plus the kernel's all-masked-row rule.
+def fused_attention_reference(q, k, v, bias=None):
+    """Plain version of the head-split layout: the JAX package's
+    ``_dense_reference`` (ops/fused_attention.py:38-53), transliterated,
+    plus the kernel's all-masked-row rule.
 
     A row whose every key carries the -1e30 bias has uniform softmax
     weights, so the JAX dense reference returns the mean of v there; the
-    TPU kernel multiplies such rows by (max score > -1e29) and returns 0.
-    This version applies the kernel's rule, so it answers what the kernel
-    answers."""
+    TPU kernels multiply such rows by (max score > -1e29) and return 0
+    (:92-95). This version applies the kernels' rule, so it answers what
+    the kernel answers."""
+    d = q.shape[-1]
+    if k.shape[0] == 1 and q.shape[0] != 1:
+        k = k.expand(q.shape[0], -1, -1, -1)
+        v = v.expand(q.shape[0], -1, -1, -1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+        / math.sqrt(d)
+    if bias is not None:
+        scores = scores + bias[:, None, None, :].float()
+    attn = torch.nan_to_num(torch.softmax(scores, dim=-1))
+    out = torch.einsum("bhqk,bhkd->bhqd", attn, v.float())
+    if bias is not None:
+        out = out * (scores.amax(dim=-1, keepdim=True) > -1e29)
+    return out.to(q.dtype)
+
+
+def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
+    """Plain version of the token-major layout: the JAX package's
+    ``_dense_reference_packed`` (:210-224), which splits the heads, runs
+    the head-split version and merges them."""
     B, L, E = q.shape
     H = num_heads
     d = E // H
@@ -52,19 +79,8 @@ def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
             return t.reshape(1, K, H, d).permute(0, 2, 1, 3)
         return t.reshape(t.shape[0], t.shape[1], H, d).permute(0, 2, 1, 3)
 
-    qh, kh, vh = split(q), split(k), split(v)
-    if kh.shape[0] == 1 and B != 1:
-        kh = kh.expand(B, -1, -1, -1)
-        vh = vh.expand(B, -1, -1, -1)
-    scores = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) \
-        / math.sqrt(d)
-    if bias is not None:
-        scores = scores + bias[:, None, None, :].float()
-    attn = torch.nan_to_num(torch.softmax(scores, dim=-1))
-    out = torch.einsum("bhqk,bhkd->bhqd", attn, vh.float())
-    if bias is not None:
-        out = out * (scores.amax(dim=-1, keepdim=True) > -1e29)
-    return out.to(q.dtype).permute(0, 2, 1, 3).reshape(B, L, E)
+    out = fused_attention_reference(split(q), split(k), split(v), bias)
+    return out.permute(0, 2, 1, 3).reshape(B, L, E)
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,11 +103,31 @@ def _check(q, k, v, bias, num_heads):
                          f"{tuple(bias.shape)}")
 
 
+def _check_split(q, k, v, bias):
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, H, L, d), got {tuple(q.shape)}")
+    B, H, L, d = q.shape
+    if k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"k, v must both be (B, H, K, d) or (1, H, K, d); "
+                         f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if k.shape[0] not in (1, B) or k.shape[1] != H or k.shape[3] != d:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if bias is not None and tuple(bias.shape) != (B, k.shape[2]):
+        raise ValueError(f"bias must be (B, K) = {(B, k.shape[2])}, got "
+                         f"{tuple(bias.shape)}")
+
+
 def _launch_cuda(q, k, v, bias, num_heads):
-    global launches
-    B, L, E = q.shape
-    K = k.shape[-2]
-    d = E // num_heads
+    """Launches the kernel in the token-major layout (num_heads given) or
+    the head-split one (num_heads None)."""
+    global launches, split_launches
+    if num_heads is None:
+        B, H, L, d = q.shape
+        K = k.shape[2]
+    else:
+        B, L, E = q.shape
+        H, K, d = num_heads, k.shape[-2], E // num_heads
     if not 2 <= d <= 64:
         raise ValueError(f"head width d={d} is outside the kernel's 2..64")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -105,35 +141,53 @@ def _launch_cuda(q, k, v, bias, num_heads):
     if bias is not None and bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
     lib = cuda_build.load("fused_attention_packed")
-    fn = lib.samt_fused_attention_packed
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    if num_heads is None:
+        fn = lib.samt_fused_attention_split
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        shape_args = (B, H, L, K, d, int(k.shape[0] == 1 and B != 1))
+    else:
+        fn = lib.samt_fused_attention_packed
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        shape_args = (B, L, K, E, H, K * E if k.dim() == 3 else 0)
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), B, L, K, E, num_heads,
-                 K * E if k.dim() == 3 else 0, 1.0 / math.sqrt(d),
+                 out.data_ptr(), *shape_args, 1.0 / math.sqrt(d),
                  _DTYPES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"fused_attention_packed kernel launch failed "
-                           f"with CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"fused attention kernel launch failed with CUDA "
+                           f"error {err}")
+    if num_heads is None:
+        split_launches += 1
+    else:
+        launches += 1
     return out
+
+
+def _reference(q, k, v, bias, num_heads):
+    if num_heads is None:
+        return fused_attention_reference(q, k, v, bias)
+    return fused_attention_packed_reference(q, k, v, bias,
+                                            num_heads=num_heads)
 
 
 def _forward(q, k, v, bias, num_heads):
     if q.device.type == "cpu":
-        return fused_attention_packed_reference(q, k, v, bias,
-                                                num_heads=num_heads)
+        return _reference(q, k, v, bias, num_heads)
     if q.device.type == "cuda":
         return _launch_cuda(q, k, v, bias, num_heads)
-    raise ValueError(f"no fused_attention_packed for device {q.device}")
+    raise ValueError(f"no fused attention for device {q.device}")
 
 
-class _FusedAttentionPacked(torch.autograd.Function):
+class _FusedAttention(torch.autograd.Function):
+    """Either layout: token-major when num_heads is given, else
+    head-split."""
+
     @staticmethod
     def forward(ctx, q, k, v, bias, num_heads):
         ctx.num_heads = num_heads
@@ -145,10 +199,16 @@ class _FusedAttentionPacked(torch.autograd.Function):
         q, k, v, bias = ctx.saved_tensors
         with torch.enable_grad():
             qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-            out = fused_attention_packed_reference(
-                qd, kd, vd, bias, num_heads=ctx.num_heads)
+            out = _reference(qd, kd, vd, bias, ctx.num_heads)
             dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
         return dq, dk, dv, None, None
+
+
+def fused_attention(q, k, v, bias: Optional[torch.Tensor] = None):
+    """Softmax attention in head-split layout (see the module docstring):
+    q (B, H, L, d); k, v (B, H, K, d) or a shared (1, H, K, d)."""
+    _check_split(q, k, v, bias)
+    return _FusedAttention.apply(q, k, v, bias, None)
 
 
 def fused_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
@@ -156,4 +216,4 @@ def fused_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
     """Softmax attention in token-major layout (see the module docstring).
     Heads are split and merged inside the kernel."""
     _check(q, k, v, bias, num_heads)
-    return _FusedAttentionPacked.apply(q, k, v, bias, num_heads)
+    return _FusedAttention.apply(q, k, v, bias, num_heads)

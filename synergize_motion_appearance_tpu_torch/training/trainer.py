@@ -233,6 +233,26 @@ def _params(module) -> Dict[str, torch.Tensor]:
     return dict(module.named_parameters())
 
 
+def batch_to_device(batch: Dict[str, np.ndarray], device
+                    ) -> Dict[str, torch.Tensor]:
+    """A loader's batch ({'source', 'driving'}: (B, H, W, 3) float32 numpy,
+    NHWC) as the (B, 3, H, W) float32 tensors on ``device`` that
+    ``Trainer.train_step`` takes."""
+    return {k: torch.from_numpy(np.ascontiguousarray(batch[k], np.float32))
+            .to(device).permute(0, 3, 1, 2).contiguous()
+            for k in ("source", "driving")}
+
+
+def step_generator(seed: int, iteration: int, device) -> torch.Generator:
+    """The generator of one step's random draws (the TPS warp), on
+    ``device``, seeded from (seed + 1000, iteration): the counterpart of
+    the JAX entry point's ``fold_in(PRNGKey(seed + 1000), iteration)``, so
+    a resumed run draws what an uninterrupted one draws."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((seed + 1000) << 32) + iteration)
+    return g
+
+
 def _buffers(module) -> Dict[str, torch.Tensor]:
     return {k: b.clone() for k, b in module.named_buffers()}
 
@@ -322,6 +342,28 @@ class Trainer:
             opt_g=AdamState.zeros(_params(self.net_g)),
             opt_m=AdamState.zeros(_params(self.motion_estimator)),
             opt_d=AdamState.zeros(_params(self.net_d)))
+
+    @torch.no_grad()
+    def ema_forward(self, source, driving, w: float = 1.0):
+        """The evaluation forward (appmotioncomp_model.py:437-456): the
+        motion estimator in eval mode, then the generator's inference
+        forward on the EMA weights, in float32. (B, 3, H, W) frames in
+        [-1, 1] on the trainer's device in and out. Every network's mode is
+        put back afterwards: BatchNorm's mode decides the next step."""
+        modes = [(m, m.training) for m in (self.net_g,
+                                           self.motion_estimator,
+                                           self.net_d)]
+        try:
+            self.motion_estimator.eval()
+            self.net_g.eval()
+            dense_motion = self.motion_estimator(driving, source)
+            out = functional_call(self.net_g, self.state.ema_g,
+                                  (source, dense_motion),
+                                  {"w": w, "inference": True})
+        finally:
+            for m, mode in modes:
+                m.train(mode)
+        return out["out"]
 
     # ------------------------------------------------------------------
     def _g_forward(self, source, dense_motion, gt):

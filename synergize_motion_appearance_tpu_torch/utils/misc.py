@@ -1,0 +1,26 @@
+"""Misc utilities the training entry point needs (the reference's
+utils/misc.py:35-146)."""
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import torch
+
+
+def set_random_seed(seed: int) -> None:
+    """Seed Python's, numpy's and PyTorch's global generators
+    (misc.py:35-41). The data pipeline draws frames and flips from the
+    first two."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def sizeof_fmt(size: float, suffix: str = "B") -> str:
+    """A byte count in binary units, e.g. '1.5 GB'."""
+    for unit in ["", "K", "M", "G", "T", "P", "E", "Z"]:
+        if abs(size) < 1024.0:
+            return f"{size:3.1f} {unit}{suffix}"
+        size /= 1024.0
+    return f"{size:3.1f} Y{suffix}"

@@ -1,4 +1,4 @@
-"""Name -> class registry (the reference's utils/registry.py:4-82)."""
+"""Name -> class registries (the reference's utils/registry.py:4-82)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -9,7 +9,11 @@ class Registry:
         self._name = name
         self._obj_map: Dict[str, Any] = {}
 
-    def register(self, obj, name: Optional[str] = None):
+    def register(self, obj=None, name: Optional[str] = None):
+        """Register ``obj`` under ``name`` (its ``__name__`` by default);
+        called with no object, returns a decorator."""
+        if obj is None:
+            return lambda o: self.register(o, name)
         name = name or obj.__name__
         if name in self._obj_map and self._obj_map[name] is not obj:
             raise KeyError(
@@ -26,5 +30,11 @@ class Registry:
             )
         return self._obj_map[name]
 
+    def keys(self):
+        return sorted(self._obj_map)
+
 
 ARCH_REGISTRY = Registry("arch")
+DATASET_REGISTRY = Registry("dataset")
+METRIC_REGISTRY = Registry("metric")
+MODEL_REGISTRY = Registry("model")

@@ -34,10 +34,19 @@ def test_port_has_sources():
                      "losses.py", "training/trainer.py",
                      "ops/fused_attention.py", "ops/conv3x3.py",
                      "ops/vq.py", "ops/tps.py", "models/vgg.py",
-                     "models/appmotion_former.py"):
+                     "models/appmotion_former.py", "train.py",
+                     "model_api.py", "training/checkpoint.py",
+                     "data/frames_dataset.py", "data/loader.py",
+                     "data/native_loader.py", "data/sampler.py",
+                     "data/transforms.py", "metrics/psnr_ssim.py",
+                     "metrics/__init__.py", "utils/options.py",
+                     "utils/misc.py", "utils/logger.py",
+                     "utils/img_util.py", "utils/registry.py"):
         assert expected in names
     for source in ("fused_attention_packed.cu", "conv3x3.cu"):
         assert (PORT / "csrc" / source).exists()
+    # the native frame cache's own copy of its C++ source
+    assert (PORT / "native" / "framecache.cpp").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
