@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port: builds its CUDA kernels, holds
-each against its plain PyTorch version (K1 and K3 at the main paths'
-shapes, K2 and K4, which no path calls, at those shapes relaid to their
-layouts), checks the tiny config on the card against the port on the CPU,
+"""On-card check of the PyTorch/CUDA port: builds its CUDA kernels
+(reporting the conv kernels' registers, shared memory, spills and tensor-
+core instructions), holds each against its plain PyTorch version (K1 and
+K3 at the main paths' shapes, K2 and K4, which no path calls, at those
+shapes relaid to their layouts; K3 and K4 also at ragged shapes), checks the tiny config on the card against the port on the CPU,
 and drives the port's three paths at the flagship 256x256 width with
 seeded random weights:
 - the reenactment path (ReenactmentPipeline.animate), uint8 frames in and
@@ -51,10 +52,16 @@ CLI_STEPS = 4                  # steps of the training entry point's run
 CACHE_VIDEOS, CACHE_FRAMES = 8, 8  # its native frame cache: 12.6 MB
 CACHE_SIZE = 256                   # frames of the flagship's img_size
 
-# K1 per frame batch and K3 per train step, bf16 (chip call 16 of the
-# previous slice, NVIDIA H100 80GB HBM3, 700.00 W); on a card at that
-# power limit, neither may be more than 10% slower now
-PREVIOUS_MS = {"fused_attention_packed": 13.59, "conv3x3": 54.24}
+# kernel -> (key of its kernels-line entry, earlier time in ms), bf16, on
+# an NVIDIA H100 80GB HBM3 at 700.00 W: K1 per frame batch by CUDA events
+# per call; K3 per train step and K4 over K3's forward shapes by the
+# profiler's device time, as measured when they were redesigned for the
+# tensor cores (their calls are short enough that per-call event times
+# measure the host). On a card at that power limit none may be more than
+# 10% slower now.
+PREVIOUS_MS = {"fused_attention_packed": ("ms", 13.59),
+               "conv3x3": ("device_ms", 5.54),
+               "conv3x3_nhwc": ("device_ms", 2.49)}
 
 # profiled kernel-name substrings -> kind, first match wins
 KINDS = [
@@ -88,7 +95,10 @@ def card_line():
 
 
 def time_ms(torch, fn, iters, warmup=2):
-    """Median of per-call CUDA-event times, after warmup calls."""
+    """Median of per-call CUDA-event times, after warmup calls. Each call's
+    time includes the host's work between the start event and the first
+    launch, so a call whose kernels are shorter than that measures the
+    host (device_ms measures the kernels alone)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -101,6 +111,23 @@ def time_ms(torch, fn, iters, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(torch, fn, iters=10):
+    """Device time of one call of ``fn``: every kernel and memset it
+    launches, summed by torch.profiler over ``iters`` calls after one
+    warm-up call, per call; no host time, unlike time_ms."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.self_device_time_total for evt in prof.key_averages()
+             if evt.device_type == torch.autograd.DeviceType.CUDA)
+    assert us > 0, "the profiler saw no device time"
+    return us / 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -356,83 +383,120 @@ def k1_per_train_step(net_cfg):
                 + app * net_cfg["n_layers_app"])
 
 
+# (B, C, Cout, H, W) on no path, checked and not timed: no tile multiple
+# anywhere, H != W, C not a multiple of 8 (NHWC's narrow loads) or of 16
+# (a part-filled channel chunk), Cout above one 128-channel tile
+RAGGED_CONVS = [(1, 3, 5, 7, 9), (3, 20, 40, 17, 33), (2, 72, 130, 31, 64)]
+
+
+def assert_conv_close(torch, out, ref, dtype):
+    if dtype == torch.float32:
+        # outputs are O(1); the kernel and the plain version sum the same
+        # 9*C float32 products in other orders
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        # both accumulate in float32 and round once to bf16: a result on
+        # a rounding boundary differs by one bf16 ulp, at most 2^-7 of its
+        # magnitude
+        torch.testing.assert_close(out.float(), ref.float(), atol=1e-3,
+                                   rtol=2 ** -7)
+
+
+def conv_bound(B, cin, cout, h, w, nbytes, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * B * h * w * 9 * cin * cout / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def device_note(row):
+    return (f"  device {row['device_ms']:.4f} ms, library "
+            f"{row['library_device_ms']:.4f} ms" if "device_ms" in row
+            else "")
+
+
 def check_conv3x3(torch, k3, fwd_convs, B):
     """Hold K3 against its plain version at every forward and input-
-    gradient shape of one training step, in float32 and bfloat16; time
-    kernel, plain version and the PyTorch call for the same function
-    (F.conv2d forward, torch.nn.grad.conv2d_input for the input
-    gradient)."""
+    gradient shape of one training step, and at RAGGED_CONVS, in float32
+    and bfloat16; time kernel, plain version and the PyTorch call for the
+    same function (F.conv2d forward, torch.nn.grad.conv2d_input for the
+    input gradient) at the training step's shapes."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
     cases = Counter()
     for (c, co, h), n in fwd_convs.items():
-        cases[("forward", c, co, h)] += n
-        cases[("dgrad", co, c, h)] += n      # dy (Cout) -> dx (C)
+        cases[("forward", B, c, co, h, h)] += n
+        cases[("dgrad", B, co, c, h, h)] += n      # dy (Cout) -> dx (C)
+    for bb, c, co, h, w_ in RAGGED_CONVS:
+        cases[("forward", bb, c, co, h, w_)] = 0
+        cases[("dgrad", bb, co, c, h, w_)] = 0
     rows = []
-    for (kind, cin, cout, h), per_step in sorted(cases.items()):
+    for (kind, bb, cin, cout, h, w_), per_step in sorted(
+            cases.items(), key=lambda kv: (kv[1] == 0, kv[0])):
         for dtype in (torch.float32, torch.bfloat16):
             def randn(*shape, scale=1.0):
                 return (scale * torch.randn(*shape, generator=gen,
                                             device="cuda")).to(dtype)
 
-            x = randn(B, cin, h, h)
+            x = randn(bb, cin, h, w_)
             if kind == "forward":
                 w = randn(cout, cin, 3, 3, scale=(9 * cin) ** -0.5)
                 b = randn(cout)
 
+                def kernel():
+                    return k3.conv3x3(x, w, b)
+
+                def plain():
+                    return k3.conv3x3_reference(x, w, b)
+
                 def library():
                     return F.conv2d(x, w, b, padding=1)
             else:  # the conv C=cout -> Cout=cin, differentiated
-                w0 = randn(cin, cout, 3, 3, scale=(9 * cin) ** -0.5)
-                w, b = k3.flipped_weights(w0), None
+                w = randn(cin, cout, 3, 3, scale=(9 * cin) ** -0.5)
+                b = None
+
+                def kernel():
+                    return k3.conv3x3_input_grad(x, w)
+
+                def plain():
+                    return k3.conv3x3_reference(x, k3.flipped_weights(w))
 
                 def library():
                     return torch.nn.grad.conv2d_input(
-                        (B, cout, h, h), w0, x, padding=1)
+                        (bb, cout, h, w_), w, x, padding=1)
 
             with torch.no_grad():
-                out = k3.conv3x3(x, w, b)
-                ref = k3.conv3x3_reference(x, w, b)
-                lib = library()
+                out, ref, lib = kernel(), plain(), library()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
-            if dtype == torch.float32:
-                # outputs are O(1); the kernel and the plain version sum
-                # the same 9*C float32 products in other orders
-                torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
-            else:
-                # both accumulate in float32 and round once to bf16: a
-                # result on a rounding boundary differs by one bf16 ulp,
-                # at most 2^-7 of its magnitude
-                torch.testing.assert_close(out.float(), ref.float(),
-                                           atol=1e-3, rtol=2 ** -7)
+            assert_conv_close(torch, out, ref, dtype)
             torch.testing.assert_close(out.float(), lib.float(),
                                        atol=5e-2, rtol=5e-2)
-            with torch.no_grad():
-                ms = time_ms(torch, lambda: k3.conv3x3(x, w, b), iters=20)
-                plain = time_ms(torch, lambda: k3.conv3x3_reference(x, w, b),
-                                iters=5)
-                library_ms = time_ms(torch, library, iters=20)
-            s = x.element_size()
-            nbytes = (x.numel() + w.numel() + out.numel()
-                      + (b.numel() if b is not None else 0)) * s
-            flops = 2 * B * h * h * 9 * cin * cout
             name = str(dtype).split(".")[1]
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / PEAK_FLOPS[name]
-            rows.append({"case": kind, "dtype": name, "B": B, "C": cin,
-                         "Cout": cout, "H": h, "W": h,
-                         "launches_per_step": per_step, "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain, "library_ms": library_ms,
-                         "bound_ms": 1e3 * max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes > t_ops
-                         else "operations"})
-            r = rows[-1]
-            print(f"  K3 {kind:7s} {cin:3d}->{cout:3d} @{h:3d}^2 {name:8s} "
-                  f"x{per_step:2d} max_abs_err {err:.3e}  kernel "
-                  f"{ms:.4f} ms  plain {plain:.4f} ms  library "
-                  f"{library_ms:.4f} ms  bound {r['bound_ms']:.4f} ms",
+            row = {"case": kind, "dtype": name, "B": bb, "C": cin,
+                   "Cout": cout, "H": h, "W": w_,
+                   "launches_per_step": per_step, "max_abs_err": err}
+            if per_step:
+                with torch.no_grad():
+                    row["ms"] = time_ms(torch, kernel, iters=20)
+                    row["plain_ms"] = time_ms(torch, plain, iters=5)
+                    row["library_ms"] = time_ms(torch, library, iters=20)
+                    if dtype == torch.bfloat16:
+                        row["device_ms"] = device_ms(torch, kernel)
+                        row["library_device_ms"] = device_ms(torch, library)
+                nbytes = (x.numel() + w.numel() + out.numel()
+                          + (b.numel() if b is not None else 0)) * \
+                    x.element_size()
+                row.update(conv_bound(bb, cin, cout, h, w_, nbytes, name))
+            rows.append(row)
+            print(f"  K3 {kind:7s} {cin:3d}->{cout:3d} @{h:3d}x{w_:<3d} "
+                  f"{name:8s} x{per_step:2d} max_abs_err {err:.3e}"
+                  + (f"  kernel {row['ms']:.4f} ms  plain "
+                     f"{row['plain_ms']:.4f} ms  library "
+                     f"{row['library_ms']:.4f} ms  bound "
+                     f"{row['bound_ms']:.4f} ms" + device_note(row)
+                     if per_step else "  (ragged: checked, not timed)"),
                   flush=True)
             del x, w, b, out, ref, lib
     return rows
@@ -441,16 +505,20 @@ def check_conv3x3(torch, k3, fwd_convs, B):
 def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
     """Hold K4 against its plain version at the training step's forward
     3x3 shapes (K3's forward rows) in NHWC with HWIO weights and a float32
-    bias, in float32 and bfloat16, with K3's tolerances; time kernel,
-    plain version and F.conv2d on channels_last tensors (the same
-    function in PyTorch's NHWC layout). No path calls K4."""
+    bias, and at RAGGED_CONVS, in float32 and bfloat16, with K3's
+    tolerances; time kernel, plain version and F.conv2d on channels_last
+    tensors (the same function in PyTorch's NHWC layout) at the training
+    step's shapes. No path calls K4."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5432)
+    cases = [((B, c, co, h, h), n) for (c, co, h), n in
+             sorted(fwd_convs.items())]
+    cases += [(shape, 0) for shape in RAGGED_CONVS]
     rows = []
-    for (cin, cout, h), per_step in sorted(fwd_convs.items()):
+    for (bb, cin, cout, h, w_), per_step in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(B, h, h, cin, generator=gen,
+            x = torch.randn(bb, h, w_, cin, generator=gen,
                             device="cuda").to(dtype)
             w = ((9 * cin) ** -0.5 * torch.randn(3, 3, cin, cout,
                                                  generator=gen,
@@ -467,41 +535,80 @@ def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
                 lib = F.conv2d(x_cl, w_cl, b_lib, padding=1)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
-            if dtype == torch.float32:  # K3's bounds (check_conv3x3)
-                torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
-            else:
-                torch.testing.assert_close(out.float(), ref.float(),
-                                           atol=1e-3, rtol=2 ** -7)
+            assert_conv_close(torch, out, ref, dtype)  # K3's bounds
             torch.testing.assert_close(out.float(),
                                        lib.permute(0, 2, 3, 1).float(),
                                        atol=5e-2, rtol=5e-2)
-            with torch.no_grad():
-                ms = time_ms(torch, lambda: k3.conv3x3_nhwc(x, w, b),
-                             iters=20)
-                plain = time_ms(torch, lambda: k3.conv3x3_nhwc_reference(
-                    x, w, b), iters=5)
-                library_ms = time_ms(torch, lambda: F.conv2d(
-                    x_cl, w_cl, b_lib, padding=1), iters=20)
             name = str(dtype).split(".")[1]
-            nbytes = (x.numel() + w.numel() + out.numel()) * \
-                x.element_size() + b.numel() * 4
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = 2 * B * h * h * 9 * cin * cout / PEAK_FLOPS[name]
-            rows.append({"case": "forward", "dtype": name, "B": B, "H": h,
-                         "W": h, "C": cin, "Cout": cout,
-                         "k3_launches_per_step": per_step,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "library_ms": library_ms,
-                         "bound_ms": 1e3 * max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes > t_ops
-                         else "operations"})
-            r = rows[-1]
-            print(f"  K4 {cin:3d}->{cout:3d} @{h:3d}^2 {name:8s} max_abs_err "
-                  f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                  f"channels_last conv2d {library_ms:.4f} ms  bound "
-                  f"{r['bound_ms']:.4f} ms", flush=True)
+            row = {"case": "forward", "dtype": name, "B": bb, "H": h,
+                   "W": w_, "C": cin, "Cout": cout,
+                   "k3_launches_per_step": per_step, "max_abs_err": err}
+            if per_step:
+                with torch.no_grad():
+                    row["ms"] = time_ms(torch, lambda: k3.conv3x3_nhwc(
+                        x, w, b), iters=20)
+                    row["plain_ms"] = time_ms(
+                        torch, lambda: k3.conv3x3_nhwc_reference(x, w, b),
+                        iters=5)
+                    row["library_ms"] = time_ms(torch, lambda: F.conv2d(
+                        x_cl, w_cl, b_lib, padding=1), iters=20)
+                    if dtype == torch.bfloat16:
+                        row["device_ms"] = device_ms(
+                            torch, lambda: k3.conv3x3_nhwc(x, w, b))
+                        row["library_device_ms"] = device_ms(
+                            torch, lambda: F.conv2d(x_cl, w_cl, b_lib,
+                                                    padding=1))
+                nbytes = (x.numel() + w.numel() + out.numel()) * \
+                    x.element_size() + b.numel() * 4
+                row.update(conv_bound(bb, cin, cout, h, w_, nbytes, name))
+            rows.append(row)
+            print(f"  K4 {cin:3d}->{cout:3d} @{h:3d}x{w_:<3d} {name:8s} "
+                  f"max_abs_err {err:.3e}"
+                  + (f"  kernel {row['ms']:.4f} ms  plain "
+                     f"{row['plain_ms']:.4f} ms  channels_last conv2d "
+                     f"{row['library_ms']:.4f} ms  bound "
+                     f"{row['bound_ms']:.4f} ms" + device_note(row)
+                     if per_step else "  (ragged: checked, not timed)"),
+                  flush=True)
             del x, w, b, x_cl, w_cl, b_lib, out, ref, lib
     return rows
+
+
+def conv_build_report(cuda_build):
+    """ptxas's registers, shared memory and spills for each kernel of
+    csrc/conv3x3.cu, and the tensor-core (HMMA) and ldmatrix (LDSM)
+    instructions in each kernel's SASS; every bfloat16 instantiation must
+    hold HMMA instructions."""
+    import re
+
+    kernels, name = {}, None
+    for line in cuda_build.build_log("conv3x3").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kernels[name] = {}
+        elif name and "spill" in line:
+            kernels[name]["stack_spill"] = line.strip()
+        elif name and "Used" in line:
+            kernels[name]["ptxas"] = line.split(":", 1)[1].strip()
+    name = None
+    for line in cuda_build.sass("conv3x3").splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            kernels.setdefault(name, {}).update(hmma=0, ldsm=0)
+        elif name:
+            kernels[name]["hmma"] += "HMMA" in line
+            kernels[name]["ldsm"] += "LDSM" in line
+            if "HMMA" in line and "hmma_example" not in kernels[name]:
+                kernels[name]["hmma_example"] = line.strip()[:160]
+    for name, k in kernels.items():
+        short = name[name.find("conv3x3_kernel"):]
+        print(f"  {short[:100]}: {k.get('ptxas')}; {k.get('stack_spill')}; "
+              f"HMMA {k.get('hmma')}, LDSM {k.get('ldsm')}", flush=True)
+        if "conv3x3_kernel_tc" in name:
+            assert k.get("hmma", 0) > 0, f"no HMMA in {name}"
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -1195,14 +1302,19 @@ def kernel_entry(name, source, replaces, rows, weight, launches,
                  times_are, **extra):
     """One kernel's entry of the kernels line: errors over its f32 and bf16
     cases; times and bound summed over its bf16 cases, each weighted by
-    ``weight`` (its launches in one unit of the path)."""
+    ``weight`` (its launches in one unit of the path; the ragged cases,
+    weighted 0, are checked and not timed)."""
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    timed = [r for r in bf16 if r[weight]]
 
     def total(key):
-        return sum(r[key] * r[weight] for r in bf16)
+        return sum(r[key] * r[weight] for r in timed)
 
+    if timed and all("device_ms" in r for r in timed):
+        extra.update(device_ms=total("device_ms"),
+                     library_device_ms=total("library_device_ms"))
     bound = total("bound_ms")
-    by_bytes = sum(r["bound_ms"] * r[weight] for r in bf16
+    by_bytes = sum(r["bound_ms"] * r[weight] for r in timed
                    if r["bound_by"] == "bytes")
     return {
         "name": name, "route": "cuda",
@@ -1250,6 +1362,7 @@ def main():
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s}
+    report["conv3x3_build"] = conv_build_report(cuda_build)
     report["k1_cases"] = check_attention(torch, fa, FRAME_BATCH)
     report["k2_cases"] = check_attention_split(torch, fa, FRAME_BATCH)
     train_cfg = configs.get("flagship_train")
@@ -1302,7 +1415,10 @@ def main():
             report["train_path"]["k3_launches"],
             f"sum over the {k3_per_step} bf16 launches (forward and input "
             f"gradient) of one flagship train step at batch {TRAIN_BATCH} "
-            f"(chiprun_out/chip_smoke.json has each shape)",
+            f"(chiprun_out/chip_smoke.json has each shape; the ragged "
+            f"shapes are checked, not summed); device_ms is the profiler's "
+            f"device time of the same calls, without the host's share of "
+            f"each call that ms holds, library_device_ms the library's",
             launches_train_cli=cli["k3"]),
         kernel_entry(
             "conv3x3_nhwc", "conv3x3.cu", "pallas_conv.py:39",
@@ -1310,7 +1426,9 @@ def main():
             report["train_path"]["k4_launches"],
             f"sum over the {k3_per_step // 2} forward 3x3 convs of one "
             f"flagship train step at batch {TRAIN_BATCH}, in NHWC, bf16; "
-            f"library_ms is F.conv2d on channels_last tensors",
+            f"library_ms is F.conv2d on channels_last tensors; the ragged "
+            f"shapes are checked, not summed; device_ms and "
+            f"library_device_ms as for conv3x3",
             launches_note="no path calls it, in the port or the JAX "
                           "package: 0 launches on the inference path, the "
                           "train step and the train CLI",
@@ -1319,21 +1437,21 @@ def main():
     watts = float(card.rsplit(",", 1)[-1].split()[0])
     report["speed_check"] = {}
     for k in kernels:
-        prev = PREVIOUS_MS.get(k["name"])
-        if prev is None:
+        if k["name"] not in PREVIOUS_MS:
             continue
+        key, prev = PREVIOUS_MS[k["name"]]
         checked = watts >= 700.0
         report["speed_check"][k["name"]] = {
-            "ms": k["ms"], "previous_ms": prev, "watts": watts,
+            "key": key, "ms": k[key], "previous_ms": prev, "watts": watts,
             "checked": checked}
-        print(f"{k['name']}: {k['ms']:.2f} ms against {prev} ms before "
-              f"({k['ms'] / prev:.3f}x) at {watts} W; speed check "
+        print(f"{k['name']}: {key} {k[key]:.2f} against {prev} before "
+              f"({k[key] / prev:.3f}x) at {watts} W; speed check "
               + ("(at most 1.1x) run" if checked else
                  "SKIPPED: this card's power limit is below the 700 W "
                  "of the previous time"),
               flush=True)
         if checked:
-            assert k["ms"] <= 1.1 * prev, (k["name"], k["ms"], prev)
+            assert k[key] <= 1.1 * prev, (k["name"], key, k[key], prev)
     report["kernels"] = kernels
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

@@ -14,7 +14,13 @@ against the JAX package and the on-card check holds the kernel against.
 The gradient is laid out like ``conv3x3_wl_ad``'s custom VJP: the input
 gradient is the same kernel on dy with the weights rotated 180 degrees and
 their channels swapped, the weight gradient 9 shifted float32 contractions,
-the bias gradient a sum.
+the bias gradient a sum. On the card the kernel reads w as it is and
+does the rotation in its weight packing (``conv3x3_input_grad``).
+
+A bfloat16 call runs on the tensor cores: the wrapper allocates the
+kernel's packed-weight scratch (``pack_weights_reference`` is its plain
+version) and picks its tile shape from the problem's shape
+(``choose_tile``). A float32 call runs on the CUDA cores, in full float32.
 
 ``conv3x3_nhwc`` (K4) is the counterpart of ``ops/pallas_conv.py``'s
 ``conv3x3_pallas``: NHWC x, HWIO w, the same kernel in its NHWC
@@ -73,6 +79,82 @@ def conv3x3_reference(x, w, b=None):
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The bfloat16 kernel's tile shapes, (output rows, output columns, output
+# channels) per block, in the order of csrc/conv3x3.cu's `tile` argument.
+TILES = ((2, 64, 128), (4, 64, 64), (2, 32, 64))
+# its packed weights: (9, Cout padded to PACK_CO, C padded to PACK_CI)
+PACK_CO, PACK_CI = 128, 16
+# packing modes: w (Cout, C, 3, 3); w (C, Cout, 3, 3) of the conv being
+# differentiated, rotated and channel-swapped; w (3, 3, C, Cout)
+PACK_OIHW, PACK_FLIP, PACK_HWIO = 0, 1, 2
+
+_sm_counts: dict = {}
+_entries: dict = {}
+
+
+def _entry(name, n_ints):
+    """csrc/conv3x3.cu's C entry ``name``, typed once: five pointers,
+    ``n_ints`` ints, the stream."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load("conv3x3"), name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _blocks(tile, B, H, W, Cout):
+    th, tw, bn = TILES[tile]
+    return B * -(-H // th) * -(-W // tw) * -(-Cout // bn)
+
+
+def choose_tile(B, H, W, Cout, n_sms):
+    """The bfloat16 kernel's tile shape for an output of (B, Cout, H, W):
+    128 output channels per block above 64 channels, else 64 channels over
+    4 rows; the small 2 x 32 x 64 tile when that grid has fewer blocks than
+    the card has SMs."""
+    tile = 0 if Cout > 64 else 1
+    return tile if _blocks(tile, B, H, W, Cout) >= n_sms else 2
+
+
+def pack_weights_reference(w, mode):
+    """Plain version of the kernel's weight packing: (9, Coutp, Cp) with
+    [tap, o, c] = the weight from input channel c to output channel o at
+    tap ky * 3 + kx, zero in the padding (see PACK_* for the modes)."""
+    if mode == PACK_OIHW:
+        taps = w.permute(2, 3, 0, 1)
+    elif mode == PACK_FLIP:
+        taps = w.flip(2, 3).permute(2, 3, 1, 0)
+    elif mode == PACK_HWIO:
+        taps = w.permute(0, 1, 3, 2)
+    else:
+        raise ValueError(f"no packing mode {mode}")
+    taps = taps.reshape(9, taps.shape[2], taps.shape[3])
+    cout, c = taps.shape[1:]
+    out = taps.new_zeros(9, -(-cout // PACK_CO) * PACK_CO,
+                         -(-c // PACK_CI) * PACK_CI)
+    out[:, :cout, :c] = taps
+    return out
+
+
+def _wpack(x, B, C, H, W, Cout):
+    """The bfloat16 kernel's packed-weight scratch and tile shape (None and
+    0 for float32, whose kernel takes the weights as they are). The
+    scratch may be freed as soon as the launch returns: it is allocated on
+    the stream the kernel runs on, and the caching allocator gives it out
+    again only to work queued after the kernel on that stream."""
+    if x.dtype != torch.bfloat16:
+        return None, 0
+    n = 9 * -(-Cout // PACK_CO) * PACK_CO * -(-C // PACK_CI) * PACK_CI
+    dev = x.device.index
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+    return (torch.empty(n, dtype=torch.bfloat16, device=x.device),
+            choose_tile(B, H, W, Cout, _sm_counts[dev]))
+
 
 def _check(x, w, b):
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[2:]) != (3, 3):
@@ -86,10 +168,12 @@ def _check(x, w, b):
                          f"{tuple(b.shape)}")
 
 
-def _launch_cuda(x, w, b):
+def _launch_cuda(x, w, b, flip=False):
+    """flip: w is (C, Cout, 3, 3), the weights of the conv whose input
+    gradient this is; the kernel rotates and channel-swaps them."""
     global launches
     B, C, H, W = x.shape
-    Cout = w.shape[0]
+    Cout = w.shape[1] if flip else w.shape[0]
     tensors = [x, w] + ([b] if b is not None else [])
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
         raise TypeError(f"x, w and bias must share float32 or bfloat16; got "
@@ -98,17 +182,15 @@ def _launch_cuda(x, w, b):
         raise ValueError("x, w and bias must be on one CUDA device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("x, w and bias must be contiguous")
-    lib = cuda_build.load("conv3x3")
-    fn = lib.samt_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry("samt_conv3x3", 8)
     y = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
+    wpack, tile = _wpack(x, B, C, H, W, Cout)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(),
                  b.data_ptr() if b is not None else None, y.data_ptr(),
-                 B, C, H, W, Cout, _DTYPES[x.dtype], stream)
+                 wpack.data_ptr() if wpack is not None else None,
+                 B, C, H, W, Cout, _DTYPES[x.dtype], int(flip), tile, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed with CUDA error "
                            f"{err}")
@@ -130,6 +212,21 @@ def flipped_weights(w):
     """(Cout, C, 3, 3) -> (C, Cout, 3, 3): rotated 180 degrees, channels
     swapped; the conv with these is the input gradient of the conv with w."""
     return w.flip(2, 3).transpose(0, 1).contiguous()
+
+
+def conv3x3_input_grad(dy, w):
+    """dx of the conv with w (Cout, C, 3, 3) at output gradient dy
+    (B, Cout, H, W): the conv of dy with ``flipped_weights(w)``. On the
+    card the kernel reads w as it is and rotates it in its weight packing,
+    so no flipped copy is made."""
+    if dy.dim() != 4 or w.dim() != 4 or w.shape[0] != dy.shape[1]:
+        raise ValueError(f"want dy (B, Cout, H, W) and w (Cout, C, 3, 3); "
+                         f"got {tuple(dy.shape)} and {tuple(w.shape)}")
+    if dy.device.type == "cpu":
+        return conv3x3_reference(dy, flipped_weights(w))
+    if dy.device.type == "cuda":
+        return _launch_cuda(dy.contiguous(), w.contiguous(), None, flip=True)
+    raise ValueError(f"no conv3x3 for device {dy.device}")
 
 
 def weight_grad(x, dy):
@@ -158,7 +255,7 @@ class _Conv3x3(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = _forward(dy, flipped_weights(w), None)
+            dx = conv3x3_input_grad(dy, w)
         if ctx.needs_input_grad[1]:
             dw = weight_grad(x, dy).to(w.dtype)
         if ctx.has_bias and ctx.needs_input_grad[2]:
@@ -225,17 +322,15 @@ def _launch_cuda_nhwc(x, w, b):
     x = x.contiguous()
     w = w.to(x.dtype).contiguous()
     b = None if b is None else b.float().contiguous()
-    lib = cuda_build.load("conv3x3")
-    fn = lib.samt_conv3x3_nhwc
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _entry("samt_conv3x3_nhwc", 7)
     y = torch.empty(B, H, W, Cout, dtype=x.dtype, device=x.device)
+    wpack, tile = _wpack(x, B, C, H, W, Cout)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(),
                  b.data_ptr() if b is not None else None, y.data_ptr(),
-                 B, H, W, C, Cout, _DTYPES[x.dtype], stream)
+                 wpack.data_ptr() if wpack is not None else None,
+                 B, H, W, C, Cout, _DTYPES[x.dtype], tile, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_nhwc kernel launch failed with CUDA "
                            f"error {err}")

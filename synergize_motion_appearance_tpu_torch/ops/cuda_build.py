@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into ``build/cuda/<name>-<hash>.so`` beside the
 package, where ``<hash>`` covers every file under ``csrc/`` and the flags,
 so an edited source is rebuilt and an unchanged one is loaded as it is. The
-library is loaded with ``ctypes``. Nothing is compiled when the package is
+library is loaded with ``ctypes``. nvcc's output, with ptxas's registers,
+shared memory and spills of every kernel (``-Xptxas -v``), is kept beside
+it as ``<name>-<hash>.log`` (``build_log``), and ``sass`` disassembles the
+library with the toolkit's ``cuobjdump``. Nothing is compiled when the package is
 imported: only when a kernel is first launched, or when ``build`` is
 called.
 """
@@ -23,21 +26,21 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "cuda"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _nvcc(tool: str = "nvcc") -> str:
+    found = shutil.which(tool)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
+    path = Path(cuda_home) / "bin" / tool
     if not path.exists():
         raise RuntimeError(
-            "nvcc not found (not on PATH, nor under $CUDA_HOME or "
-            "/usr/local/cuda); the CUDA kernels cannot be built")
+            f"{tool} not found (not on PATH, nor under $CUDA_HOME or "
+            f"/usr/local/cuda)")
     return str(path)
 
 
@@ -74,6 +77,7 @@ def build(*names: str) -> float:
             Path(tmp).unlink(missing_ok=True)
             failed.append(f"nvcc failed for {name}.cu:\n{out}")
         else:
+            _library_path(name).with_suffix(".log").write_text(out)
             # atomic: a concurrent build never sees half a file
             os.replace(tmp, _library_path(name))
     if failed:
@@ -89,3 +93,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas's per-kernel report) of csrc/<name>.cu's
+    build, building it first if needed."""
+    build(name)
+    return _library_path(name).with_suffix(".log").read_text()
+
+
+def sass(name: str) -> str:
+    """The SASS of csrc/<name>.cu's library, by ``cuobjdump -sass``."""
+    build(name)
+    return subprocess.run([_nvcc("cuobjdump"), "-sass",
+                           str(_library_path(name))], check=True,
+                          capture_output=True, text=True).stdout
