@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_attention import fused_attention_packed
+from ..ops import fused_attention as fa
 
 
 class MultiheadAttention(nn.Module):
@@ -45,8 +45,8 @@ class MultiheadAttention(nn.Module):
         bias = None
         if key_padding_mask is not None:
             bias = torch.where(key_padding_mask, -1e30, 0.0).to(torch.float32)
-        out = fused_attention_packed(qp, kp, vp, bias,
-                                     num_heads=self.num_heads)
+        out = fa.fused_attention_packed(qp, kp, vp, bias,
+                                        num_heads=self.num_heads)
         return self.out_proj(out)
 
 

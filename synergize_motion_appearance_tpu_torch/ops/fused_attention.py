@@ -10,13 +10,16 @@ Counterparts of ``synergize_motion_appearance_tpu/ops/fused_attention.py``'s
 Both take an optional (B, K) float32 additive bias where -1e30 masks a key,
 and return q's dtype.
 
-On a CUDA tensor each call launches the hand-written kernel
-``csrc/fused_attention_packed.cu`` (one kernel, given each layout's
-strides) or raises; on a CPU tensor it runs the plain PyTorch version
-(``fused_attention_packed_reference``, ``fused_attention_reference``),
-which the tests hold against the JAX package and the on-card check holds
-the kernel against. The gradient differentiates the plain version, as the
-JAX package's custom VJPs do (there is no backward kernel).
+On a CUDA tensor each call launches a hand-written kernel of
+``csrc/fused_attention_packed.cu`` (given each layout's strides) or
+raises: bfloat16 runs on the tensor cores (``attn_packed_kernel_tc``, in
+the variant ``tc_plan`` and ``copy_bytes`` pick), float32 on the CUDA
+cores (``attn_packed_kernel``). On a CPU tensor it runs the plain PyTorch
+version (``fused_attention_packed_reference``,
+``fused_attention_reference``), which the tests hold against the JAX
+package and the on-card check holds the kernel against. The gradient
+differentiates the plain version, as the JAX package's custom VJPs do
+(there is no backward kernel).
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ import torch
 
 from . import cuda_build
 
-# Kernel launches since the last reset: by `fused_attention_packed` (K1)
-# and by `fused_attention` (K2).
+# Kernel launches since the last reset, of either dtype's kernel: by
+# `fused_attention_packed` (K1) and by `fused_attention` (K2).
 launches = 0
 split_launches = 0
 
@@ -84,6 +87,36 @@ def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# P.V widths of the bfloat16 kernel's variants, in n8 tiles: 8, 16, 32 and
+# 64 columns (attn_packed_kernel_tc<NV, ONES>)
+TC_WIDTHS = (1, 2, 4, 8)
+
+
+def tc_plan(B: int, H: int, L: int, d: int, sms: int):
+    """The bfloat16 kernel's variant for a call: (nv, ones, rows).
+
+    nv: the narrowest P.V width of 8*nv columns that holds the d values;
+    ones: whether column d is spare (d < 8*nv), in which case the staged v
+    tile carries ones there and P.V returns the row sums; rows: query rows
+    per block (32 a warp), 128 (k and v staged once for twice the rows)
+    when that still gives at least 4 blocks per SM, else 64."""
+    if not 2 <= d <= 8 * TC_WIDTHS[-1]:
+        raise ValueError(f"head width d={d} is outside the kernel's 2..64")
+    nv = next(n for n in TC_WIDTHS if 8 * n >= d)
+    rows = 128 if B * H * -(-L // 128) >= 4 * sms else 64
+    return nv, d < 8 * nv, rows
+
+
+def copy_bytes(d: int, *addresses: int) -> int:
+    """Bytes per cp.async of a key row's d bf16 values: the widest of 16,
+    8 and 4 that divides the row (2d bytes; every k/v stride of both
+    layouts is a multiple of d) and every address, else 0 (copied through
+    registers)."""
+    for n in (16, 8, 4):
+        if (2 * d) % n == 0 and all(a % n == 0 for a in addresses):
+            return n
+    return 0
 
 
 def _check(q, k, v, bias, num_heads):
@@ -140,16 +173,22 @@ def _launch_cuda(q, k, v, bias, num_heads):
         raise ValueError("q, k, v and bias must be contiguous")
     if bias is not None and bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
+    variant = (0, 0, 0)  # float32 takes no variant
+    if q.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        nv, _, rows = tc_plan(B, H, L, d, sms)
+        variant = (nv, rows, copy_bytes(d, k.data_ptr(), v.data_ptr()))
     lib = cuda_build.load("fused_attention_packed")
     if num_heads is None:
         fn = lib.samt_fused_attention_split
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         shape_args = (B, H, L, K, d, int(k.shape[0] == 1 and B != 1))
     else:
         fn = lib.samt_fused_attention_packed
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
         shape_args = (B, L, K, E, H, K * E if k.dim() == 3 else 0)
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
@@ -158,7 +197,7 @@ def _launch_cuda(q, k, v, bias, num_heads):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr() if bias is not None else None,
                  out.data_ptr(), *shape_args, 1.0 / math.sqrt(d),
-                 _DTYPES[q.dtype], stream)
+                 _DTYPES[q.dtype], *variant, stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed with CUDA "
                            f"error {err}")
