@@ -14,7 +14,19 @@ at the flagship 256x256 width with seeded random weights:
 - the training entry point (train.run) at the same config over a native
   frame cache of seeded image-like frames: 4 steps with checkpoints at
   steps 2 and 4, the step-2 checkpoint restored bit for bit, and a second
-  run that resumes from it.
+  run that resumes from it;
+- the inference and evaluation entry points, at the flagship config:
+  trained weights written by training.export_params and loaded by
+  demo.build_and_load (frames bit-identical to the in-memory pipeline's),
+  find_best_frame_kp and animate_with_anchor over 48 frames (K1 32 times
+  per frame batch), --fast's rgb_to_yuv420 and host keypoint downsample
+  against the CPU and the card's own downsample, test.run over seeded
+  pairs (equal to direct calls of the networks; the tiny config's within
+  1 level of the CPU), and the FID, LPIPS and AED networks at their real
+  input sizes against the CPU, timed. The card's machine has no image
+  decoder (OpenCV, imageio): reading and writing image and video files,
+  the I420 fetch of --fast and its uint8 host downsample (OpenCV) are
+  held by the CPU tests only.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -51,6 +63,10 @@ FRAME_BATCH = 16   # bench.py's frame batch; also the B of every K1 shape
 
 TRAIN_STEPS = 5    # timed steps of the training path, after one warm-up
 TRAIN_BATCH = 2    # options/train.yml's batch per card
+
+ANCHOR_FRAMES = 48  # driving frames of the anchor path: 3 frame batches
+ANCHOR_AT = 20      # the driving frame that is the source (the anchor)
+EVAL_PAIRS = 2      # pairs of test.run at the flagship config
 
 CLI_STEPS = 4                  # steps of the training entry point's run
 CACHE_VIDEOS, CACHE_FRAMES = 8, 8  # its native frame cache: 12.6 MB
@@ -1412,6 +1428,417 @@ def train_cli(torch, configs, fa, k3, seed, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# entry points: demo, test.py, animate.py, trained weights, metric networks
+# ---------------------------------------------------------------------------
+
+def image_like(torch, n, size, seed):
+    """n seeded image-like size^2 RGB uint8 frames, NHWC (write_frame_cache's
+    recipe: a random 8x8 field, bilinearly upsampled, plus a little
+    noise)."""
+    rng = np.random.RandomState(seed)
+    low = torch.from_numpy(rng.uniform(-1, 1, (n, 3, 8, 8)).astype(np.float32))
+    img = torch.nn.functional.interpolate(low, size=(size, size),
+                                          mode="bilinear")
+    img = (img + 0.05 * torch.from_numpy(rng.randn(*img.shape)
+                                         .astype(np.float32))).clamp(-1, 1)
+    return ((img + 1) * 127.5).round().to(torch.uint8).permute(
+        0, 2, 3, 1).contiguous().numpy()
+
+
+def pipeline_kw(torch):
+    """The main path's pipeline options: bf16, uint8 frames in and out."""
+    return dict(relative=True, adapt_scale=True, frame_batch=FRAME_BATCH,
+                compute_dtype=torch.bfloat16, u8_io=True, device="cuda")
+
+
+def weights_round_trip(torch, configs, ReenactmentPipeline, seeded_nets,
+                       seed):
+    """The seeded flagship G and M written by training.export_params (G
+    under params_ema, M under params) to build/chip_smoke and read back by
+    demo.build_and_load (strict=True): the loaded pipeline's frames equal
+    the in-memory pipeline's bit for bit, bf16 with uint8 out, on one
+    frame batch. The directory is removed afterwards."""
+    from synergize_motion_appearance_tpu_torch.demo import build_and_load
+    from synergize_motion_appearance_tpu_torch.training import export_params
+
+    cfg = configs.get("flagship_256")
+    g, me = seeded_nets(cfg, seed)
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        paths = {"pretrain_network_g": os.path.join(work, "net_g.pth"),
+                 "pretrain_network_motion_estimator":
+                     os.path.join(work, "net_m.pth")}
+        export_params(paths["pretrain_network_g"], g.state_dict(),
+                      "params_ema")
+        export_params(paths["pretrain_network_motion_estimator"],
+                      me.state_dict(), "params")
+        nbytes = sum(os.path.getsize(p) for p in paths.values())
+        t0 = time.perf_counter()
+        lg, lme = build_and_load(dict(cfg, path=paths), "cuda")
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    src = image_like(torch, 1, 256, seed + 30)
+    drv = image_like(torch, FRAME_BATCH, 256, seed + 31)
+    want = ReenactmentPipeline(g, me, **pipeline_kw(torch)).animate(src, drv)
+    got = ReenactmentPipeline(lg, lme, **pipeline_kw(torch)).animate(src,
+                                                                     drv)
+    assert got.shape == want.shape == (FRAME_BATCH, 256, 256, 3)
+    assert np.array_equal(got, want), (
+        "loaded weights give other frames: max diff "
+        f"{np.abs(got.astype(int) - want.astype(int)).max()} levels")
+    print(f"entry points: trained-weight round trip: {nbytes} bytes "
+          f"written, build_and_load {load_s:.2f} s, {FRAME_BATCH} frames "
+          f"bit-identical to the in-memory pipeline", flush=True)
+    return {"bytes": nbytes, "load_s": load_s, "frames": FRAME_BATCH,
+            "bit_identical": True}
+
+
+def anchor_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
+                card):
+    """find_best_frame_kp and then animate_with_anchor on ANCHOR_FRAMES
+    image-like flagship frames, frame batch 16, bf16, uint8 in and out.
+    Driving frame ANCHOR_AT is the source, so it is the anchor. F frames
+    come out; the anchor's frame is animate(source, driving[anchor:])[0];
+    the backward half is the reversed animate of the reversed prefix; K1
+    runs 32 times per frame batch (counts set to 0 just before the call
+    and read just after)."""
+    from synergize_motion_appearance_tpu_torch.inference import (
+        find_best_frame_kp,
+    )
+
+    g, me = seeded_nets(configs.get("flagship_256"), seed)
+    pipe = ReenactmentPipeline(g, me, **pipeline_kw(torch))
+    src = image_like(torch, 1, 256, seed + 32)
+    drv = image_like(torch, ANCHOR_FRAMES, 256, seed + 33)
+    drv[ANCHOR_AT] = src[0]
+    # warm-up: first calls, and scipy's first import (1-2 s on an H100 host)
+    pipe.animate(src, drv[:FRAME_BATCH])
+    find_best_frame_kp(pipe, src, drv[:FRAME_BATCH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    anchor = find_best_frame_kp(pipe, src, drv)
+    find_s = time.perf_counter() - t0
+    assert anchor == ANCHOR_AT, f"anchor {anchor}, want {ANCHOR_AT}"
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = pipe.animate_with_anchor(src, drv, anchor)
+    animate_s = time.perf_counter() - t0
+    launches, split = fa.launches, fa.split_launches
+    n_batches = (math.ceil((ANCHOR_FRAMES - anchor) / FRAME_BATCH)
+                 + math.ceil((anchor + 1) / FRAME_BATCH))
+    assert out.shape == (ANCHOR_FRAMES, 256, 256, 3), out.shape
+    assert out.dtype == np.uint8 and out.std() > 0
+    assert launches == 32 * n_batches, (
+        f"K1 launched {launches} times on the anchor path, want 32 per "
+        f"frame batch x {n_batches}")
+    assert split == 0, "the anchor path launched K2"
+    fwd = pipe.animate(src, drv[anchor:])
+    assert np.array_equal(out[anchor], fwd[0])
+    assert np.array_equal(out[anchor:], fwd)
+    bwd = pipe.animate(src, drv[:anchor + 1][::-1])
+    assert np.array_equal(out[:anchor + 1], bwd[::-1])
+    print(f"entry points: anchor path flagship-256 bf16: find_best_frame_kp "
+          f"over {ANCHOR_FRAMES} frames {find_s:.3f} s (anchor {anchor}); "
+          f"animate_with_anchor {animate_s:.3f} s = "
+          f"{ANCHOR_FRAMES / animate_s:.2f} frames/s, {n_batches} frame "
+          f"batches, K1 launches {launches} on {card}", flush=True)
+    return {"frames": ANCHOR_FRAMES, "anchor": anchor, "find_s": find_s,
+            "animate_s": animate_s,
+            "frames_per_s": ANCHOR_FRAMES / animate_s,
+            "frame_batches": n_batches, "k1_launches": launches,
+            "k2_launches": split}
+
+
+KP_HOST_BOUND = 1e-2  # keypoints, host vs device downsample, f32
+
+
+def fast_io(torch, configs, ReenactmentPipeline, seeded_nets, seed):
+    """--fast's device-side pieces: rgb_to_yuv420 on the card against the
+    port on the CPU (within 1 level), and keypoints from float frames
+    downsampled on the host (antialias_downsample_host, numpy, then bf16
+    for the upload) against the detector's own downsample on the card, in
+    f32 (within KP_HOST_BOUND). The I420 fetch and the uint8 host
+    downsample need OpenCV, which the card's machine lacks: they are held
+    by the CPU tests only."""
+    from synergize_motion_appearance_tpu_torch.ops.color import (
+        rgb_to_yuv420,
+    )
+
+    x = torch.from_numpy(np.random.RandomState(seed + 34).uniform(
+        -1.05, 1.05, (FRAME_BATCH, 256, 256, 3)).astype(np.float32))
+    on_card = rgb_to_yuv420(x.cuda()).cpu()
+    on_cpu = rgb_to_yuv420(x)
+    assert on_card.shape == (FRAME_BATCH, 384, 256)
+    yuv_diff = int((on_card.int() - on_cpu.int()).abs().max())
+    assert yuv_diff <= 1, f"rgb_to_yuv420 card vs CPU: {yuv_diff} levels"
+
+    g, me = seeded_nets(configs.get("flagship_256"), seed)
+    kw = dict(compute_dtype=torch.float32, device="cuda")
+    device_ds = ReenactmentPipeline(g, me, **kw)
+    host_ds = ReenactmentPipeline(g, me, host_kp_downsample=True, **kw)
+    frames01 = image_like(torch, FRAME_BATCH, 256, seed + 35)
+    frames_f = frames01.astype(np.float32) / 127.5 - 1.0
+    with torch.no_grad():
+        got = host_ds._kp_frames(frames_f)
+        want = device_ds.estimate_kp(frames_f)
+    kp_err = float((got["value"] - want["value"]).abs().max())
+    assert kp_err <= KP_HOST_BOUND, f"host kp downsample: {kp_err}"
+    print(f"entry points: --fast on the card: rgb_to_yuv420 card vs CPU "
+          f"{yuv_diff} levels; keypoints from host-downsampled float frames "
+          f"vs the detector's downsample, f32: max |diff| {kp_err:.3g} "
+          f"(bound {KP_HOST_BOUND})", flush=True)
+    return {"yuv_levels": yuv_diff, "kp_host_max_abs": kp_err,
+            "kp_bound": KP_HOST_BOUND}
+
+
+class SeededPairs:
+    """A pairs dataset of seeded image-like frames, with the item keys of
+    FramesMotionTransferTestDataset_PairsList (source and driving HWC
+    float32 RGB in [-1, 1], frame_name): test.run's input on a machine
+    without an image decoder."""
+
+    def __init__(self, opt):
+        import torch
+
+        self.torch = torch
+        self.n, self.size, self.seed = opt["pairs"], opt["gt_size"], \
+            opt["seed"]
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        f = image_like(self.torch, 2, self.size, self.seed + i)
+        f = f.astype(np.float32) / 127.5 - 1.0
+        return {"source": f[0], "driving": f[1], "frame_name": f"pair{i}"}
+
+
+def test_run(torch, configs, fa, seed, card):
+    """test.run (f32, one pair at a time) at the flagship config on the
+    card over EVAL_PAIRS seeded pairs (SeededPairs, registered in the
+    port's DATASET_REGISTRY), save_img false, PSNR/SSIM/L1: its results
+    equal those of direct calls of the same networks on the same pairs, and
+    K1 runs 32 times per pair. Then the tiny config's test.run on the card
+    and on the CPU: result frames (taken where test.run would save them)
+    within 1 level."""
+    from synergize_motion_appearance_tpu_torch import test as port_test
+    from synergize_motion_appearance_tpu_torch.demo import build_and_load
+    from synergize_motion_appearance_tpu_torch.metrics import (
+        calculate_l1, calculate_psnr, calculate_ssim,
+    )
+    from synergize_motion_appearance_tpu_torch.utils.img_util import arr2img
+    from synergize_motion_appearance_tpu_torch.utils.options import (
+        derive_paths,
+    )
+    from synergize_motion_appearance_tpu_torch.utils.registry import (
+        DATASET_REGISTRY,
+    )
+
+    DATASET_REGISTRY.register(SeededPairs, name="ChipSmokeSeededPairs")
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    metric_fns = {"psnr": calculate_psnr, "ssim": calculate_ssim,
+                  "l1": calculate_l1}
+
+    def opt_of(name, pairs, size, save_img):
+        opt = configs.get(name)
+        opt.update(name=f"chip-smoke-{name}", path={"save_path": work},
+                   datasets={"test": dict(type="ChipSmokeSeededPairs",
+                                          name="seeded", pairs=pairs,
+                                          gt_size=size, seed=seed + 40)},
+                   val={"save_img": save_img, "metrics": {
+                       m: {"type": f"calculate_{m}", "crop_border": 0}
+                       for m in metric_fns}})
+        return derive_paths(opt, is_train=False)
+
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        results = port_test.run(opt_of("flagship_256", EVAL_PAIRS, 256,
+                                       False), "cuda")["seeded"]
+        run_s = time.perf_counter() - t0
+        launches = fa.launches
+        assert launches == 32 * EVAL_PAIRS, (
+            f"K1 launched {launches} times in test.run, want 32 per pair")
+
+        g, me = build_and_load(configs.get("flagship_256"), "cuda")
+        g.eval()
+        me.eval()
+        ds = SeededPairs({"pairs": EVAL_PAIRS, "gt_size": 256,
+                          "seed": seed + 40})
+        direct = {m: 0.0 for m in metric_fns}
+        pair_ms = []
+        for i in range(EVAL_PAIRS):
+            item = ds[i]
+            s, d = (torch.from_numpy(item[k][None]).permute(0, 3, 1, 2)
+                    .cuda() for k in ("source", "driving"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = g(s, me(d, s), w=1, inference=True)["out"]
+            torch.cuda.synchronize()
+            pair_ms.append((time.perf_counter() - t0) * 1e3)
+            res = arr2img(out.permute(0, 2, 3, 1).cpu().numpy(),
+                          rgb2bgr=True)
+            gt = arr2img(item["driving"], rgb2bgr=True)
+            for m, fn in metric_fns.items():
+                direct[m] += fn(res, gt, 0)
+        for m in metric_fns:  # summed, then averaged, as test.run does
+            direct[m] /= EVAL_PAIRS
+            assert results[m] == direct[m], (m, results[m], direct[m])
+
+        frames = {}
+        save_quad = port_test.save_quad
+        for device in ("cpu", "cuda"):
+            got = frames[device] = []
+            port_test.save_quad = (
+                lambda vis_dir, name, visual, result, source, driving:
+                got.append(result))
+            try:
+                port_test.run(opt_of("tiny", 2, 64, True), device)
+            finally:
+                port_test.save_quad = save_quad
+        tiny_levels = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                          for a, b in zip(frames["cpu"], frames["cuda"]))
+        assert len(frames["cuda"]) == 2 and tiny_levels <= 1, tiny_levels
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"entry points: test.run flagship-256 f32 on the card, "
+          f"{EVAL_PAIRS} pairs in {run_s:.2f} s (set-up included), "
+          f"psnr {results['psnr']:.4f} ssim {results['ssim']:.4f} l1 "
+          f"{results['l1']:.4f} equal to direct calls; direct forward per "
+          f"pair {[round(t, 2) for t in pair_ms]} ms; K1 launches "
+          f"{launches}; tiny test.run card vs CPU {tiny_levels} levels, on "
+          f"{card}", flush=True)
+    return {"pairs": EVAL_PAIRS, "run_s": run_s, "results": results,
+            "pair_ms": pair_ms, "k1_launches": launches,
+            "tiny_levels": tiny_levels}
+
+
+def seeded_metric_net(torch, net, seed):
+    """He-normal convolutions and linears, non-trivial BatchNorm affines and
+    statistics, positive LPIPS heads (no metric weights are in the
+    repository); on the CPU, in eval mode."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / m.weight[0].numel()) ** 0.5)
+                if name.startswith("lin"):
+                    m.weight.abs_()
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * torch.randn(m.bias.shape,
+                                                   generator=gen))
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape,
+                                                     generator=gen))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape,
+                                                       generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape,
+                                                     generator=gen))
+    return net.eval()
+
+
+METRIC_REL = 1e-4  # card vs CPU, f32 without TF32: relative max error
+
+
+def metric_nets(torch, seed, card):
+    """The metric networks at their real input sizes, seeded weights, f32
+    with TF32 off: FID's extract_features on 32 images of 256^2 (resized
+    to 299; FID's batch), lpips_distance on 16 pairs of 256^2, embed_faces
+    on 32 faces of 96^2. Each on the card against the port on the CPU
+    (relative max error <= METRIC_REL), timed by CUDA events; then
+    frechet_distance between two 32-image feature sets from the card."""
+    from synergize_motion_appearance_tpu_torch.metrics.external import (
+        activation_statistics, frechet_distance,
+    )
+    from synergize_motion_appearance_tpu_torch.metrics.inception import (
+        FIDInceptionV3, extract_features,
+    )
+    from synergize_motion_appearance_tpu_torch.metrics.lpips import (
+        LPIPSVgg, lpips_distance,
+    )
+    from synergize_motion_appearance_tpu_torch.metrics.openface import (
+        OpenFaceNet, embed_faces,
+    )
+
+    def nchw01(n, size, s):
+        return torch.from_numpy(image_like(torch, n, size, s)).permute(
+            0, 3, 1, 2).float() / 255.0
+
+    imgs = nchw01(32, 256, seed + 50)
+    cases = [
+        ("extract_features", FIDInceptionV3, extract_features, (imgs,)),
+        ("lpips_distance", LPIPSVgg, lpips_distance,
+         (nchw01(16, 256, seed + 51) * 2 - 1,
+          nchw01(16, 256, seed + 52) * 2 - 1)),
+        ("embed_faces", OpenFaceNet, embed_faces,
+         (nchw01(32, 96, seed + 53)[:, [2, 1, 0]],)),
+    ]
+    report = {}
+    feats = None
+    for i, (name, cls, fn, args) in enumerate(cases):
+        net = seeded_metric_net(torch, cls(), seed + 60 + i)
+        with torch.no_grad():
+            want = fn(net, *args).double()
+            net = net.cuda()
+            card_args = [a.cuda() for a in args]
+            got = fn(net, *card_args)
+            ms = time_ms(torch, lambda: fn(net, *card_args), iters=5)
+        rel = float((got.double().cpu() - want).abs().max()
+                    / want.abs().max())
+        assert rel <= METRIC_REL, f"{name}: card vs CPU {rel:.3g}"
+        shape = [tuple(a.shape) for a in args]
+        print(f"entry points: {name} {shape} f32: card vs CPU relative max "
+              f"error {rel:.3g} (bound {METRIC_REL}); {ms:.3f} ms on {card}",
+              flush=True)
+        report[name] = {"inputs": shape, "rel_err": rel, "ms": ms}
+        if name == "extract_features":
+            with torch.no_grad():
+                other = extract_features(net, nchw01(32, 256, seed + 54)
+                                         .cuda())
+            feats = [got.cpu().double().numpy(), other.cpu().double().numpy()]
+        del net
+    fid = frechet_distance(*activation_statistics(feats[0]),
+                           *activation_statistics(feats[1]))
+    assert math.isfinite(fid) and fid > 0, fid
+    print(f"entry points: frechet_distance of two 32-image feature sets "
+          f"from the card: {fid:.6g}", flush=True)
+    report["frechet_distance"] = fid
+    return report
+
+
+def entry_points(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
+                 card):
+    """The entry-points phase: trained-weight round trip, anchor path,
+    --fast pieces, test.run, metric networks; prints its wall time."""
+    t0 = time.perf_counter()
+    report = {
+        "round_trip": weights_round_trip(torch, configs, ReenactmentPipeline,
+                                         seeded_nets, seed)}
+    torch.cuda.empty_cache()
+    report["anchor_path"] = anchor_path(torch, configs, ReenactmentPipeline,
+                                        seeded_nets, fa, seed, card)
+    torch.cuda.empty_cache()
+    report["fast_io"] = fast_io(torch, configs, ReenactmentPipeline,
+                                seeded_nets, seed)
+    torch.cuda.empty_cache()
+    report["test_run"] = test_run(torch, configs, fa, seed, card)
+    torch.cuda.empty_cache()
+    report["metric_nets"] = metric_nets(torch, seed, card)
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    print(f"entry points: phase wall time {report['seconds']:.1f} s",
+          flush=True)
+    return report
+
+
 def kernel_entry(name, source, replaces, rows, weight, launches,
                  times_are, **extra):
     """One kernel's entry of the kernels line: errors over its f32 and bf16
@@ -1510,6 +1937,9 @@ def main():
     del train_run
     torch.cuda.empty_cache()
     report["train_cli"] = train_cli(torch, configs, fa, k3, args.seed, card)
+    torch.cuda.empty_cache()
+    report["entry_points"] = entry_points(
+        torch, configs, ReenactmentPipeline, seeded_nets, fa, args.seed, card)
 
     cli = report["train_cli"]["fresh"]["launches"]
     k3_per_step = report["train_path"]["k3_launches_per_step"]
@@ -1526,7 +1956,11 @@ def main():
             f"call that ms holds, library_device_ms SDPA's; the bound is "
             f"the largest of bytes, tensor-core FLOP and exponentials",
             launches_train_path=report["train_path"]["k1_launches"],
-            launches_train_cli=cli["k1"]),
+            launches_train_cli=cli["k1"],
+            launches_anchor_path=report["entry_points"]["anchor_path"][
+                "k1_launches"],
+            launches_test_run=report["entry_points"]["test_run"][
+                "k1_launches"]),
         kernel_entry(
             "fused_attention (head-split)", "fused_attention_packed.cu",
             "fused_attention.py:56", report["k2_cases"],

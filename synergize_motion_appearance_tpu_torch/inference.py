@@ -1,9 +1,11 @@
 """Reenactment inference: keypoints, relative motion, dense motion and the
-generator, in frame batches on one device.
+generator, in frame batches on one device; the anchor-split animation of
+the demo and of animate.py, and the choice of that anchor.
 
 Counterpart of the JAX package's inference.py (``normalize_kp_jnp``,
-``ReenactmentPipeline``). The public API keeps its NHWC layout: frames go
-in as (F, H, W, 3) uint8 or [-1, 1] float arrays and come out as
+``ReenactmentPipeline``, ``find_best_frame*``,
+``build_pipeline_from_config``). The public API keeps its NHWC layout:
+frames go in as (F, H, W, 3) uint8 or [-1, 1] float arrays and come out as
 (F, H, W, 3) uint8 (``u8_io=True``) or float32 in [-1, 1]. Inside, tensors
 are NCHW in ``compute_dtype`` (bfloat16 by default, as in the JAX package)
 with keypoint math in float32. Entry points run on ``device`` ("cuda"
@@ -11,13 +13,18 @@ unless the caller asks for "cpu").
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from .models import build_network
 from .models.dense_motion import inv2x2
 from .ops import convex_hull_area
+from .ops.color import rgb_to_yuv420
+from .ops.coords import antialias_downsample_host, blur_stride_u8
+from .utils.img_util import _cv2
+from .utils.misc import strict_float32
 
 
 def normalize_kp(kp_source, kp_driving, kp_driving_initial,
@@ -50,18 +57,25 @@ class ReenactmentPipeline:
 
     The networks are moved, cast and put in eval mode in place. For
     float32 on a card, TF32 is switched off for cuDNN convolutions and
-    CUDA matmuls (process-wide), so float32 means float32."""
+    CUDA matmuls (process-wide), so float32 means float32.
+
+    The JAX package's options for a slow host link: ``yuv420_io`` (with
+    ``u8_io``) fetches generated frames as packed I420 and converts them
+    back to RGB on the host with OpenCV, which it needs;
+    ``host_kp_downsample`` blurs and strides the frames to the keypoint
+    detector's resolution on the host (OpenCV for uint8 frames, numpy for
+    float ones) and sends those, in bfloat16."""
 
     def __init__(self, net_g, motion_estimator, relative: bool = False,
                  adapt_scale: bool = False, frame_batch: int = 8,
                  w: float = 1.0,
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                 u8_io: bool = False, device="cuda"):
-        self.device = torch.device(device)
+                 u8_io: bool = False, host_kp_downsample: bool = False,
+                 yuv420_io: bool = False, device="cuda"):
         self.compute_dtype = compute_dtype or torch.float32
-        if self.device.type == "cuda" and self.compute_dtype == torch.float32:
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        self.device = (strict_float32(device)
+                       if self.compute_dtype == torch.float32
+                       else torch.device(device))
         self.net_g = net_g.to(self.device, self.compute_dtype).eval()
         self.motion_estimator = motion_estimator.to(
             self.device, self.compute_dtype).eval()
@@ -70,23 +84,52 @@ class ReenactmentPipeline:
         self.frame_batch = frame_batch
         self.w = w
         self.u8_io = u8_io
+        self.yuv420_io = yuv420_io and u8_io
+        self.host_kp_downsample = host_kp_downsample
+        self.kp_scale = (self.motion_estimator.kp_detector.scale_factor
+                         if host_kp_downsample else 1.0)
 
     def _to_model(self, images) -> torch.Tensor:
-        """(N, H, W, 3) uint8 or float frames -> (N, 3, H, W) model-domain
-        tensor on the device."""
-        x = torch.as_tensor(np.asarray(images)).to(self.device)
+        """(N, H, W, 3) uint8 or float frames (numpy or a tensor) ->
+        (N, 3, H, W) model-domain tensor on the device."""
+        if not isinstance(images, torch.Tensor):
+            images = torch.as_tensor(np.ascontiguousarray(images))
+        x = images.to(self.device)
         if x.dtype == torch.uint8:
             x = x.to(self.compute_dtype) * (2.0 / 255.0) - 1.0
         else:
             x = x.to(self.compute_dtype)
         return x.permute(0, 3, 1, 2).contiguous()
 
-    def _kp(self, x) -> Dict[str, torch.Tensor]:
-        kp = self.motion_estimator.estimate_kp(x)
+    def _kp(self, x, pre_downsampled: bool = False
+            ) -> Dict[str, torch.Tensor]:
+        kp = self.motion_estimator.estimate_kp(x, pre_downsampled)
         return {k: v.float() for k, v in kp.items()}  # kp math in f32
+
+    def _host_kp_prep(self, frames_np) -> torch.Tensor:
+        """uint8 or float frames -> normalized frames at the keypoint
+        detector's resolution, bfloat16 on the host. uint8 frames blur in
+        uint8 (within a level of the float path)."""
+        f = np.asarray(frames_np)
+        if f.dtype == np.uint8:
+            small = (blur_stride_u8(f, self.kp_scale).astype(np.float32)
+                     * (2.0 / 255.0) - 1.0)
+        else:
+            small = antialias_downsample_host(f, self.kp_scale)
+        return torch.from_numpy(np.ascontiguousarray(small)).to(
+            torch.bfloat16)
+
+    def _kp_frames(self, frames_np) -> Dict[str, torch.Tensor]:
+        """Keypoints of host frames, downsampled on the host when the
+        pipeline says so."""
+        if self.host_kp_downsample:
+            return self._kp(self._to_model(self._host_kp_prep(frames_np)),
+                            pre_downsampled=True)
+        return self._kp(self._to_model(frames_np))
 
     @torch.no_grad()
     def estimate_kp(self, images) -> Dict[str, torch.Tensor]:
+        """Keypoints (float32, on the device) of full-size frames."""
         return self._kp(self._to_model(images))
 
     def _gen(self, source, source_down, src_feats, kp_source, kp_driving,
@@ -106,6 +149,8 @@ class ReenactmentPipeline:
         out = self.net_g(source, dense_motion, w=self.w, inference=True,
                          source_feats=src_feats)["out"]
         out = out.permute(0, 2, 3, 1)
+        if self.yuv420_io:
+            return rgb_to_yuv420(out)
         if self.u8_io:
             out = torch.clamp(out.float(), -1.0, 1.0)
             return torch.round((out + 1.0) * 127.5).to(torch.uint8)
@@ -119,7 +164,7 @@ class ReenactmentPipeline:
         the last frame; the relative motion is taken against driving[0]."""
         n_frames = driving_np.shape[0]
         source = self._to_model(source_np)
-        kp_source = self._kp(source)
+        kp_source = self._kp_frames(source_np)
         src_feats = self.net_g.encode_source(source)  # once per source
         dmn = self.motion_estimator.dense_motion_network
         source_down = dmn.down(source) if dmn.scale_factor != 1 else source
@@ -133,9 +178,129 @@ class ReenactmentPipeline:
             if n < fb:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], fb - n, axis=0)])
-            kp_chunk = self._kp(self._to_model(chunk))
+            kp_chunk = self._kp_frames(chunk)
             if kp_initial is None:  # kp of driving[0] (demo.py:115)
                 kp_initial = {k: v[:1] for k, v in kp_chunk.items()}
             outs.append(self._gen(source, source_down, src_feats, kp_source,
                                   kp_chunk, kp_initial)[:n])
-        return torch.cat(outs).cpu().numpy()
+        out = torch.cat(outs).cpu().numpy()
+        if self.yuv420_io:  # (F, H*3/2, W) I420 -> RGB on the host
+            cv2 = _cv2("yuv420_io")
+            return np.stack([cv2.cvtColor(p, cv2.COLOR_YUV2RGB_I420)
+                             for p in out])
+        return out
+
+    def animate_with_anchor(self, source_np, driving_np,
+                            anchor_idx: int) -> np.ndarray:
+        """Forward from the anchor frame and backward from it to frame 0,
+        stitched (the reference's demo.py:210-217): each half takes its
+        relative motion against its own first frame, the anchor."""
+        fwd = self.animate(source_np, driving_np[anchor_idx:])
+        bwd = self.animate(source_np, driving_np[:anchor_idx + 1][::-1])
+        return np.concatenate([bwd[::-1], fwd[1:]], axis=0)
+
+
+def _to_rgb01(x: np.ndarray) -> np.ndarray:
+    """Model-domain ([-1, 1] float) or uint8 frame(s) -> float [0, 1]."""
+    if x.dtype == np.uint8:
+        return x.astype(np.float32) / 255.0
+    return (np.asarray(x, np.float32) + 1.0) / 2.0
+
+
+def _hull_normalized(kp: np.ndarray) -> np.ndarray:
+    """Keypoints centred on their mean and divided by the square root of
+    their convex hull's area (the reference's demo.py:74-101)."""
+    from scipy.spatial import ConvexHull
+
+    kp = kp - kp.mean(axis=0, keepdims=True)
+    area = np.sqrt(ConvexHull(kp[:, :2]).volume)
+    return kp / max(area, 1e-8)
+
+
+def find_best_frame_fa(source_np, driving_np, cpu: bool = False) -> int:
+    """The anchor by face_alignment's 68 landmarks, the reference's
+    criterion (demo.py:74-101): the driving frame whose hull-normalized
+    landmarks are nearest the source's (squared L2). A frame whose
+    detection fails is skipped, as there."""
+    import face_alignment
+    from scipy.spatial import ConvexHull
+
+    def normalize_kp(kp):
+        kp = np.asarray(kp, np.float64).copy()
+        kp = kp - kp.mean(axis=0, keepdims=True)
+        kp[:, :2] = kp[:, :2] / np.sqrt(ConvexHull(kp[:, :2]).volume)
+        return kp
+
+    fa = face_alignment.FaceAlignment(
+        face_alignment.LandmarksType.TWO_D, flip_input=True,
+        device="cpu" if cpu else "cuda")
+    landmarks = getattr(fa, "get_landmarks_from_image", None) \
+        or fa.get_landmarks
+    source = _to_rgb01(np.asarray(source_np))
+    if source.ndim == 4:
+        source = source[0]
+    kp_source = normalize_kp(landmarks(255 * source)[0])
+    norm, frame_num = float("inf"), 0
+    for i in range(driving_np.shape[0]):
+        try:
+            kp_driving = normalize_kp(
+                landmarks(255 * _to_rgb01(driving_np[i]))[0])
+            new_norm = float(((kp_source - kp_driving) ** 2).sum())
+            if new_norm < norm:
+                norm, frame_num = new_norm, i
+        except Exception as e:  # no face in this frame (reference :99)
+            print(e)
+    return frame_num
+
+
+def find_best_frame_kp(pipeline: ReenactmentPipeline, source_np,
+                       driving_np) -> int:
+    """The anchor by the pipeline's own keypoints under the reference's
+    hull-normalized criterion, for when face_alignment is absent: the
+    first driving frame nearest the source. Keypoints are computed in
+    chunks of the pipeline's frame batch."""
+    kp_s = _hull_normalized(
+        pipeline.estimate_kp(source_np)["value"][0].cpu().numpy())
+    bs = int(pipeline.frame_batch)
+    kps = np.concatenate([
+        pipeline.estimate_kp(driving_np[s:s + bs])["value"].cpu().numpy()
+        for s in range(0, driving_np.shape[0], bs)])
+    best, best_idx = float("inf"), 0
+    for i in range(kps.shape[0]):
+        n = float(((_hull_normalized(kps[i]) - kp_s) ** 2).sum())
+        if n < best:
+            best, best_idx = n, i
+    return best_idx
+
+
+def find_best_frame(source_np, driving_np,
+                    pipeline: Optional[ReenactmentPipeline] = None,
+                    cpu: bool = False) -> int:
+    """The anchor by face_alignment when it works, else (given a
+    pipeline) by the pipeline's keypoints: any failure of the
+    face_alignment path (package absent, no face in the source, no card
+    for it) falls back, as in the JAX package."""
+    try:
+        return find_best_frame_fa(source_np, driving_np, cpu=cpu)
+    except Exception as e:
+        if pipeline is None:
+            raise
+        print(f"find_best_frame: face_alignment path failed "
+              f"({type(e).__name__}: {e}); using own-kp fallback")
+        return find_best_frame_kp(pipeline, source_np, driving_np)
+
+
+def build_pipeline_from_config(config: Dict[str, Any], g_state_dict,
+                               m_state_dict, relative: bool = False,
+                               adapt_scale: bool = False,
+                               frame_batch: int = 8,
+                               device="cuda") -> ReenactmentPipeline:
+    """The two networks of ``config`` with the given state_dicts
+    (``strict=True``) in a pipeline with its default options."""
+    net_g = build_network(config["network_g"])
+    motion_estimator = build_network(config["network_motion_estimator"])
+    net_g.load_state_dict(g_state_dict, strict=True)
+    motion_estimator.load_state_dict(m_state_dict, strict=True)
+    return ReenactmentPipeline(net_g, motion_estimator, relative=relative,
+                               adapt_scale=adapt_scale,
+                               frame_batch=frame_batch, device=device)

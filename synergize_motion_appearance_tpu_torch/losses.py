@@ -3,7 +3,8 @@
 Counterpart of the JAX package's losses/losses.py (reference
 basicsr/losses/losses.py) for the terms its trainer builds: ``L1Loss``,
 ``GANLoss``, ``MultiScalePyramidPerceptualLoss``, ``EquivarianceLoss`` and
-``KPDistanceLoss``. As there, the perceptual loss takes its VGG as an
+``KPDistanceLoss``; and ``LPIPSLoss``, which no shipped config reads. As
+there, the perceptual loss takes its VGG as an
 argument of every call, so the caller chooses its weights and dtype.
 """
 from __future__ import annotations
@@ -145,3 +146,39 @@ class KPDistanceLoss:
 
         return self.loss_weight * (dist_loss(kp_source["value"])
                                    + dist_loss(kp_driving["value"]))
+
+
+class LPIPSLoss:
+    """LPIPS training loss (losses.py:389-415) on the port's LPIPS-VGG16
+    (metrics/lpips.py), its weights found as the LPIPS metric finds them
+    (SAMT_LPIPS_WEIGHTS / SAMT_WEIGHTS_DIR); without them construction
+    raises a RuntimeError that names the file. NCHW inputs; the network is
+    moved to the inputs' device and dtype at each call."""
+
+    def __init__(self, loss_weight=1.0, use_input_norm=True,
+                 range_norm=False, **_):
+        from .metrics.external import lpips_net
+
+        self.net = lpips_net("cpu").requires_grad_(False)
+        self.loss_weight = loss_weight
+        self.use_input_norm = use_input_norm
+        self.range_norm = range_norm
+
+    def __call__(self, x, gt):
+        # The reference's chain: optional [-1, 1] -> [0, 1], then (by
+        # default) ImageNet mean/std, then lpips.LPIPS(normalize=False),
+        # whose ScalingLayer runs on the already normalized input; the
+        # network here applies that same ScalingLayer, so the reference's
+        # double normalization is kept.
+        if self.range_norm:
+            x = (x + 1.0) / 2.0
+            gt = (gt + 1.0) / 2.0
+        if self.use_input_norm:
+            mean = torch.tensor([0.485, 0.456, 0.406], dtype=x.dtype,
+                                device=x.device).view(1, 3, 1, 1)
+            std = torch.tensor([0.229, 0.224, 0.225], dtype=x.dtype,
+                               device=x.device).view(1, 3, 1, 1)
+            x = (x - mean) / std
+            gt = (gt - mean) / std
+        net = self.net.to(x.device, x.dtype)
+        return self.loss_weight * net(x, gt.detach()).mean()

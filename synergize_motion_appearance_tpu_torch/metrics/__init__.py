@@ -1,10 +1,13 @@
-"""Metric dispatch (the reference's metrics/__init__.py:14-24). PSNR, SSIM
-and L1 are ported; the JAX package's other metrics (FID, LPIPS, AED, AKD,
-id-similarity, pose) are not yet, and asking for one raises a
-RuntimeError that says so."""
+"""Metric dispatch (the reference's metrics/__init__.py:14-24).
+
+PSNR, SSIM and L1 are numpy. FID, LPIPS and AED run the port's own
+backbones (``inception``, ``lpips``, ``openface``) given their weight
+files; AKD, id-similarity and pose wrap third-party face models and raise
+a RuntimeError when those are absent (``external``)."""
 from typing import Any, Dict
 
 from ..utils.registry import METRIC_REGISTRY
+from . import external  # noqa: F401  (registers the model-based metrics)
 from .psnr_ssim import calculate_l1, calculate_psnr, calculate_ssim
 
 __all__ = ["calculate_l1", "calculate_metric", "calculate_psnr",
@@ -16,10 +19,4 @@ def calculate_metric(data: Dict[str, Any], opt: Dict[str, Any]):
     the rest of ``opt`` as options."""
     opt = dict(opt)
     metric_type = opt.pop("type")
-    try:
-        fn = METRIC_REGISTRY.get(metric_type)
-    except KeyError:
-        raise RuntimeError(
-            f"metric {metric_type} is not yet ported to the PyTorch "
-            f"package (ported: {METRIC_REGISTRY.keys()})") from None
-    return fn(**data, **opt)
+    return METRIC_REGISTRY.get(metric_type)(**data, **opt)

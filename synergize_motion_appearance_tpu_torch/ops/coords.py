@@ -1,5 +1,6 @@
 """Coordinate grids, keypoint gaussians, soft-argmax, anti-alias downsample
-and the convex-hull area, in PyTorch.
+(on the device, and its host versions in numpy and OpenCV) and the
+convex-hull area, in PyTorch.
 
 Counterpart of ``synergize_motion_appearance_tpu/ops/coords.py``. Images
 are NCHW here; grids are (h, w, 2) with (x, y) in [-1, 1].
@@ -77,6 +78,69 @@ def antialias_downsample(x, scale: float, weight=None):
     out = F.pad(x, (ka, kb, ka, kb))
     out = F.conv2d(out, weight, groups=x.shape[1])
     return out[:, :, ::s, ::s]
+
+
+def _strided_blur_matrix(n: int, k1: np.ndarray, ka: int, s: int
+                         ) -> np.ndarray:
+    """(n/s, n) matrix of a zero-padded 1-D gaussian blur followed by
+    stride-s subsampling: row i holds the kernel centred at i*s."""
+    m = np.zeros((n // s, n), dtype=np.float32)
+    for i in range(n // s):
+        for t, kv in enumerate(k1):
+            j = i * s + t - ka
+            if 0 <= j < n:
+                m[i, j] = kv
+    return m
+
+
+def _separable_kernel(scale: float):
+    """(1-D factor of the blur kernel, ka, kb, stride)."""
+    k2, ka, kb, s = _gaussian_kernel(scale)
+    return (k2[ka] / np.sqrt(k2[ka, ka])).astype(np.float32), ka, kb, s
+
+
+def antialias_downsample_host(frames: np.ndarray, scale: float
+                              ) -> np.ndarray:
+    """``antialias_downsample`` on the host, in numpy: the same kernel, pad
+    and stride on (F, H, W, C) float32 frames (already normalized), as two
+    matrix products over the whole batch. Returns (F, H/s, W/s, C)."""
+    if scale == 1.0:
+        return frames
+    k1, ka, _, s = _separable_kernel(scale)
+    F_, H, W, C = frames.shape
+    A = _strided_blur_matrix(H, k1, ka, s)            # (H/s, H)
+    Bm = _strided_blur_matrix(W, k1, ka, s)           # (W/s, W)
+    x = frames.transpose(1, 0, 2, 3).reshape(H, F_ * W * C)
+    y = (A @ x).reshape(H // s, F_, W, C)             # vertical pass
+    y = y.transpose(2, 1, 0, 3).reshape(W, F_ * (H // s) * C)
+    z = (Bm @ y).reshape(W // s, F_, H // s, C)       # horizontal pass
+    return np.ascontiguousarray(z.transpose(1, 2, 0, 3))
+
+
+def blur_stride_u8(frames: np.ndarray, scale: float) -> np.ndarray:
+    """The same downsample on (F, H, W, C) uint8 frames with OpenCV's
+    separable filter and a mid-gray border (128 is the float path's zero
+    pad in [-1, 1]): uint8 out, within one level of
+    ``antialias_downsample_host``. Needs OpenCV; raises a RuntimeError
+    that says so without it."""
+    if scale == 1.0:
+        return frames
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError("blur_stride_u8 needs OpenCV (cv2), which is "
+                           "not installed; pass float frames to use "
+                           "antialias_downsample_host") from e
+    k1, ka, kb, s = _separable_kernel(scale)
+    k1 = k1.reshape(-1, 1)
+    F_, H, W, C = frames.shape
+    out = np.empty((F_, H // s, W // s, C), np.uint8)
+    for i, f in enumerate(frames):
+        p = cv2.copyMakeBorder(f, ka, kb, ka, kb, cv2.BORDER_CONSTANT,
+                               value=(128, 128, 128))
+        b = cv2.sepFilter2D(p, -1, k1, k1)
+        out[i] = b[ka:-kb or None, ka:-kb or None][::s, ::s]
+    return out
 
 
 def convex_hull_area(points):

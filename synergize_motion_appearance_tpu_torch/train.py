@@ -212,9 +212,9 @@ def _run_validation(opt, trainer, val_state, current_iter, tb_logger,
                     logger):
     """The EMA generator over the val set (nondist_validation,
     appmotioncomp_model.py:463-570): PSNR, SSIM and L1 per image, averaged;
-    every other metric scores the saved result/gt PNG directories, and one
-    that is not ported (or lacks its weights) is logged and skipped
-    (train.py:301-303)."""
+    every other metric scores the saved result/gt PNG directories on the
+    trainer's device, and one that lacks its weights or its package is
+    logged and skipped (train.py:301-303)."""
     import torch
 
     from .metrics import calculate_metric
@@ -257,8 +257,9 @@ def _run_validation(opt, trainer, val_state, current_iter, tb_logger,
         else:
             data = dict(path_gt=gt_dir, path_generated=res_dir)
         try:
-            results[mname] = calculate_metric(data, mopt)
-        except RuntimeError as e:  # not ported, or weights absent
+            results[mname] = calculate_metric(
+                dict(data, device=trainer.device), mopt)
+        except RuntimeError as e:  # weights or a package absent
             logger.warning(f"Validation metric {mname} skipped: {e}")
             results.pop(mname)
     for mname in results:

@@ -8,13 +8,19 @@ step, the weights and BatchNorm statistics of G, M and D, the VGG19
 weights of the perceptual loss, the EMA of G, and the three Adam states
 (count and moments). A file ``latest`` names the newest. A state carried
 over from the JAX package is saved and resumed like any other.
+
+Trained weights of one network for inference (the reference's
+``net_g_<iter>.pth`` with a param key, base_model.py:236-263) are written
+by ``export_params`` and read by ``load_variables``, which also reads the
+``.npz`` that tools/convert_reference_checkpoint.py writes.
 """
 from __future__ import annotations
 
 import os
 from os import path as osp
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 _NETS = ("net_g", "motion_estimator", "net_d", "vgg")
@@ -100,3 +106,72 @@ def restore_checkpoint(path: str, trainer) -> int:
                        "ema_g", dev),
         **adam)
     return int(ckpt["epoch"])
+
+
+def export_params(path: str, state_dict: Dict[str, torch.Tensor],
+                  param_key: str = "params") -> None:
+    """Write one network's state_dict as ``{param_key: state_dict}``, the
+    reference's inference file (net_g_<iter>.pth), which
+    ``load_variables`` reads."""
+    path = osp.abspath(path)
+    os.makedirs(osp.dirname(path), exist_ok=True)
+    torch.save({param_key: _cpu(state_dict)}, path)
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def _pick(restored: Dict[str, Any], param_key: str):
+    """``restored[param_key]``, else ``restored['params']`` (the
+    params_ema -> params fallback of base_model.py:247-252), else
+    ``restored`` itself."""
+    if param_key in restored:
+        return restored[param_key]
+    if "params" in restored:
+        return restored["params"]
+    return restored
+
+
+def load_variables(path: str, param_key: str = "params",
+                   net_cfg: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """One network's trained weights as a reference-named state_dict,
+    which the port's module of that network loads with ``strict=True``.
+
+    Reads a torch file (``{param_key: state_dict}``, falling back to
+    ``params``, or a bare state_dict) or the ``.npz`` of flax variables
+    that tools/convert_reference_checkpoint.py writes ('/'-joined keys),
+    which goes through ``weights``' bridge for the network config
+    ``net_cfg`` (the motion estimator's BatchNorm statistics ride along).
+    An orbax directory needs JAX and raises."""
+    path = osp.abspath(path)
+    if osp.isdir(path):
+        raise RuntimeError(
+            f"{path} is an orbax checkpoint directory, which needs JAX to "
+            f"read; convert the reference .pth with "
+            f"tools/convert_reference_checkpoint.py to an .npz, or load the "
+            f"torch file itself")
+    if path.endswith(".npz"):
+        from ..weights import motion_estimator_state_dict, net_g_state_dict
+
+        if net_cfg is None:
+            raise ValueError(f"loading {path} needs the network's config "
+                             f"(net_cfg)")
+        with np.load(path) as f:
+            restored = _unflatten({k: f[k] for k in f.files})
+        variables = {"params": _pick(restored, param_key)}
+        if "batch_stats" in restored:
+            variables["batch_stats"] = restored["batch_stats"]
+        if net_cfg["type"] == "Motion_Estimator_keypoint_aware":
+            return motion_estimator_state_dict(variables, net_cfg)
+        return net_g_state_dict(variables, net_cfg)
+    restored = torch.load(path, map_location="cpu", weights_only=True)
+    return dict(_pick(restored, param_key))

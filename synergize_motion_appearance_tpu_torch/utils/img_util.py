@@ -1,15 +1,16 @@
-"""Image <-> array converters and image files (the reference's
-utils/img_util.py:13-155; the port's copy of the JAX package's
+"""Image <-> array converters, image files and videos (the reference's
+utils/img_util.py:13-172; the port's copy of the JAX package's
 utils/img_util.py). Frames are NHWC / HWC numpy arrays here: the data
 pipeline runs on the host, and the trainer moves batches to the device.
 
-OpenCV is imported when present; a call that needs it raises an
-ImportError that names it when it is not.
+OpenCV and imageio are imported when present; a call that needs one that
+is not raises an ImportError that names it. Videos are read and written
+with imageio first and OpenCV when imageio has no backend for the file.
 """
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -17,6 +18,11 @@ try:
     import cv2
 except ImportError:  # pragma: no cover - OpenCV is absent
     cv2 = None
+
+try:
+    import imageio
+except ImportError:  # pragma: no cover - imageio is absent
+    imageio = None
 
 
 def _cv2(what: str):
@@ -75,3 +81,92 @@ def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True):
                     exist_ok=True)
     if not _cv2("imwrite").imwrite(file_path, img):
         raise IOError(f"Failed to write image: {file_path}")
+
+
+def imfrombytes(content: bytes, float32: bool = False) -> np.ndarray:
+    """Encoded image bytes -> BGR HWC image (img_util.py:118-136)."""
+    img = _cv2("imfrombytes").imdecode(np.frombuffer(content, np.uint8),
+                                       cv2.IMREAD_COLOR)
+    if float32:
+        img = img.astype(np.float32) / 255.0
+    return img
+
+
+def mimsave(frames: Sequence[np.ndarray], file_path: str, fps: int = 25):
+    """Write RGB uint8 frames as a video or gif (img_util.py:157-172):
+    with imageio, or with OpenCV's mp4v writer when imageio fails (no
+    backend for the format, or imageio absent)."""
+    os.makedirs(os.path.dirname(os.path.abspath(file_path)), exist_ok=True)
+    frames = list(frames)
+    if imageio is not None:
+        try:
+            imageio.mimsave(file_path, frames, fps=fps)
+            return
+        except Exception:  # each backend raises its own errors; use cv2
+            pass
+    cv2_ = _cv2("mimsave without an imageio backend for this file")
+    h, w = frames[0].shape[:2]
+    writer = cv2_.VideoWriter(file_path, cv2_.VideoWriter_fourcc(*"mp4v"),
+                              fps, (w, h))
+    if not writer.isOpened():
+        raise IOError(f"cv2.VideoWriter failed to open {file_path}")
+    for f in frames:
+        writer.write(np.ascontiguousarray(np.asarray(f)[..., ::-1]))
+    writer.release()
+
+
+def _read_with_imageio(path: str) -> Tuple[List[np.ndarray], float]:
+    reader = imageio.get_reader(path)
+    fps = float(reader.get_meta_data().get("fps", 25.0))
+    frames = []
+    try:
+        for im in reader:
+            frames.append(np.asarray(im)[..., :3])
+    except RuntimeError:  # a truncated stream ends the frames it gave
+        pass
+    try:
+        reader.close()
+    except Exception:  # closing a reader that failed midway may raise
+        pass
+    if not frames:
+        raise ValueError("imageio decoded zero frames")
+    return frames, fps
+
+
+def _read_with_cv2(path: str) -> Tuple[List[np.ndarray], float]:
+    cap = _cv2("reading a video").VideoCapture(path)
+    if not cap.isOpened():
+        raise IOError(f"cannot open video {path}")
+    fps = cap.get(cv2.CAP_PROP_FPS) or 25.0
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame[..., ::-1].copy())  # BGR -> RGB
+    cap.release()
+    return frames, fps
+
+
+def read_video_frames(path: str, size: Optional[Tuple[int, int]] = None
+                      ) -> Tuple[List[np.ndarray], float]:
+    """A video file (mp4, gif, ...) or a folder of frames -> (RGB uint8
+    frames, fps); frames resized to ``size`` (w, h) when given. A folder
+    reads at 25 fps (the reference's demo.py:166-178)."""
+    if os.path.isdir(path):
+        frames = [np.ascontiguousarray(imread(os.path.join(path, n))
+                                       [..., ::-1])
+                  for n in sorted(os.listdir(path))]
+        fps = 25.0
+    else:
+        try:
+            if imageio is None:
+                raise ImportError("imageio is not installed")
+            frames, fps = _read_with_imageio(path)
+        except Exception:  # no imageio backend for the file: use cv2
+            frames, fps = _read_with_cv2(path)
+    if size is not None:
+        cv2_ = _cv2("resizing video frames")
+        frames = [cv2_.resize(f, size, interpolation=cv2_.INTER_LINEAR)
+                  for f in frames]
+    return frames, fps

@@ -1,4 +1,4 @@
-"""Misc utilities the training entry point needs (the reference's
+"""Misc utilities of the entry points (the reference's
 utils/misc.py:35-146)."""
 from __future__ import annotations
 
@@ -24,3 +24,14 @@ def sizeof_fmt(size: float, suffix: str = "B") -> str:
             return f"{size:3.1f} {unit}{suffix}"
         size /= 1024.0
     return f"{size:3.1f} Y{suffix}"
+
+
+def strict_float32(device) -> torch.device:
+    """``device`` as a torch device. On a card, TF32 is switched off for
+    cuDNN convolutions and CUDA matmuls (process-wide), so that float32
+    work there is float32, as on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device

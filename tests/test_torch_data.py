@@ -322,8 +322,13 @@ def test_metrics_match_jax(name, kw):
     assert got == getattr(psnr_ssim, name)(a, b, **kw)
 
 
-def test_unported_metric_raises_runtime_error():
-    with pytest.raises(RuntimeError, match="not yet ported"):
+def test_unported_metric_raises_runtime_error(tmp_path, monkeypatch):
+    """Every metric is ported now; one whose backbone weights are absent
+    raises a RuntimeError that names the file it looked for."""
+    monkeypatch.delenv("SAMT_INCEPTION_WEIGHTS", raising=False)
+    monkeypatch.setenv("SAMT_WEIGHTS_DIR", str(tmp_path))
+    with pytest.raises(RuntimeError,
+                       match="pt_inception-2015-12-05-6726825d.pth"):
         metrics.calculate_metric({"paths": ["a", "b"]},
                                  {"type": "calculate_fid"})
 

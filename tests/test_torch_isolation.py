@@ -41,7 +41,11 @@ def test_port_has_sources():
                      "data/transforms.py", "metrics/psnr_ssim.py",
                      "metrics/__init__.py", "utils/options.py",
                      "utils/misc.py", "utils/logger.py",
-                     "utils/img_util.py", "utils/registry.py"):
+                     "utils/img_util.py", "utils/registry.py",
+                     "demo.py", "test.py", "animate.py", "ops/color.py",
+                     "metrics/inception.py", "metrics/lpips.py",
+                     "metrics/openface.py", "metrics/external.py",
+                     "metrics/pose_util.py"):
         assert expected in names
     for source in ("fused_attention_packed.cu", "conv3x3.cu"):
         assert (PORT / "csrc" / source).exists()
