@@ -26,7 +26,12 @@ at the flagship 256x256 width with seeded random weights:
   input sizes against the CPU, timed. The card's machine has no image
   decoder (OpenCV, imageio): reading and writing image and video files,
   the I420 fetch of --fast and its uint8 host downsample (OpenCV) are
-  held by the CPU tests only.
+  held by the CPU tests only;
+- serving: the main path's pipeline exported with serving.export_pipeline
+  (torch.export programs, weights as arguments), loaded back and run on
+  the main path's frames (within 1 level of the live frames, K1 launched
+  from the exported generation program), and a weight swap without
+  export at the tiny config.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -75,10 +80,12 @@ CACHE_SIZE = 256                   # frames of the flagship's img_size
 # kernel -> (key of its kernels-line entry, earlier time in ms), bf16, on
 # an NVIDIA H100 80GB HBM3 at 700.00 W, by the profiler's device time, as
 # measured when each was redesigned for the tensor cores: K1 per frame
-# batch, K3 per train step and K4 over K3's forward shapes (their calls are
+# batch with its 32 launches in bf16 (device_ms_bf16; the pipeline now
+# gives the motion transformer's 16 float32), K3 per train step and K4
+# over K3's forward shapes (their calls are
 # short enough that per-call event times measure the host). On a card at
 # that power limit none may be more than 10% slower now.
-PREVIOUS_MS = {"fused_attention_packed": ("device_ms", 3.35),
+PREVIOUS_MS = {"fused_attention_packed": ("device_ms_bf16", 3.35),
                "conv3x3": ("device_ms", 5.54),
                "conv3x3_nhwc": ("device_ms", 2.49)}
 
@@ -248,13 +255,16 @@ def attention_bound(q, k, v, bias, scores, d, rate):
     """The least time of one call, the largest of: the bytes (q, k, v and
     the bias read once, the output written once) over the HBM rate; 2
     FLOP per multiply-add of q.k and of p.v (4d per score) over the bf16
-    tensor-core peak; one exponential per score over the special-function
+    tensor-core peak (the f32 CUDA-core peak for float32 inputs); one
+    exponential per score over the special-function
     units' rate. bound_by is "bytes" or "operations"; bound_kind names
     which of the three binds."""
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
         bias.numel() * 4 if bias is not None else 0)
+    dtype = str(q.dtype).split(".")[1]
+    flop = "tensor-core FLOP" if dtype == "bfloat16" else "CUDA-core FLOP"
     parts = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "tensor-core FLOP": 4 * d * scores / PEAK_FLOPS["bfloat16"],
+             flop: 4 * d * scores / PEAK_FLOPS[dtype],
              "exponentials": scores / rate["exp_per_s"]}
     kind = max(parts, key=parts.get)
     return {"bound_ms": 1e3 * parts[kind],
@@ -277,7 +287,10 @@ def check_attention(torch, fa, B, rate, L=1024):
     """Hold the kernel against the plain version at every main-path shape
     and at RAGGED_ATTENTION in float32 and bfloat16; at the main-path
     shapes time kernel, plain version and F.scaled_dot_product_attention
-    at bfloat16 (the pipeline's dtype)."""
+    at bfloat16 and, for the motion transformer's calls, also at float32,
+    the dtype the bf16 pipeline gives them (the JAX graph's type promotion
+    of the float32 flow residual runs the motion pass in float32). Rows
+    in the pipeline's dtype are marked on_path."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -285,6 +298,7 @@ def check_attention(torch, fa, B, rate, L=1024):
     for name, bb, ll, E, H, K, shared, with_bias, per_batch in (
             attention_cases(B, L) + RAGGED_ATTENTION):
         d = E // H
+        path_dtype = "float32" if name.startswith("motion") else "bfloat16"
         for dtype in (torch.float32, torch.bfloat16):
             def randn(*shape):
                 return torch.randn(*shape, generator=gen, device="cuda",
@@ -305,8 +319,9 @@ def check_attention(torch, fa, B, rate, L=1024):
                    "L": ll, "K": K, "E": E, "H": H, "d": d,
                    "shared_kv": shared, "bias": with_bias,
                    "launches_per_frame_batch": per_batch,
-                   "max_abs_err": err}
-            if dtype == torch.bfloat16 and per_batch:
+                   "on_path": bool(per_batch) and str(dtype).split(".")[1]
+                   == path_dtype, "max_abs_err": err}
+            if per_batch and (dtype == torch.bfloat16 or row["on_path"]):
                 # the library yardstick, timed only: SDPA on head-split
                 # views
                 qh = q.view(bb, ll, H, d).transpose(1, 2)
@@ -330,7 +345,7 @@ def check_attention(torch, fa, B, rate, L=1024):
                 del qh, kh, vh, mask
             rows.append(row)
             print(f"  K1 {name:23s} {row['dtype']:8s} max_abs_err {err:.3e}"
-                  + (attention_note(row) if dtype == torch.bfloat16 else ""),
+                  + (attention_note(row) if "ms" in row else ""),
                   flush=True)
             del q, k, v, bias, out, ref
     return rows
@@ -1839,14 +1854,177 @@ def entry_points(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
     return report
 
 
+# ---------------------------------------------------------------------------
+# serving: exported artifacts (serving.py)
+# ---------------------------------------------------------------------------
+
+SWAP_SEED = 1  # the tiny weight swap's second seed, added to --seed
+
+
+def graph_targets(torch, path):
+    """The call targets of a saved program's graph, and its state_dict."""
+    ep = torch.export.load(path)
+    return ([str(n.target) for n in ep.graph.nodes
+             if n.op == "call_function"], ep.state_dict)
+
+
+def serving_swap(torch, configs, ReenactmentPipeline, seeded_nets, serving,
+                 work, seed):
+    """A tiny artifact (f32, uint8 out) exported on the card; a second
+    seed's weights swapped in with load_weights, no export again: its
+    frames match a live pipeline on those weights within 1 level."""
+    cfg = configs.get("tiny")
+    kw = dict(relative=True, adapt_scale=True, frame_batch=4,
+              compute_dtype=torch.float32, u8_io=True, device="cuda")
+    art = os.path.join(work, "tiny")
+    serving.export_pipeline(ReenactmentPipeline(*seeded_nets(cfg, seed),
+                                                **kw), art)
+    stamp = {f: os.stat(os.path.join(art, f)).st_mtime_ns
+             for f in os.listdir(art)}
+    served = serving.load_serving_pipeline(art)
+    src, drv = frames(1, 64, seed + 40), frames(6, 64, seed + 41)
+    before = served.animate(src, drv)
+    live = ReenactmentPipeline(*seeded_nets(cfg, seed + SWAP_SEED), **kw)
+    served.load_weights(live.g_weights, live.m_weights)
+    got, want = served.animate(src, drv), live.animate(src, drv)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    moved = float(np.abs(got.astype(np.int32) - before).mean())
+    assert stamp == {f: os.stat(os.path.join(art, f)).st_mtime_ns
+                     for f in os.listdir(art)}, "the swap touched a file"
+    assert moved > 1.0, f"the swap did not change the frames ({moved})"
+    assert diff.max() <= 1, f"swapped weights: {diff.max()} levels"
+    print(f"serving: tiny weight swap without export: max |diff| "
+          f"{diff.max()} levels against the live pipeline on seed "
+          f"{seed + SWAP_SEED} (identical share "
+          f"{float((diff == 0).mean()):.4f}; frames moved "
+          f"{moved:.2f} levels on average)", flush=True)
+    return {"max_diff_levels": int(diff.max()),
+            "identical_share": float((diff == 0).mean()),
+            "mean_levels_moved": moved}
+
+
+def serving_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
+                 card):
+    """The flagship pipeline of the main path (seeded weights, bf16, uint8
+    in and out, frame batch 16) exported with serving.export_pipeline to
+    build/chip_smoke_serving, loaded back with load_serving_pipeline and
+    run on the main path's 64 frames: within 1 level of the live
+    pipeline's frames, K1 32 times per frame batch from the exported gen
+    program (counts set to 0 just before, read just after), no SDPA in
+    that program, no weights in any program file. Then the tiny weight
+    swap. Times export, load to first frame batch against build_and_load
+    plus the first frame batch, and served against live frames/s (the two
+    in turns). The directory is removed afterwards."""
+    from synergize_motion_appearance_tpu_torch import serving
+    from synergize_motion_appearance_tpu_torch.demo import build_and_load
+
+    cfg = configs.get("flagship_256")
+    size, per_batch = cfg["network_g"]["img_size"], k1_per_train_step(
+        cfg["network_g"])  # one forward's K1 launches
+    src = frames(1, size, seed + 20)
+    drv = frames(FRAMES, size, seed + 21)
+    work = os.path.join(ROOT, "build", "chip_smoke_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        live = ReenactmentPipeline(*seeded_nets(cfg, seed),
+                                   **pipeline_kw(torch))
+        art = os.path.join(work, "flagship")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serving.export_pipeline(live, art)
+        export_s = time.perf_counter() - t0
+        sizes = {f: os.path.getsize(os.path.join(art, f))
+                 for f in sorted(os.listdir(art))}
+        weight_bytes = sum(v.numel() * v.element_size() for w in (
+            live.g_weights, live.m_weights) for v in w.values())
+        k1_ops = {}
+        for stage in serving._STAGES:
+            targets, state = graph_targets(
+                torch, os.path.join(art, f"{stage}.pt2"))
+            assert not state, f"{stage}.pt2 holds {len(state)} weights"
+            assert not any("scaled_dot_product" in t for t in targets), (
+                f"{stage}.pt2 calls SDPA")
+            k1_ops[stage] = targets.count(
+                "samt.fused_attention_packed.default")
+        assert k1_ops == {"kp1": 0, "kpN": 0, "enc": 0,
+                          "gen": per_batch}, k1_ops
+        programs = sum(v for f, v in sizes.items() if f.endswith(".pt2"))
+        assert sizes["params.pt"] < 1.01 * weight_bytes + 2**20, (
+            sizes["params.pt"], weight_bytes)
+        assert programs < 0.25 * weight_bytes, (programs, weight_bytes)
+
+        # load to first frame batch: served, then live from build_and_load
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = serving.load_serving_pipeline(art)
+        served.animate(src, drv[:FRAME_BATCH])
+        served_first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g, me = build_and_load(cfg, "cuda")
+        ReenactmentPipeline(g, me, **pipeline_kw(torch)).animate(
+            src, drv[:FRAME_BATCH])
+        live_first_s = time.perf_counter() - t0
+        del g, me
+
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = served.animate(src, drv)
+        first_run_s = time.perf_counter() - t0
+        launches, split = fa.launches, fa.split_launches
+        n_batches = math.ceil(FRAMES / FRAME_BATCH)
+        assert launches == per_batch * n_batches, (
+            f"served K1 launches {launches}, want {per_batch} per frame "
+            f"batch x {n_batches}")
+        assert split == 0, "the served path launched K2"
+        want = live.animate(src, drv)
+        assert out.shape == want.shape == (FRAMES, size, size, 3)
+        assert out.dtype == np.uint8 and out.std() > 0
+        diff = np.abs(out.astype(np.int32) - want.astype(np.int32))
+        assert diff.max() <= 1, f"served vs live: {diff.max()} levels"
+        # frames/s in turns: live, served, served, live
+        times = {"live": [], "served": []}
+        for name in ("live", "served", "served", "live"):
+            pipe = live if name == "live" else served
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.animate(src, drv)
+            times[name].append(time.perf_counter() - t0)
+        fps = {k: [FRAMES / t for t in v] for k, v in times.items()}
+        swap = serving_swap(torch, configs, ReenactmentPipeline,
+                            seeded_nets, serving, work, seed)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    same = float((diff == 0).mean())
+    print(f"serving: flagship-256 bf16 uint8 artifact: {sizes} bytes "
+          f"(weights {weight_bytes} bytes), export {export_s:.2f} s; "
+          f"load to first frame batch {served_first_s:.2f} s against "
+          f"build_and_load + first frame batch {live_first_s:.2f} s; "
+          f"served vs live frames: max |diff| {diff.max()} levels, "
+          f"identical share {same:.6f}; K1 launches {launches} "
+          f"({k1_ops['gen']} samt ops in gen, no SDPA); frames/s served "
+          f"{[round(f, 2) for f in fps['served']]} vs live "
+          f"{[round(f, 2) for f in fps['live']]} on {card}", flush=True)
+    return {"bytes": sizes, "weight_bytes": weight_bytes,
+            "export_s": export_s, "served_load_to_first_batch_s":
+            served_first_s, "live_build_to_first_batch_s": live_first_s,
+            "max_diff_levels": int(diff.max()), "identical_share": same,
+            "k1_launches": launches, "k2_launches": split,
+            "k1_ops": k1_ops, "first_run_s": first_run_s,
+            "frames_per_s": fps, "swap": swap}
+
+
 def kernel_entry(name, source, replaces, rows, weight, launches,
-                 times_are, **extra):
+                 times_are, summed=None, **extra):
     """One kernel's entry of the kernels line: errors over its f32 and bf16
-    cases; times and bound summed over its bf16 cases, each weighted by
-    ``weight`` (its launches in one unit of the path; the ragged cases,
-    weighted 0, are checked and not timed)."""
+    cases; times and bound summed over the cases ``summed`` picks (by
+    default its bf16 cases), each weighted by ``weight`` (its launches in
+    one unit of the path; the ragged cases, weighted 0, are checked and
+    not timed)."""
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
-    timed = [r for r in bf16 if r[weight]]
+    timed = [r for r in (bf16 if summed is None else filter(summed, rows))
+             if r[weight]]
 
     def total(key):
         return sum(r[key] * r[weight] for r in timed)
@@ -1940,6 +2118,9 @@ def main():
     torch.cuda.empty_cache()
     report["entry_points"] = entry_points(
         torch, configs, ReenactmentPipeline, seeded_nets, fa, args.seed, card)
+    torch.cuda.empty_cache()
+    report["serving"] = serving_path(
+        torch, configs, ReenactmentPipeline, seeded_nets, fa, args.seed, card)
 
     cli = report["train_cli"]["fresh"]["launches"]
     k3_per_step = report["train_path"]["k3_launches_per_step"]
@@ -1948,19 +2129,28 @@ def main():
             "fused_attention_packed", "fused_attention_packed.cu",
             "fused_attention.py:227", report["k1_cases"],
             "launches_per_frame_batch", report["main_path"]["k1_launches"],
-            f"sum over the 32 bf16 launches of one frame batch of "
-            f"{FRAME_BATCH} (chiprun_out/chip_smoke.json has each shape; "
-            f"the ragged shapes and the captured pipeline inputs are "
-            f"checked, not summed); device_ms is the profiler's device "
-            f"time of the same calls, without the host's share of each "
-            f"call that ms holds, library_device_ms SDPA's; the bound is "
-            f"the largest of bytes, tensor-core FLOP and exponentials",
+            f"sum over the 32 launches of one frame batch of {FRAME_BATCH} "
+            f"in the pipeline's dtypes: the 16 of the motion transformer "
+            f"in float32, the 16 of the appearance one in bfloat16 "
+            f"(chiprun_out/chip_smoke.json has each shape; the ragged "
+            f"shapes and the captured pipeline inputs are checked, not "
+            f"summed); device_ms is the profiler's device time of the same "
+            f"calls, without the host's share of each call that ms holds, "
+            f"library_device_ms SDPA's; device_ms_bf16 the 32 launches all "
+            f"in bfloat16, as measured before; the bound is the largest of "
+            f"bytes, FLOP and exponentials",
+            summed=lambda r: r["on_path"],
+            device_ms_bf16=sum(
+                r["device_ms"] * r["launches_per_frame_batch"]
+                for r in report["k1_cases"]
+                if r["dtype"] == "bfloat16" and "device_ms" in r),
             launches_train_path=report["train_path"]["k1_launches"],
             launches_train_cli=cli["k1"],
             launches_anchor_path=report["entry_points"]["anchor_path"][
                 "k1_launches"],
             launches_test_run=report["entry_points"]["test_run"][
-                "k1_launches"]),
+                "k1_launches"],
+            launches_served_path=report["serving"]["k1_launches"]),
         kernel_entry(
             "fused_attention (head-split)", "fused_attention_packed.cu",
             "fused_attention.py:56", report["k2_cases"],

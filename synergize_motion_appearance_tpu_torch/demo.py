@@ -6,8 +6,10 @@ driving video.
         --config options/test.yml --source_image source.png \
         --driving_video driving.mp4 --result_video result.mp4 [--cpu]
 
-The flags are the JAX demo's. Networks and checkpoint paths come from
-``--config`` (``path.pretrain_network_g`` under ``param_key_g``, default
+The flags are the JAX demo's. ``--from_export <dir>`` serves an
+artifact of ``export_serving`` instead (serving.py): no network is built,
+and the image size, frame batch and frame types are the artifact's.
+Otherwise networks and checkpoint paths come from ``--config`` (``path.pretrain_network_g`` under ``param_key_g``, default
 ``params_ema``, and ``path.pretrain_network_motion_estimator`` under
 ``param_key_m``, default ``params``); without a path a network keeps
 seeded random weights. float32 unless ``--bf16`` or ``--fast``; ``--fast``
@@ -117,8 +119,8 @@ def main(argv=None) -> np.ndarray:
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", default=None)
     parser.add_argument("--from_export", default=None,
-                        help="serve from an exported pipeline (not yet "
-                             "ported)")
+                        help="serve from an artifact directory of "
+                             "export_serving (no --config needed)")
     parser.add_argument("--source_image", default="source.png")
     parser.add_argument("--driving_video", default="driving.mp4")
     parser.add_argument("--result_video", default="result.mp4")
@@ -138,12 +140,6 @@ def main(argv=None) -> np.ndarray:
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (default: the CUDA card)")
     opt = parser.parse_args(argv)
-    if opt.from_export is not None:
-        raise NotImplementedError(
-            "--from_export is not yet ported: it comes with serving; "
-            "use --config")
-    if opt.config is None:
-        parser.error("--config is required")
 
     import torch
 
@@ -151,19 +147,30 @@ def main(argv=None) -> np.ndarray:
     from .utils.options import load_yaml
 
     device = "cpu" if opt.cpu else "cuda"
-    config = load_yaml(opt.config)
-    img_size = int(config["network_g"].get("img_size", 256))
+    if opt.from_export is not None:
+        from .serving import load_serving_pipeline
+
+        # the artifact's options stand in for the pipeline flags
+        pipeline = load_serving_pipeline(opt.from_export, device)
+        img_size, fast_io = pipeline.img_size, pipeline.u8_io
+    else:
+        if opt.config is None:
+            parser.error("--config is required unless --from_export is set")
+        config = load_yaml(opt.config)
+        img_size = int(config["network_g"].get("img_size", 256))
+        fast_io = opt.fast
     source, driving, frames_rgb, fps = decode_inputs(
         opt.source_image, opt.driving_video, img_size)
-    net_g, motion_estimator = build_and_load(config, device)
-    pipeline = ReenactmentPipeline(
-        net_g, motion_estimator, relative=opt.relative,
-        adapt_scale=opt.adapt_scale, frame_batch=opt.frame_batch,
-        compute_dtype=(torch.bfloat16 if (opt.bf16 or opt.fast)
-                       else torch.float32),
-        u8_io=opt.fast, yuv420_io=opt.fast, host_kp_downsample=opt.fast,
-        device=device)
-    if opt.fast:  # uint8 to the device; normalized there
+    if opt.from_export is None:
+        net_g, motion_estimator = build_and_load(config, device)
+        pipeline = ReenactmentPipeline(
+            net_g, motion_estimator, relative=opt.relative,
+            adapt_scale=opt.adapt_scale, frame_batch=opt.frame_batch,
+            compute_dtype=(torch.bfloat16 if (opt.bf16 or opt.fast)
+                           else torch.float32),
+            u8_io=opt.fast, yuv420_io=opt.fast, host_kp_downsample=opt.fast,
+            device=device)
+    if fast_io:  # uint8 to the device; normalized there
         source, driving = to_uint8(source), to_uint8(driving)
 
     anchor = None

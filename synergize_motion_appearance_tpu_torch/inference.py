@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from .models import build_network
 from .models.dense_motion import inv2x2
@@ -24,7 +25,7 @@ from .ops import convex_hull_area
 from .ops.color import rgb_to_yuv420
 from .ops.coords import antialias_downsample_host, blur_stride_u8
 from .utils.img_util import _cv2
-from .utils.misc import strict_float32
+from .utils.misc import strict_float32, tf32
 
 
 def normalize_kp(kp_source, kp_driving, kp_driving_initial,
@@ -51,13 +52,54 @@ def normalize_kp(kp_source, kp_driving, kp_driving_initial,
     return kp_new
 
 
+class _Bound(nn.Module):
+    """``net`` itself, or its method ``method``, as this module's forward,
+    so that ``torch.func.functional_call`` can run it on weights given as
+    a dict. The module itself is called, not its forward, so its hooks
+    run."""
+
+    def __init__(self, net: nn.Module, method: Optional[str] = None):
+        super().__init__()
+        self.net = net
+        self.method = method
+
+    def forward(self, *args, **kwargs):
+        fn = self.net if self.method is None else getattr(self.net,
+                                                          self.method)
+        return fn(*args, **kwargs)
+
+
+def _apply(bound: _Bound, weights: Dict[str, torch.Tensor], *args,
+           **kwargs):
+    """``bound`` run with ``weights`` (its network's parameters and
+    buffers by name) in place of the network's own."""
+    return torch.func.functional_call(
+        bound, {f"net.{k}": v for k, v in weights.items()}, args, kwargs)
+
+
+def net_weights(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """A network's parameters and buffers by name: what a stage takes as
+    its weights."""
+    return {**dict(net.named_parameters()), **dict(net.named_buffers())}
+
+
 class ReenactmentPipeline:
     """Holds the two networks on ``device`` in ``compute_dtype`` and runs
     reenactment in frame batches of ``frame_batch``.
 
     The networks are moved, cast and put in eval mode in place. For
     float32 on a card, TF32 is switched off for cuDNN convolutions and
-    CUDA matmuls (process-wide), so float32 means float32.
+    CUDA matmuls (process-wide), so float32 means float32. In bfloat16
+    the generator's motion pass runs in float32, as the JAX graph's type
+    promotion runs it, and ``animate`` runs it at TF32 on a card.
+
+    The work is three stages, as in the JAX package: ``_kp_impl``
+    (keypoints of a batch of frames), ``_enc_impl`` (the source's encoder
+    features, once per source) and ``_gen_impl`` (relative motion, dense
+    motion and the generator for a frame batch). Each is a function of
+    its weights, a dict of parameters and buffers by name
+    (``net_weights``), and of its tensors, so ``serving.export_pipeline``
+    exports the same bodies that ``animate`` runs here.
 
     The JAX package's options for a slow host link: ``yuv420_io`` (with
     ``u8_io``) fetches generated frames as packed I420 and converts them
@@ -88,23 +130,85 @@ class ReenactmentPipeline:
         self.host_kp_downsample = host_kp_downsample
         self.kp_scale = (self.motion_estimator.kp_detector.scale_factor
                          if host_kp_downsample else 1.0)
+        self.img_size = self.net_g.img_size
+        self.g_weights = net_weights(self.net_g)
+        self.m_weights = net_weights(self.motion_estimator)
+        me = self.motion_estimator
+        self._kp_net = _Bound(me, "estimate_kp")
+        self._motion_net = _Bound(me, "estimate_motion_w_kp")
+        self._enc_net = _Bound(self.net_g, "encode_source")
+        self._gen_net = _Bound(self.net_g)
 
-    def _to_model(self, images) -> torch.Tensor:
-        """(N, H, W, 3) uint8 or float frames (numpy or a tensor) ->
-        (N, 3, H, W) model-domain tensor on the device."""
-        if not isinstance(images, torch.Tensor):
-            images = torch.as_tensor(np.ascontiguousarray(images))
-        x = images.to(self.device)
-        if x.dtype == torch.uint8:
-            x = x.to(self.compute_dtype) * (2.0 / 255.0) - 1.0
-        else:
-            x = x.to(self.compute_dtype)
+    # -------------------- stages --------------------
+
+    def _normalize_in(self, images: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) uint8 or float frames -> (N, 3, H, W) in the model
+        domain and ``compute_dtype``."""
+        x = images.to(self.compute_dtype)
+        if images.dtype == torch.uint8:
+            x = x * (2.0 / 255.0) - 1.0
         return x.permute(0, 3, 1, 2).contiguous()
 
-    def _kp(self, x, pre_downsampled: bool = False
-            ) -> Dict[str, torch.Tensor]:
-        kp = self.motion_estimator.estimate_kp(x, pre_downsampled)
+    def _kp_impl(self, m_weights, images, pre_downsampled: bool = False
+                 ) -> Dict[str, torch.Tensor]:
+        kp = _apply(self._kp_net, m_weights, self._normalize_in(images),
+                    pre_downsampled)
         return {k: v.float() for k, v in kp.items()}  # kp math in f32
+
+    def _enc_impl(self, g_weights, source):
+        """The source's encoder features, once per source: {'latent',
+        'feats': {resolution: feature}}."""
+        return _apply(self._enc_net, g_weights, self._normalize_in(source))
+
+    def _gen_impl(self, g_weights, m_weights, source, src_feats, kp_source,
+                  kp_driving, kp_driving_initial) -> torch.Tensor:
+        """source (1, H, W, 3) as given to ``animate``; keypoints in
+        float32, kp_driving batched. Returns (F, H, W, 3) frames: uint8
+        with ``u8_io`` (packed (F, H*3/2, W) I420 with ``yuv420_io``),
+        else float32 in [-1, 1]."""
+        source = self._normalize_in(source)
+        F_ = kp_driving["value"].shape[0]
+        kp_norm = normalize_kp(
+            kp_source, kp_driving, kp_driving_initial,
+            adapt_movement_scale=self.adapt_scale,
+            use_relative_movement=self.relative,
+            use_relative_jacobian=self.relative)
+        dt = self.compute_dtype
+        kp_norm = {k: v.to(dt) for k, v in kp_norm.items()}
+        kp_src = {k: v.expand(F_, *v.shape[1:]).to(dt)
+                  for k, v in kp_source.items()}
+        # the batch-1 source is downsampled once and read by every frame
+        dense_motion = _apply(self._motion_net, m_weights, kp_src, kp_norm,
+                              source)
+        out = _apply(self._gen_net, g_weights, source, dense_motion,
+                     w=self.w, inference=True, source_feats=src_feats)["out"]
+        out = out.permute(0, 2, 3, 1)
+        if self.yuv420_io:
+            return rgb_to_yuv420(out)
+        if self.u8_io:
+            out = torch.clamp(out.float(), -1.0, 1.0)
+            return torch.round((out + 1.0) * 127.5).to(torch.uint8)
+        return out.float()
+
+    def _kp_fn(self, images, pre_downsampled: bool = False):
+        return self._kp_impl(self.m_weights, self._to_device(images),
+                             pre_downsampled)
+
+    def _enc_fn(self, source):
+        return self._enc_impl(self.g_weights, self._to_device(source))
+
+    def _gen_fn(self, source, src_feats, kp_source, kp_driving, kp_initial):
+        return self._gen_impl(self.g_weights, self.m_weights,
+                              self._to_device(source), src_feats, kp_source,
+                              kp_driving, kp_initial)
+
+    # -------------------- host orchestration --------------------
+
+    def _to_device(self, images) -> torch.Tensor:
+        """Frames (numpy or a tensor) as a tensor on the device."""
+        if not isinstance(images, torch.Tensor):
+            images = torch.as_tensor(np.ascontiguousarray(images))
+        return images.to(self.device)
 
     def _host_kp_prep(self, frames_np) -> torch.Tensor:
         """uint8 or float frames -> normalized frames at the keypoint
@@ -123,38 +227,13 @@ class ReenactmentPipeline:
         """Keypoints of host frames, downsampled on the host when the
         pipeline says so."""
         if self.host_kp_downsample:
-            return self._kp(self._to_model(self._host_kp_prep(frames_np)),
-                            pre_downsampled=True)
-        return self._kp(self._to_model(frames_np))
+            return self._kp_fn(self._host_kp_prep(frames_np), True)
+        return self._kp_fn(frames_np)
 
     @torch.no_grad()
     def estimate_kp(self, images) -> Dict[str, torch.Tensor]:
         """Keypoints (float32, on the device) of full-size frames."""
-        return self._kp(self._to_model(images))
-
-    def _gen(self, source, source_down, src_feats, kp_source, kp_driving,
-             kp_initial):
-        F_ = kp_driving["value"].shape[0]
-        kp_norm = normalize_kp(
-            kp_source, kp_driving, kp_initial,
-            adapt_movement_scale=self.adapt_scale,
-            use_relative_movement=self.relative,
-            use_relative_jacobian=self.relative)
-        dt = self.compute_dtype
-        kp_norm = {k: v.to(dt) for k, v in kp_norm.items()}
-        kp_src = {k: v.expand(F_, *v.shape[1:]).to(dt)
-                  for k, v in kp_source.items()}
-        dense_motion = self.motion_estimator.estimate_motion_w_kp(
-            kp_src, kp_norm, source_down, pre_downsampled=True)
-        out = self.net_g(source, dense_motion, w=self.w, inference=True,
-                         source_feats=src_feats)["out"]
-        out = out.permute(0, 2, 3, 1)
-        if self.yuv420_io:
-            return rgb_to_yuv420(out)
-        if self.u8_io:
-            out = torch.clamp(out.float(), -1.0, 1.0)
-            return torch.round((out + 1.0) * 127.5).to(torch.uint8)
-        return out.float()
+        return self._kp_fn(images)
 
     @torch.no_grad()
     def animate(self, source_np, driving_np) -> np.ndarray:
@@ -163,26 +242,29 @@ class ReenactmentPipeline:
         float32 in [-1, 1]. The last frame batch is padded with copies of
         the last frame; the relative motion is taken against driving[0]."""
         n_frames = driving_np.shape[0]
-        source = self._to_model(source_np)
+        source = self._to_device(source_np)
         kp_source = self._kp_frames(source_np)
-        src_feats = self.net_g.encode_source(source)  # once per source
-        dmn = self.motion_estimator.dense_motion_network
-        source_down = dmn.down(source) if dmn.scale_factor != 1 else source
+        src_feats = self._enc_fn(source)  # once per source
 
         fb = self.frame_batch
         outs = []
         kp_initial = None
-        for s in range(0, n_frames, fb):
-            chunk = np.asarray(driving_np[s:s + fb])
-            n = chunk.shape[0]
-            if n < fb:
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], fb - n, axis=0)])
-            kp_chunk = self._kp_frames(chunk)
-            if kp_initial is None:  # kp of driving[0] (demo.py:115)
-                kp_initial = {k: v[:1] for k, v in kp_chunk.items()}
-            outs.append(self._gen(source, source_down, src_feats, kp_source,
-                                  kp_chunk, kp_initial)[:n])
+        # A bfloat16 pipeline's float32 work (the motion pass, which the
+        # JAX graph promotes to float32 and the TPU runs at its default
+        # float32 precision, bf16 passes) takes TF32 on a card; a float32
+        # pipeline stays in full float32.
+        with tf32(self.compute_dtype != torch.float32):
+            for s in range(0, n_frames, fb):
+                chunk = np.asarray(driving_np[s:s + fb])
+                n = chunk.shape[0]
+                if n < fb:
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], fb - n, axis=0)])
+                kp_chunk = self._kp_frames(chunk)
+                if kp_initial is None:  # kp of driving[0] (demo.py:115)
+                    kp_initial = {k: v[:1] for k, v in kp_chunk.items()}
+                outs.append(self._gen_fn(source, src_feats, kp_source,
+                                         kp_chunk, kp_initial)[:n])
         out = torch.cat(outs).cpu().numpy()
         if self.yuv420_io:  # (F, H*3/2, W) I420 -> RGB on the host
             cv2 = _cv2("yuv420_io")
@@ -258,13 +340,19 @@ def find_best_frame_kp(pipeline: ReenactmentPipeline, source_np,
     """The anchor by the pipeline's own keypoints under the reference's
     hull-normalized criterion, for when face_alignment is absent: the
     first driving frame nearest the source. Keypoints are computed in
-    chunks of the pipeline's frame batch."""
+    chunks of the pipeline's frame batch, the last one padded."""
     kp_s = _hull_normalized(
         pipeline.estimate_kp(source_np)["value"][0].cpu().numpy())
     bs = int(pipeline.frame_batch)
-    kps = np.concatenate([
-        pipeline.estimate_kp(driving_np[s:s + bs])["value"].cpu().numpy()
-        for s in range(0, driving_np.shape[0], bs)])
+    kps = []
+    for s in range(0, driving_np.shape[0], bs):
+        chunk = np.asarray(driving_np[s:s + bs])
+        n = chunk.shape[0]
+        if n < bs:  # a served pipeline takes batch 1 or frame_batch only
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], bs - n, axis=0)])
+        kps.append(pipeline.estimate_kp(chunk)["value"][:n].cpu().numpy())
+    kps = np.concatenate(kps)
     best, best_idx = float("inf"), 0
     for i in range(kps.shape[0]):
         n = float(((_hull_normalized(kps[i]) - kp_s) ** 2).sum())

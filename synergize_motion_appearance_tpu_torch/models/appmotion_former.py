@@ -84,6 +84,19 @@ def occlude_input(inp, occlusion_map):
     return inp * occlusion_map.to(inp.dtype)
 
 
+def _promoted(module, dtype, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its floating parameters in
+    ``dtype`` where they are narrower: the JAX graph's type promotion of a
+    float32 input against bfloat16 weights (the products of the rounded
+    weights, in float32)."""
+    weights = {k: p.to(dtype) for k, p in module.named_parameters()
+               if p.dtype != dtype}
+    if not weights:
+        return module(*args, **kwargs)
+    return torch.func.functional_call(module, weights, args, kwargs,
+                                      strict=False)
+
+
 def encoder_tap_indices(nf, emb_dim, ch_mult, res_blocks, resolution,
                         attn_resolutions):
     """resolution -> encoder block index of its skip feature
@@ -321,30 +334,41 @@ class AppMotionCompFormer(nn.Module):
         B, Hd, Wd, _ = motion.shape
         t = self.token_hw
         dim = self.dim_embd_motion
-        m = motion.permute(0, 3, 1, 2).to(self.compute_dtype)
-        m_feat = self.motion_emb(m.detach())                  # (B, dim, t, t)
+        m = motion.permute(0, 3, 1, 2)
+        # The flow residual is float32 (it is taken against the float32
+        # coordinate grid), and the JAX graph's type promotion runs every
+        # module it reaches in float32 on weights in the compute dtype:
+        # the motion embedding, the motion transformer, the motion
+        # encoder and the flow/occlusion head. So does this pass.
+        dt = torch.promote_types(m.dtype, self.compute_dtype)
+
+        def run(module, *args, **kwargs):
+            return _promoted(module, dt, *args, **kwargs)
+
+        m_feat = run(self.motion_emb, m.detach())             # (B, dim, t, t)
         if query_feat.shape[2:] != m_feat.shape[2:]:
             query_feat = resize_bilinear(query_feat, tuple(m_feat.shape[2:]),
                                          align_corners=True)
-        query_emb = self.motion_query_enc_2(
-            torch.cat([m_feat, query_feat], dim=1))
+        query_emb = run(self.motion_query_enc_2,
+                        torch.cat([m_feat, query_feat.to(dt)], dim=1))
         tokens = query_emb.flatten(2).transpose(1, 2)         # (B, t*t, dim)
         pos = self.position_emb_motion[None]
         context = self._codebook_context(self.quantize_motion,
                                          1 + len(self.connect), res)
         for block in self.motion_block:
-            tokens = block(tokens, context, (t, t), query_pos=pos)
+            tokens = run(block, tokens, context.to(dt), (t, t),
+                         query_pos=pos)
         query_emb = tokens.transpose(1, 2).reshape(B, dim, t, t)
         motion_f = resize_bilinear(query_emb, (Hd, Wd), align_corners=True)
-        m_f = self.BasicMotionEncoder(m, motion_f)
-        m_res = self.refine(m_f, warp_ctx)
+        m_f = run(self.BasicMotionEncoder, m.to(dt), motion_f)
+        m_res = run(self.refine, m_f, warp_ctx.to(dt))
         if not train:
             return m_res, None, None
         chunk = self.quantize_motion.codebook_size // (1 + len(self.connect))
         num = chunk * (self.scales.index(res) + 1)
         z_q, loss, _ = self.quantize_motion(m_feat.permute(0, 2, 3, 1),
                                             num=num)
-        m_recon = self.to_motion(z_q.permute(0, 3, 1, 2))
+        m_recon = run(self.to_motion, z_q.permute(0, 3, 1, 2))
         return m_res, m_recon.permute(0, 2, 3, 1), loss
 
     def _app_tokens(self, feat, res):

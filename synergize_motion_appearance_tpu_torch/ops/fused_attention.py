@@ -10,14 +10,19 @@ Counterparts of ``synergize_motion_appearance_tpu/ops/fused_attention.py``'s
 Both take an optional (B, K) float32 additive bias where -1e30 masks a key,
 and return q's dtype.
 
-On a CUDA tensor each call launches a hand-written kernel of
-``csrc/fused_attention_packed.cu`` (given each layout's strides) or
-raises: bfloat16 runs on the tensor cores (``attn_packed_kernel_tc``, in
-the variant ``tc_plan`` and ``copy_bytes`` pick), float32 on the CUDA
-cores (``attn_packed_kernel``). On a CPU tensor it runs the plain PyTorch
-version (``fused_attention_packed_reference``,
-``fused_attention_reference``), which the tests hold against the JAX
-package and the on-card check holds the kernel against. The gradient
+Each layout is a ``torch.library`` custom op
+(``torch.ops.samt.fused_attention_packed``,
+``torch.ops.samt.fused_attention``), so that ``torch.export`` keeps the
+call in an exported program. On a CUDA tensor the op launches a
+hand-written kernel of ``csrc/fused_attention_packed.cu`` (given each
+layout's strides) or raises: bfloat16 runs on the tensor cores
+(``attn_packed_kernel_tc``, in the variant ``tc_plan`` and ``copy_bytes``
+pick), float32 on the CUDA cores (``attn_packed_kernel``). On a CPU
+tensor it runs the plain PyTorch version
+(``fused_attention_packed_reference``, ``fused_attention_reference``),
+which the tests hold against the JAX package and the on-card check holds
+the kernel against; no other device has an implementation. The fake
+implementation checks what the kernel takes, without data. The gradient
 differentiates the plain version, as the JAX package's custom VJPs do
 (there is no backward kernel).
 """
@@ -77,10 +82,12 @@ def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
     d = E // H
     K = k.shape[-2]
 
-    def split(t):
+    def split(t):  # contiguous, as the head-split version's callers pass
         if t.dim() == 2:
-            return t.reshape(1, K, H, d).permute(0, 2, 1, 3)
-        return t.reshape(t.shape[0], t.shape[1], H, d).permute(0, 2, 1, 3)
+            t = t.reshape(1, K, H, d)
+        else:
+            t = t.reshape(t.shape[0], t.shape[1], H, d)
+        return t.permute(0, 2, 1, 3).contiguous()
 
     out = fused_attention_reference(split(q), split(k), split(v), bias)
     return out.permute(0, 2, 1, 3).reshape(B, L, E)
@@ -151,10 +158,10 @@ def _check_split(q, k, v, bias):
                          f"{tuple(bias.shape)}")
 
 
-def _launch_cuda(q, k, v, bias, num_heads):
-    """Launches the kernel in the token-major layout (num_heads given) or
-    the head-split one (num_heads None)."""
-    global launches, split_launches
+def _check_cuda(q, k, v, bias, num_heads):
+    """What the kernel takes beyond the layout checks; returns (B, H, L,
+    K, d). Runs on real and on fake tensors, so that ``torch.export``
+    fails where a launch would."""
     if num_heads is None:
         B, H, L, d = q.shape
         K = k.shape[2]
@@ -173,6 +180,14 @@ def _launch_cuda(q, k, v, bias, num_heads):
         raise ValueError("q, k, v and bias must be contiguous")
     if bias is not None and bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
+    return B, H, L, K, d
+
+
+def _launch_cuda(q, k, v, bias, num_heads):
+    """Launches the kernel in the token-major layout (num_heads given) or
+    the head-split one (num_heads None)."""
+    global launches, split_launches
+    B, H, L, K, d = _check_cuda(q, k, v, bias, num_heads)
     variant = (0, 0, 0)  # float32 takes no variant
     if q.dtype == torch.bfloat16:
         sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -189,7 +204,8 @@ def _launch_cuda(q, k, v, bias, num_heads):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
-        shape_args = (B, L, K, E, H, K * E if k.dim() == 3 else 0)
+        shape_args = (B, L, K, q.shape[2], H,
+                      K * q.shape[2] if k.dim() == 3 else 0)
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -215,39 +231,72 @@ def _reference(q, k, v, bias, num_heads):
                                             num_heads=num_heads)
 
 
-def _forward(q, k, v, bias, num_heads):
-    if q.device.type == "cpu":
-        return _reference(q, k, v, bias, num_heads)
+@torch.library.custom_op("samt::fused_attention_packed", mutates_args=(),
+                         device_types="cpu")
+def _packed_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+    return _reference(q, k, v, bias, num_heads)
+
+
+@torch.library.custom_op("samt::fused_attention", mutates_args=(),
+                         device_types="cpu")
+def _split_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return _reference(q, k, v, bias, None).contiguous()
+
+
+@_packed_op.register_kernel("cuda")
+def _packed_cuda(q, k, v, bias, num_heads):
+    return _launch_cuda(q, k, v, bias, num_heads)
+
+
+@_split_op.register_kernel("cuda")
+def _split_cuda(q, k, v, bias):
+    return _launch_cuda(q, k, v, bias, None)
+
+
+@_packed_op.register_fake
+def _packed_fake(q, k, v, bias, num_heads):
+    _check(q, k, v, bias, num_heads)
     if q.device.type == "cuda":
-        return _launch_cuda(q, k, v, bias, num_heads)
-    raise ValueError(f"no fused attention for device {q.device}")
+        _check_cuda(q, k, v, bias, num_heads)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
-class _FusedAttention(torch.autograd.Function):
-    """Either layout: token-major when num_heads is given, else
-    head-split."""
+@_split_op.register_fake
+def _split_fake(q, k, v, bias):
+    _check_split(q, k, v, bias)
+    if q.device.type == "cuda":
+        _check_cuda(q, k, v, bias, None)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, num_heads):
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v, bias)
-        return _forward(q, k, v, bias, num_heads)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
-            out = _reference(qd, kd, vd, bias, ctx.num_heads)
-            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
-        return dq, dk, dv, None, None
+def _setup_context(ctx, inputs, output):
+    q, k, v, bias = inputs[:4]
+    ctx.num_heads = inputs[4] if len(inputs) == 5 else None
+    ctx.save_for_backward(q, k, v, bias)
+
+
+def _backward(ctx, g):
+    """The gradient of the plain version, as the JAX package's custom VJPs
+    differentiate its dense reference (there is no backward kernel)."""
+    q, k, v, bias = ctx.saved_tensors
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        out = _reference(qd, kd, vd, bias, ctx.num_heads)
+        dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+    return (dq, dk, dv, None) + ((None,) if ctx.num_heads else ())
+
+
+_packed_op.register_autograd(_backward, setup_context=_setup_context)
+_split_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_attention(q, k, v, bias: Optional[torch.Tensor] = None):
     """Softmax attention in head-split layout (see the module docstring):
     q (B, H, L, d); k, v (B, H, K, d) or a shared (1, H, K, d)."""
     _check_split(q, k, v, bias)
-    return _FusedAttention.apply(q, k, v, bias, None)
+    return torch.ops.samt.fused_attention(q, k, v, bias)
 
 
 def fused_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
@@ -255,4 +304,4 @@ def fused_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
     """Softmax attention in token-major layout (see the module docstring).
     Heads are split and merged inside the kernel."""
     _check(q, k, v, bias, num_heads)
-    return _FusedAttention.apply(q, k, v, bias, num_heads)
+    return torch.ops.samt.fused_attention_packed(q, k, v, bias, num_heads)

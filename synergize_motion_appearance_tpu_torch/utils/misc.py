@@ -2,6 +2,7 @@
 utils/misc.py:35-146)."""
 from __future__ import annotations
 
+import contextlib
 import random
 
 import numpy as np
@@ -35,3 +36,18 @@ def strict_float32(device) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+@contextlib.contextmanager
+def tf32(enable: bool):
+    """TF32 on (or off) for cuDNN convolutions and CUDA matmuls inside the
+    scope; the earlier settings come back after it."""
+    conv = torch.backends.cudnn.allow_tf32
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = enable
+    torch.backends.cuda.matmul.allow_tf32 = enable
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = conv
+        torch.backends.cuda.matmul.allow_tf32 = matmul

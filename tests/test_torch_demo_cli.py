@@ -301,7 +301,9 @@ def test_demo_main_matches_pipeline(demo_inputs, tmp_path, flags):
 
 
 def test_demo_from_export_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """``--from_export`` is ported (tests/test_torch_serving_cli.py); a
+    directory that holds no artifact raises before anything is decoded."""
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
         demo.main(["--from_export", "somewhere"])
 
 

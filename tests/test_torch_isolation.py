@@ -45,7 +45,8 @@ def test_port_has_sources():
                      "demo.py", "test.py", "animate.py", "ops/color.py",
                      "metrics/inception.py", "metrics/lpips.py",
                      "metrics/openface.py", "metrics/external.py",
-                     "metrics/pose_util.py"):
+                     "metrics/pose_util.py", "serving.py",
+                     "export_serving.py"):
         assert expected in names
     for source in ("fused_attention_packed.cu", "conv3x3.cu"):
         assert (PORT / "csrc" / source).exists()
