@@ -15,6 +15,17 @@ at the flagship 256x256 width with seeded random weights:
   frame cache of seeded image-like frames: 4 steps with checkpoints at
   steps 2 and 4, the step-2 checkpoint restored bit for bit, and a second
   run that resumes from it;
+- distributed: train.run through --launcher pytorch as a world of one
+  over NCCL (the gradient all-reduce runs; the weights after 2 steps
+  against --launcher none), two spawned ranks (NCCL on two cards, or gloo
+  with both ranks on cuda:0 when there is one card): the tiny f32 step on
+  a split batch against one process on the whole batch, and 2 flagship
+  bf16 steps whose ranks stay bit-identical (K1 and K3 per rank per
+  step, ms/step, the all-reduce's time); remat false / true / selective
+  at options/train_v5e2.yml's batch 8 (peak memory, ms/step, K3's
+  forward launches, gradients across the modes); the main path's pipeline
+  split over a mesh of the visible cards ([cuda:0, cuda:0] on one card)
+  against mesh=None;
 - the inference and evaluation entry points, at the flagship config:
   trained weights written by training.export_params and loaded by
   demo.build_and_load (frames bit-identical to the in-memory pipeline's),
@@ -933,19 +944,19 @@ def print_profile(report):
 # training phases
 # ---------------------------------------------------------------------------
 
-def train_batch(torch, size, seed, device):
-    """Seeded synthetic uint8 frames as a batch of TRAIN_BATCH (source,
+def train_batch(torch, size, seed, device, n=TRAIN_BATCH):
+    """Seeded synthetic uint8 frames as a batch of n (TRAIN_BATCH) (source,
     driving) pairs in [-1, 1], NCHW float32."""
     def to_model(u8):
         x = torch.from_numpy(u8).to(device).float() * (2.0 / 255.0) - 1.0
         return x.permute(0, 3, 1, 2).contiguous()
 
-    return {"source": to_model(frames(TRAIN_BATCH, size, seed)),
-            "driving": to_model(frames(TRAIN_BATCH, size, seed + 1))}
+    return {"source": to_model(frames(n, size, seed)),
+            "driving": to_model(frames(n, size, seed + 1))}
 
 
-def smooth_train_batch(torch, size, seed):
-    """A CPU batch of TRAIN_BATCH image-like (source, driving) pairs in
+def smooth_train_batch(torch, size, seed, n=TRAIN_BATCH):
+    """A CPU batch of n (TRAIN_BATCH) image-like (source, driving) pairs in
     [-1, 1], NCHW float32: a seeded 8x8 random field, bilinearly
     upsampled, plus a little noise. White-noise frames blur to nearly
     constant images at the keypoint detector's quarter scale, where
@@ -954,14 +965,13 @@ def smooth_train_batch(torch, size, seed):
     than compare_updates allows (3.11e-3 against 1.41e-3 on the keypoint
     detector's first conv, on an H100)."""
     rng = np.random.RandomState(seed)
-    low = torch.from_numpy(rng.uniform(-1, 1, (2 * TRAIN_BATCH, 3, 8, 8))
+    low = torch.from_numpy(rng.uniform(-1, 1, (2 * n, 3, 8, 8))
                            .astype(np.float32))
     img = torch.nn.functional.interpolate(low, size=(size, size),
                                           mode="bilinear")
     img = (img + 0.05 * torch.from_numpy(rng.randn(*img.shape)
                                          .astype(np.float32))).clamp(-1, 1)
-    return {"source": img[:TRAIN_BATCH].contiguous(),
-            "driving": img[TRAIN_BATCH:].contiguous()}
+    return {"source": img[:n].contiguous(), "driving": img[n:].contiguous()}
 
 
 def sync_trainer(src, dst):
@@ -1015,46 +1025,43 @@ GRAD_NORM_BOUND = {"g": 1e-3, "m": 3e-3, "d": 1e-3}
 
 def compare_updates(torch, before, cpu, card, lr, betas):
     """Holds the card's step against the CPU's, both from the state
-    ``before``. Gradients are recovered from the Adam first moments as
-    (mu_t - b1 mu_{t-1}) / (1 - b1), and the second moments' increments
-    (1 - b2) g^2 are held in each network's 2-norm at twice the gradient's
-    bound. Weights, BatchNorm statistics and EMA after the update agree
-    within 2 lr everywhere (Adam's first steps move an entry by about lr
-    times the sign of its gradient, so a gradient near 0 may flip), and
-    within 1e-6 on at least 99.9% of the entries whose gradient is above
-    the floor. Returns the worst relative 2-norm gradient difference."""
-    b1, b2 = betas
-    worst, grads = 0.0, {}
+    ``before``: the gradients (gradient_gaps) within GRAD_LEAF_BOUND per
+    leaf and, with the second moments' increments, within
+    GRAD_NORM_BOUND per network (assert_grad_norms), and the weights,
+    BatchNorm statistics and EMA after the update within
+    assert_updates_close's bounds. A network whose update was gated off
+    keeps its Adam moments bit for bit on both devices. Returns the worst
+    relative 2-norm gradient difference."""
     for net in ("g", "m", "d"):
         assert card[net + "_count"] == cpu[net + "_count"], net
-        mu0, nu0 = before[net + "_mu"], before[net + "_nu"]
         if cpu[net + "_count"] == before[net + "_count"]:  # gated off
-            for k in mu0:
+            for k in before[net + "_mu"]:
                 assert torch.equal(card[net + "_mu"][k], cpu[net + "_mu"][k])
                 assert torch.equal(card[net + "_nu"][k], cpu[net + "_nu"][k])
-            continue
-        g = {side: {k: (st[net + "_mu"][k] - b1 * mu0[k]) / (1 - b1)
-                    for k in mu0} for side, st in (("cpu", cpu),
-                                                   ("card", card))}
-        grads[net] = g["cpu"]
-        floor = 2e-5 * max(float(v.abs().max()) for v in g["cpu"].values())
-        for k, want in g["cpu"].items():
-            err = float((g["card"][k] - want).abs().max())
-            bound = GRAD_LEAF_BOUND[net] * float(want.abs().max()) + floor
-            assert err <= bound, (net, k, err, bound)
+    grads, gaps = gradient_gaps(before, cpu, card, betas)
+    for net, gap in gaps.items():
+        assert gap["worst_leaf_over_bound"] <= 1.0, (net, gap)
+    assert_grad_norms(gaps)
+    assert_updates_close(torch, cpu, card, grads, lr)
+    return max(gap["rel_norm"] for gap in gaps.values())
 
-        def rel_norm(a, b):
-            num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
-            den = sum(float((b[k] ** 2).sum()) for k in b)
-            return (num / max(den, 1e-30)) ** 0.5
 
-        r = rel_norm(g["card"], g["cpu"])
-        assert r <= GRAD_NORM_BOUND[net], (net, "grad", r)
-        worst = max(worst, r)
-        dnu = {side: {k: st[net + "_nu"][k] - b2 * nu0[k] for k in nu0}
-               for side, st in (("cpu", cpu), ("card", card))}
-        r = rel_norm(dnu["card"], dnu["cpu"])
-        assert r <= 2 * GRAD_NORM_BOUND[net], (net, "nu", r)
+def assert_grad_norms(gaps):
+    """Each network's gradient (from the Adam first moments) within
+    GRAD_NORM_BOUND of the reference's in relative 2-norm, and the second
+    moments' increments (1 - b2) g^2 within twice that: both carry the
+    gradient's scale, which the updates of Adam's first steps barely
+    show."""
+    for net, gap in gaps.items():
+        assert gap["rel_norm"] <= GRAD_NORM_BOUND[net], (net, "grad", gap)
+        assert gap["nu_rel_norm"] <= 2 * GRAD_NORM_BOUND[net], (net, "nu",
+                                                                 gap)
+
+
+def assert_updates_close(torch, cpu, card, grads, lr):
+    """compare_updates' bounds on the weights, BatchNorm statistics and EMA
+    after the update (``grads``: the reference's gradients by network,
+    absent where the update was gated off)."""
     for group in ("g", "m", "d", "ema"):
         want, got = cpu[group], card[group]
         assert sorted(got) == sorted(want), group
@@ -1075,7 +1082,43 @@ def compare_updates(torch, before, cpu, card, lr, betas):
                            for k in keys])
         close = (diffs[above] <= 1e-6).float().mean()
         assert float(close) >= 0.999, (group, 1 - float(close))
-    return worst
+
+
+def gradient_gaps(before, ref, other, betas):
+    """The gradients of two steps from ``before``, by network, skipping a
+    network whose update was gated off. Gradients are recovered from the
+    Adam first moments as (mu_t - b1 mu_{t-1}) / (1 - b1). Returns the
+    reference's gradients and, per network, the relative 2-norm gap of
+    the gradients and of the second moments' increments
+    nu_t - b2 nu_{t-1}, and the worst leaf's gradient gap over its bound
+    GRAD_LEAF_BOUND x the leaf's largest |gradient| + a floor of 2e-5 x
+    the network's largest."""
+    b1, b2 = betas
+
+    def rel_norm(a, b):
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+        den = sum(float((b[k] ** 2).sum()) for k in b)
+        return (num / max(den, 1e-30)) ** 0.5
+
+    grads, gaps = {}, {}
+    for net in ("g", "m", "d"):
+        mu0, nu0 = before[net + "_mu"], before[net + "_nu"]
+        if ref[net + "_count"] == before[net + "_count"]:  # gated off
+            continue
+        g = {side: {k: (st[net + "_mu"][k] - b1 * mu0[k]) / (1 - b1)
+                    for k in mu0} for side, st in (("ref", ref),
+                                                   ("other", other))}
+        dnu = {side: {k: st[net + "_nu"][k] - b2 * nu0[k] for k in nu0}
+               for side, st in (("ref", ref), ("other", other))}
+        grads[net] = g["ref"]
+        floor = 2e-5 * max(float(v.abs().max()) for v in g["ref"].values())
+        leaf = max((float((g["other"][k] - w).abs().max())
+                    / (GRAD_LEAF_BOUND[net] * float(w.abs().max()) + floor),
+                    k) for k, w in g["ref"].items())
+        gaps[net] = {"rel_norm": rel_norm(g["other"], g["ref"]),
+                     "nu_rel_norm": rel_norm(dnu["other"], dnu["ref"]),
+                     "worst_leaf_over_bound": leaf[0], "worst_leaf": leaf[1]}
+    return grads, gaps
 
 
 def tiny_train_parity(torch, configs, Trainer, sample_random_tps, k3, seed):
@@ -1440,6 +1483,603 @@ def train_cli(torch, configs, fa, k3, seed, card):
           f"{[round(x, 2) for x in report['resumed']['step_ms']]}; K1 "
           f"{per_step['k1']} and K3 {per_step['k3']} launches per step, "
           f"K2 and K4 none", flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# distributed: the data-parallel train step, remat, frame parallelism
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 2        # steps of each data-parallel run
+DP_TINY_STEPS = 3   # steps of the tiny split-batch parity (the third runs D)
+DP_GLOBAL_TINY = 4  # the tiny parity's global batch, split 2 + 2
+REMAT_BATCH = 8     # options/train_v5e2.yml's batch per card
+RANK_TIMEOUT = 420  # seconds for a spawned rank
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(rank, world, port):
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(port)}
+
+
+def state_digest(torch, tr):
+    """sha256 of every tensor of a trainer's state (weights, statistics,
+    EMA, Adam moments), in a fixed order: equal digests are equal bits."""
+    import hashlib
+
+    st = tr.state
+    h = hashlib.sha256()
+    groups = [tr.net_g.state_dict(), tr.motion_estimator.state_dict(),
+              tr.net_d.state_dict(), st.ema_g]
+    for o in (st.opt_g, st.opt_m, st.opt_d):
+        groups += [o.mu, o.nu]
+    for g in groups:
+        for k in sorted(g):
+            h.update(k.encode())
+            h.update(g[k].detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def lr_of(tr, step):
+    return max(f(step) for f in (tr.lr_g, tr.lr_m, tr.lr_d))
+
+
+def state_gap(torch, a, b):
+    """How far two runs' states (train_state-like dicts) lie apart: the
+    largest difference of the weights, statistics and EMA, and the share
+    of their entries within 1e-6."""
+    diffs = []
+    for group in ("g", "m", "d", "ema"):
+        keys = sorted(a[group])
+        assert keys == sorted(b[group]), group
+        diffs += [(a[group][k] - b[group][k]).abs().flatten() for k in keys]
+    diffs = torch.cat(diffs)
+    for net in ("g", "m", "d"):
+        assert a[net + "_count"] == b[net + "_count"], net
+    return float(diffs.max()), float((diffs <= 1e-6).float().mean())
+
+
+def dp_rank(rank, world, port, backend, work, seed):
+    """One rank of the two-rank phase (spawned): (a) the tiny f32 step on
+    its half of a global batch of DP_GLOBAL_TINY, from each of the
+    one-process run's saved states; (b) DP_STEPS flagship bf16 steps on
+    its half of a global batch of TRAIN_BATCH, with the kernel counts, the
+    step's time and the state's digest after each step, then the time of
+    the gradients' all-reduce alone. Writes <work>/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from synergize_motion_appearance_tpu_torch import configs
+    from synergize_motion_appearance_tpu_torch.ops import conv3x3 as k3
+    from synergize_motion_appearance_tpu_torch.ops import fused_attention as fa
+    from synergize_motion_appearance_tpu_torch.parallel import (
+        all_reduce_mean, init_distributed, mesh, shard_batch,
+    )
+    from synergize_motion_appearance_tpu_torch.training import (
+        Trainer, restore_checkpoint, step_generator,
+    )
+
+    device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    torch.cuda.set_device(device)
+    init_distributed("pytorch", backend=backend, device=device,
+                     environ=rank_env(rank, world, port))
+    out = {"device": device, "tiny": [], "flagship": []}
+    cfg = configs.get("tiny_train")
+    cfg["train"]["net_d_start_iter"] = 1
+    tr = Trainer(cfg, device=device, seed=seed + 1)  # other weights
+    batch = shard_batch({k: v.to(device) for k, v in smooth_train_batch(
+        torch, 64, seed + 60, n=DP_GLOBAL_TINY).items()})
+    for i in range(DP_TINY_STEPS):
+        restore_checkpoint(os.path.join(work, "states", f"iter_{i}"), tr)
+        tr.broadcast_state()
+        logs = tr.train_step(batch, generator=step_generator(seed, i,
+                                                             device))
+        out["tiny"].append({"logs": {k: float(v) for k, v in logs.items()},
+                            "state": train_state(tr)})
+    del tr
+
+    cfg = configs.get("flagship_train")
+    cfg["train"]["net_d_start_iter"] = 0  # D and the probe from step 2
+    tr = Trainer(cfg, device=device, seed=seed)
+    batch = shard_batch(train_batch(torch, 256, seed + 40, device))
+    for i in range(DP_STEPS):
+        fa.reset_launches()
+        k3.reset_launches()
+        mesh.reset_collectives()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = tr.train_step(batch, generator=step_generator(seed, i,
+                                                             device))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        out["flagship"].append({
+            "ms": ms, "k1_launches": fa.launches, "k3_launches": k3.launches,
+            "collectives": mesh.collectives,
+            "collective_bytes": mesh.collective_bytes,
+            "logs": {k: float(v) for k, v in logs.items()},
+            "digest": state_digest(torch, tr)})
+    grads = [{k: torch.randn_like(p) for k, p in named} for named in (
+        list(tr.net_g.named_parameters())
+        + list(tr.motion_estimator.named_parameters()),
+        list(tr.net_d.named_parameters()))]
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in grads:
+            all_reduce_mean(g)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    out["all_reduce_ms"] = times
+    out["all_reduce_bytes"] = sum(v.numel() * 4 for g in grads
+                                  for v in g.values())
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def run_ranks(fn, world, args, timeout):
+    """fn(rank, world, *args) in `world` spawned processes; raises if one
+    fails or is still running after `timeout` s (then it is killed)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(r, world) + tuple(args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    for p in procs:
+        p.join(max(deadline - time.time(), 0))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    assert not hung, f"{len(hung)} rank(s) still running after {timeout} s"
+    codes = [p.exitcode for p in procs]
+    assert not any(codes), f"ranks exited with {codes}"
+
+
+def dp_world1(torch, configs, fa, k3, seed, card):
+    """train.run at FLAGSHIP_TRAIN (net_d_start_iter 0) over a native frame
+    cache (one loader thread, so the batches are fixed by the seed) for
+    DP_STEPS steps through --launcher pytorch with RANK=0, WORLD_SIZE=1
+    over NCCL, then twice through --launcher none: the gradient all-reduce
+    runs in the first. Its step-DP_STEPS checkpoint lies no further from
+    the plain run's than the plain run lies from itself: largest
+    difference at most 3 times, share of entries within 1e-6 at most 0.05
+    lower."""
+    from synergize_motion_appearance_tpu_torch import train, training
+    from synergize_motion_appearance_tpu_torch.data import native_loader
+    from synergize_motion_appearance_tpu_torch.parallel import mesh
+    from synergize_motion_appearance_tpu_torch.utils.options import (
+        derive_paths,
+    )
+
+    work = os.path.join(ROOT, "build", "chip_smoke_dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cache = os.path.join(work, "frames.fc")
+    write_frame_cache(torch, native_loader, cache, seed + 50)
+    per_step = []
+
+    class Counting(training.Trainer):
+        def train_step(self, *args, **kwargs):
+            mesh.reset_collectives()
+            logs = super().train_step(*args, **kwargs)
+            per_step.append((mesh.collectives, mesh.collective_bytes))
+            return logs
+
+    def options(name):
+        opt = configs.get("flagship_train")
+        opt.update(name=name, manual_seed=seed)
+        opt["train"].update(net_d_start_iter=0, total_iter=DP_STEPS)
+        opt["datasets"]["train"].update(
+            name="seeded image-like frames", native_cache=cache,
+            num_worker_per_gpu=1, dataset_enlarge_ratio=1)
+        opt["logger"] = {"print_freq": 1, "save_checkpoint_freq": DP_STEPS,
+                         "use_tb_logger": False}
+        opt["path"] = {"save_path": work}
+        return derive_paths(opt)
+
+    report, states = {}, {}
+    real_trainer = training.Trainer
+    saved_env = {k: os.environ.get(k) for k in rank_env(0, 1, 0)}
+    training.Trainer = Counting
+    try:
+        for name, launcher in (("pytorch", "pytorch"), ("none", "none"),
+                               ("none_again", "none")):
+            per_step.clear()
+            os.environ.update(rank_env(0, 1, free_port()))
+            opt = options(f"dp-{name}")
+            fa.reset_launches()
+            k3.reset_launches()
+            t0 = time.perf_counter()
+            records = train.run(opt, device="cuda", launcher=launcher)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for r in records:
+                for k, v in r.items():
+                    if isinstance(v, float):
+                        assert math.isfinite(v), (name, r["iter"], k, v)
+            path = os.path.join(opt["path"]["training_states"],
+                                f"iter_{DP_STEPS}")
+            states[name] = torch.load(path, map_location="cpu",
+                                      weights_only=True)
+            report[name] = {
+                "wall_s": wall, "k1_launches": fa.launches,
+                "k3_launches": k3.launches, "collectives": list(per_step),
+                "step_ms": [1e3 * r["time"] for r in records],
+                "logs": [{k: v for k, v in r.items()
+                          if k not in ("time", "data_time")}
+                         for r in records]}
+    finally:
+        training.Trainer = real_trainer
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(work)
+    g_cfg = configs.get("flagship_train")["network_g"]
+    k1_per, k3_per = (k1_per_train_step(g_cfg),
+                      2 * sum(k3_forward_convs(g_cfg).values()))
+    for name in ("pytorch", "none", "none_again"):
+        assert report[name]["k1_launches"] == DP_STEPS * k1_per, report
+        assert report[name]["k3_launches"] == DP_STEPS * k3_per, report
+    colls = report["pytorch"]["collectives"]
+    assert all(n > 0 for n, _ in colls), "no gradient all-reduce ran"
+    assert all(n == 0 for n, _ in report["none"]["collectives"])
+    # the first step's logs come before any update: the same batch and
+    # weights give the same values
+    assert report["pytorch"]["logs"][0] == report["none"]["logs"][0], (
+        "world 1 and --launcher none started from other batches or weights")
+
+    def flat(ckpt):
+        out = {"g": ckpt["net_g"], "m": ckpt["motion_estimator"],
+               "d": ckpt["net_d"], "ema": ckpt["ema_g"]}
+        for n in ("g", "m", "d"):
+            out[n + "_count"] = ckpt["opt_" + n]["count"]
+        return {k: ({n: t.float() for n, t in v.items()}
+                    if isinstance(v, dict) else v) for k, v in out.items()}
+
+    # The bf16 step is not deterministic on the card (grid_sampler_2d's
+    # backward adds with atomics; Adam's first steps turn a gradient's
+    # rounding residue into a step of lr either way), so world 1 is held
+    # against --launcher none by how far --launcher none lies from itself.
+    worst, close = state_gap(torch, flat(states["pytorch"]),
+                             flat(states["none"]))
+    noise_worst, noise_close = state_gap(torch, flat(states["none_again"]),
+                                         flat(states["none"]))
+    report.update(bit_identical=(worst == 0.0), worst_abs_diff=worst,
+                  share_within_1e6=close, repeat_worst_abs_diff=noise_worst,
+                  repeat_share_within_1e6=noise_close,
+                  collectives_per_step=[n for n, _ in colls],
+                  collective_bytes_per_step=[b for _, b in colls],
+                  k1_per_step=k1_per, k3_per_step=k3_per)
+    print(f"distributed: train.run --launcher pytorch, world size 1 over "
+          f"NCCL, flagship_train bf16 batch {TRAIN_BATCH} on {card}: "
+          f"{DP_STEPS} steps, ms/step "
+          f"{[round(x, 2) for x in report['pytorch']['step_ms']]} (plain "
+          f"--launcher none {[round(x, 2) for x in report['none']['step_ms']]}"
+          f"); collectives per step {report['collectives_per_step']} "
+          f"carrying {report['collective_bytes_per_step']} bytes; K1 "
+          f"{k1_per} and K3 {k3_per} launches per step; first step's logs "
+          f"identical; weights after {DP_STEPS} steps against --launcher "
+          f"none: largest difference {worst:.3e}, share within 1e-6 "
+          f"{close:.6f} (--launcher none against itself: {noise_worst:.3e}, "
+          f"{noise_close:.6f})", flush=True)
+    assert worst <= 3 * noise_worst and close >= noise_close - 0.05, (
+        "world 1 lies further from --launcher none than it from itself")
+    return report
+
+
+def dp_two_ranks(torch, configs, Trainer, fa, k3, seed, card):
+    """Two ranks, spawned: over NCCL on cuda:0 and cuda:1 when there are two
+    cards, else both on cuda:0 over gloo (NCCL refuses two ranks on one
+    device). (a) against one process on the whole batch on the card, each
+    step from its state: the logs within 1e-4 relative + 1e-6, each
+    network's gradient and second-moment increment within
+    assert_grad_norms' bounds, and the weights, statistics and EMA after
+    the update within the CPU test's bounds (assert_updates_close); the
+    worst leaf's gradient gap is printed, not held: on the card it moves
+    from run to run, and once passed compare_updates' per-leaf bound (1.8
+    times, on G's first conv) with the network's norm and the update
+    within their bounds; (b) the ranks' states bit-identical after each
+    flagship step, K1 and K3 per step on each rank."""
+    from synergize_motion_appearance_tpu_torch.training import (
+        save_checkpoint, step_generator,
+    )
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    where = ("NCCL on cuda:0 and cuda:1" if backend == "nccl"
+             else "gloo, both ranks on cuda:0 (one card)")
+    work = os.path.join(ROOT, "build", "chip_smoke_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = configs.get("tiny_train")
+    cfg["train"]["net_d_start_iter"] = 1
+    ref = Trainer(cfg, device="cuda", seed=seed)
+    batch = {k: v.cuda() for k, v in smooth_train_batch(
+        torch, 64, seed + 60, n=DP_GLOBAL_TINY).items()}
+    before, after, logs, lrs = [], [], [], []
+    for i in range(DP_TINY_STEPS):
+        save_checkpoint(os.path.join(work, "states"), ref)
+        before.append(train_state(ref))
+        lrs.append(lr_of(ref, i))
+        logs.append({k: float(v) for k, v in ref.train_step(
+            batch, generator=step_generator(seed, i, "cuda")).items()})
+        after.append(train_state(ref))
+    del ref
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(dp_rank, 2, (free_port(), backend, work, seed), RANK_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    shutil.rmtree(work)
+    betas = [float(b) for b in cfg["train"]["optim_g"]["betas"]]
+    worst_log, gaps = 0.0, []
+    for i in range(DP_TINY_STEPS):
+        got = ranks[0]["tiny"][i]
+        grads, step_gaps = gradient_gaps(before[i], after[i], got["state"],
+                                         betas)
+        gaps.append(step_gaps)
+        print(f"  two ranks, tiny step {i + 1}: gradients against one "
+              f"process, by network: {step_gaps}", flush=True)
+        assert_grad_norms(step_gaps)
+        for k, v in logs[i].items():
+            err = abs(got["logs"][k] - v)
+            worst_log = max(worst_log, err / (abs(v) + 1e-6))
+            assert err <= 1e-4 * abs(v) + 1e-6, (i, k, got["logs"][k], v)
+        assert (got["logs"]["d_weight"] > 0) == (i == 2), got["logs"]
+        for net in ("g", "m", "d"):
+            assert got["state"][net + "_count"] == after[i][net + "_count"]
+        assert_updates_close(torch, after[i], got["state"], grads, lrs[i])
+        for group, tensors in got["state"].items():
+            other = ranks[1]["tiny"][i]["state"][group]
+            if isinstance(tensors, dict):
+                assert all(torch.equal(v, other[k])
+                           for k, v in tensors.items()), (i, group)
+    g_cfg = configs.get("flagship_train")["network_g"]
+    k1_per, k3_per = (k1_per_train_step(g_cfg),
+                      2 * sum(k3_forward_convs(g_cfg).values()))
+    for i in range(DP_STEPS):
+        a, b = (r["flagship"][i] for r in ranks)
+        assert a["digest"] == b["digest"], f"ranks part at step {i + 1}"
+        assert a["logs"] == b["logs"], i
+        for r in (a, b):
+            assert r["k1_launches"] == k1_per, r
+            assert r["k3_launches"] == k3_per, r
+            for k, v in r["logs"].items():
+                assert math.isfinite(v), (i, k, v)
+            assert r["logs"]["step_skipped_nonfinite"] == 0.0
+        assert (a["logs"]["d_weight"] > 0) == (i >= 1), a["logs"]
+    report = {
+        "backend": backend, "where": where, "spawn_and_run_s": ranks_s,
+        "tiny_worst_log_rel_diff": worst_log, "tiny_gradient_gaps": gaps,
+        "k1_launches": ranks[0]["flagship"][-1]["k1_launches"],
+        "k3_launches": ranks[0]["flagship"][-1]["k3_launches"],
+        "ranks": [{"device": r["device"],
+                   "step_ms": [s["ms"] for s in r["flagship"]],
+                   "collectives": [s["collectives"] for s in r["flagship"]],
+                   "collective_bytes": [s["collective_bytes"]
+                                        for s in r["flagship"]],
+                   "digests": [s["digest"] for s in r["flagship"]],
+                   "all_reduce_ms": r["all_reduce_ms"],
+                   "all_reduce_bytes": r["all_reduce_bytes"]}
+                  for r in ranks]}
+    ranks = report["ranks"]
+    label = "gloo, one card" if backend == "gloo" else "NCCL, two cards"
+    print(f"distributed: two ranks, {where}: (a) tiny f32, global batch "
+          f"{DP_GLOBAL_TINY} split 2 + 2, {DP_TINY_STEPS} steps against one "
+          f"process on the whole batch on the card, each from its state: "
+          f"logs worst {worst_log:.3e} relative, gradients and second "
+          f"moments' increments worst relative 2-norm "
+          f"{max(g['rel_norm'] for st in gaps for g in st.values()):.3e} "
+          f"and "
+          f"{max(g['nu_rel_norm'] for st in gaps for g in st.values()):.3e}"
+          f" (within their bounds), weights, statistics and EMA within the "
+          f"CPU test's bounds, ranks bit-identical; (b) flagship_train "
+          f"bf16, global batch {TRAIN_BATCH} split 1 + 1, {DP_STEPS} steps "
+          f"on {card}: ranks bit-identical after every step (sha256 of the "
+          f"state), K1 {report['k1_launches']} and K3 "
+          f"{report['k3_launches']} launches per step on each rank; "
+          f"ms/step ({label}) "
+          f"{[[round(x, 2) for x in r['step_ms']] for r in report['ranks']]}"
+          f"; all-reduce of the G+M and D gradients alone "
+          f"({report['ranks'][0]['all_reduce_bytes']} bytes, {label}) "
+          f"{[round(float(np.median(r['all_reduce_ms'])), 2) for r in ranks]}"
+          f" ms", flush=True)
+    return report
+
+
+def remat_modes(torch, configs, Trainer, k3, seed, card):
+    """options/train_v5e2.yml's recipe on one card: FLAGSHIP_TRAIN's
+    networks, batch REMAT_BATCH, bf16, with remat false, true and
+    selective: one step each from the same seeded state, then one more,
+    timed; peak memory of each step (max_memory_allocated, and above what
+    was allocated before it) and K3's forward and input-gradient
+    launches. The first step's gradients (from the Adam first moments)
+    are held across the modes against how far a second run of remat
+    false lies from the first (the bf16 step is not deterministic on the
+    card): remat changes no op, so a mode may lie at most 3 times that
+    (plus 1e-4) from false, relative 2-norm per network."""
+    batch = train_batch(torch, 256, seed + 70, "cuda", n=REMAT_BATCH)
+    report, mus = {}, {}
+    for mode in (False, True, "selective", "false again"):
+        cfg = configs.get("flagship_train")
+        cfg["train"]["remat"] = False if mode == "false again" else mode
+        cfg["datasets"]["train"]["batch_size_per_gpu"] = REMAT_BATCH
+        tr = Trainer(cfg, device="cuda", seed=seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 71)
+        row = {"steps": []}
+        for i in range(1 if mode == "false again" else 2):
+            k3.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            logs = tr.train_step(batch, generator=gen)
+            torch.cuda.synchronize()
+            row["steps"].append({
+                "ms": 1e3 * (time.perf_counter() - t0),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "peak_above_base_bytes":
+                    torch.cuda.max_memory_allocated() - base,
+                "k3_forward": k3.launches - k3.input_grad_launches,
+                "k3_input_grad": k3.input_grad_launches})
+            for k, v in logs.items():
+                assert math.isfinite(float(v)), (mode, i, k)
+            if i == 0:
+                st = tr.state
+                mus[mode] = {n: {k: v.float().cpu() for k, v in
+                                 getattr(st, "opt_" + n).mu.items()}
+                             for n in ("g", "m")}
+        report[str(mode)] = row
+        del tr
+        torch.cuda.empty_cache()
+    def rel(a, b):
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+        den = sum(float((b[k] ** 2).sum()) for k in b)
+        return (num / max(den, 1e-30)) ** 0.5
+
+    worst = {}
+    for n in ("g", "m"):
+        worst[f"false again/{n}"] = rel(mus["false again"][n], mus[False][n])
+        for mode in (True, "selective"):
+            worst[f"{mode}/{n}"] = rel(mus[mode][n], mus[False][n])
+    f, t, s = (report[m]["steps"] for m in ("False", "True", "selective"))
+    report.update(batch=REMAT_BATCH, grad_rel_norm_diff=worst,
+                  config="flagship_train networks, options/train_v5e2.yml "
+                         "batch 8, bf16, D off (net_d_start_iter 5001)")
+    print(f"distributed: remat at train_v5e2.yml's recipe (flagship, batch "
+          f"{REMAT_BATCH}, bf16) on {card}, second step of each mode: "
+          + "; ".join(
+              f"{m}: {report[m]['steps'][1]['ms']:.2f} ms/step, peak "
+              f"{st['peak_bytes'] / 2 ** 30:.2f} GiB "
+              f"({st['peak_above_base_bytes'] / 2 ** 30:.2f} above the "
+              f"resident state), K3 forward {st['k3_forward']} + input "
+              f"gradient {st['k3_input_grad']} launches"
+              for m, st in (("False", f[1]), ("True", t[1]),
+                            ("selective", s[1])))
+          + f"; gradients across modes, relative 2-norm: "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }",
+          flush=True)
+    fwd = f[1]["k3_forward"]
+    assert f[1]["k3_input_grad"] == fwd > 0, f
+    assert t[1]["k3_forward"] == 2 * fwd, t
+    assert s[1]["k3_forward"] == fwd, s
+    assert s[1]["k3_input_grad"] == t[1]["k3_input_grad"] == fwd
+    assert s[1]["peak_bytes"] < f[1]["peak_bytes"], (s, f)
+    for n in ("g", "m"):
+        noise = worst[f"false again/{n}"]
+        for mode in (True, "selective"):
+            assert worst[f"{mode}/{n}"] <= 3 * noise + 1e-4, (mode, n, worst)
+    return report
+
+
+def frame_parallel(torch, configs, ReenactmentPipeline, seeded_nets, fa,
+                   seed, card):
+    """The main path's pipeline (flagship, uint8, FRAMES frames, frame batch
+    FRAME_BATCH) with a mesh over every visible card, or [cuda:0, cuda:0]
+    on one card so that the split and the gather run, against mesh=None.
+    The split halves the generator's batch per call, and in bf16 the
+    pipeline's frames depend on that batch through cuDNN's choice of
+    algorithm (random weights amplify bf16 rounding), as the one-device
+    pipeline's own frames do when its frame batch changes. So: in float32
+    the mesh's frames are within 1 level of mesh=None's; in bf16 (timed,
+    frames/s and K1 per frame batch) they lie no further from mesh=None's
+    than the one-device pipeline at frame batch FRAME_BATCH / 2 lies from
+    it at FRAME_BATCH (max, and 1.5 x the mean + 0.05)."""
+    from synergize_motion_appearance_tpu_torch.parallel import create_mesh
+
+    devices = create_mesh()
+    if len(devices) == 1:
+        devices = devices * 2
+    cfg = configs.get("flagship_256")
+    src = frames(1, 256, seed + 20)
+    drv = frames(FRAMES, 256, seed + 21)
+    n_batches = math.ceil(FRAMES / FRAME_BATCH)
+    report = {"mesh_devices": [str(d) for d in devices]}
+    outs = {}
+    runs = (("one", None, torch.bfloat16, FRAME_BATCH),
+            ("mesh", devices, torch.bfloat16, FRAME_BATCH),
+            ("one_half_batch", None, torch.bfloat16, FRAME_BATCH // 2),
+            ("one_f32", None, torch.float32, FRAME_BATCH),
+            ("mesh_f32", devices, torch.float32, FRAME_BATCH))
+    for name, m, dtype, fb in runs:
+        g, me = seeded_nets(cfg, seed)
+        kw = dict(pipeline_kw(torch), compute_dtype=dtype, frame_batch=fb)
+        pipe = ReenactmentPipeline(g, me, mesh=m, **kw)
+        pipe.animate(src, drv[:fb])  # first-call set-up
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = pipe.animate(src, drv).astype(np.int32)
+        s = time.perf_counter() - t0
+        report[name] = {"frames_per_s": FRAMES / s, "frame_batch": fb,
+                        "k1_per_frame_batch": fa.launches * fb / FRAMES}
+        del pipe, g, me
+        torch.cuda.empty_cache()
+    def gap(a, b):
+        d = np.abs(outs[a] - outs[b])
+        return int(d.max()), float(d.mean())
+
+    report["gap_mesh"] = gap("mesh", "one")
+    report["gap_half_batch"] = gap("one_half_batch", "one")
+    report["gap_mesh_f32"] = gap("mesh_f32", "one_f32")
+    print(f"distributed: frame-parallel pipeline over "
+          f"{report['mesh_devices']} on {card}: {FRAMES} frames, frame batch "
+          f"{FRAME_BATCH} split {len(devices)} ways, bf16: "
+          f"{report['mesh']['frames_per_s']:.2f} frames/s (mesh=None "
+          f"{report['one']['frames_per_s']:.2f}); K1 "
+          f"{report['mesh']['k1_per_frame_batch']:.0f} launches per frame "
+          f"batch; frames against mesh=None (max, mean levels): bf16 "
+          f"{report['gap_mesh']} (mesh=None at frame batch "
+          f"{FRAME_BATCH // 2} against {FRAME_BATCH}: "
+          f"{report['gap_half_batch']}), f32 {report['gap_mesh_f32']}",
+          flush=True)
+    assert outs["mesh"].shape == (FRAMES, 256, 256, 3)
+    assert report["gap_mesh_f32"][0] <= 1, report["gap_mesh_f32"]
+    assert report["gap_mesh"][0] <= max(report["gap_half_batch"][0], 1), (
+        report["gap_mesh"], report["gap_half_batch"])
+    assert report["gap_mesh"][1] <= 1.5 * report["gap_half_batch"][1] + 0.05
+    assert report["mesh"]["k1_per_frame_batch"] == 32 * len(devices), report
+    assert report["one"]["k1_per_frame_batch"] == 32, report
+    return report
+
+
+def distributed(torch, configs, Trainer, ReenactmentPipeline, seeded_nets,
+                fa, k3, seed, card):
+    """The distributed phase: world size 1 over NCCL through train.run,
+    two ranks, remat, frame parallelism."""
+    t0 = time.perf_counter()
+    report = {"world1": dp_world1(torch, configs, fa, k3, seed, card)}
+    torch.cuda.empty_cache()
+    report["two_ranks"] = dp_two_ranks(torch, configs, Trainer, fa, k3, seed,
+                                       card)
+    torch.cuda.empty_cache()
+    report["remat"] = remat_modes(torch, configs, Trainer, k3, seed, card)
+    torch.cuda.empty_cache()
+    report["frame_parallel"] = frame_parallel(
+        torch, configs, ReenactmentPipeline, seeded_nets, fa, seed, card)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"distributed: phase wall time {report['seconds']:.1f} s",
+          flush=True)
     return report
 
 
@@ -2116,6 +2756,10 @@ def main():
     torch.cuda.empty_cache()
     report["train_cli"] = train_cli(torch, configs, fa, k3, args.seed, card)
     torch.cuda.empty_cache()
+    report["distributed"] = distributed(
+        torch, configs, Trainer, ReenactmentPipeline, seeded_nets, fa, k3,
+        args.seed, card)
+    torch.cuda.empty_cache()
     report["entry_points"] = entry_points(
         torch, configs, ReenactmentPipeline, seeded_nets, fa, args.seed, card)
     torch.cuda.empty_cache()
@@ -2124,6 +2768,7 @@ def main():
 
     cli = report["train_cli"]["fresh"]["launches"]
     k3_per_step = report["train_path"]["k3_launches_per_step"]
+    dp = report["distributed"]
     kernels = [
         kernel_entry(
             "fused_attention_packed", "fused_attention_packed.cu",
@@ -2150,7 +2795,10 @@ def main():
                 "k1_launches"],
             launches_test_run=report["entry_points"]["test_run"][
                 "k1_launches"],
-            launches_served_path=report["serving"]["k1_launches"]),
+            launches_served_path=report["serving"]["k1_launches"],
+            launches_dp_train=dp["two_ranks"]["k1_launches"],
+            launches_frame_parallel=dp["frame_parallel"]["mesh"][
+                "k1_per_frame_batch"]),
         kernel_entry(
             "fused_attention (head-split)", "fused_attention_packed.cu",
             "fused_attention.py:56", report["k2_cases"],
@@ -2174,7 +2822,11 @@ def main():
             f"shapes are checked, not summed); device_ms is the profiler's "
             f"device time of the same calls, without the host's share of "
             f"each call that ms holds, library_device_ms the library's",
-            launches_train_cli=cli["k3"]),
+            launches_train_cli=cli["k3"],
+            launches_dp_train=dp["two_ranks"]["k3_launches"],
+            launches_note="launches_dp_train is per rank per step of the "
+                          "two-rank data-parallel step; K3 is the op "
+                          "samt::conv3x3"),
         kernel_entry(
             "conv3x3_nhwc", "conv3x3.cu", "pallas_conv.py:39",
             report["k4_cases"], "k3_launches_per_step",

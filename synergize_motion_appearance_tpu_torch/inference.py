@@ -1,6 +1,7 @@
 """Reenactment inference: keypoints, relative motion, dense motion and the
-generator, in frame batches on one device; the anchor-split animation of
-the demo and of animate.py, and the choice of that anchor.
+generator, in frame batches on one device or split across several; the
+anchor-split animation of the demo and of animate.py, and the choice of
+that anchor.
 
 Counterpart of the JAX package's inference.py (``normalize_kp_jnp``,
 ``ReenactmentPipeline``, ``find_best_frame*``,
@@ -24,6 +25,7 @@ from .models.dense_motion import inv2x2
 from .ops import convex_hull_area
 from .ops.color import rgb_to_yuv420
 from .ops.coords import antialias_downsample_host, blur_stride_u8
+from .parallel import create_mesh
 from .utils.img_util import _cv2
 from .utils.misc import strict_float32, tf32
 
@@ -77,6 +79,17 @@ def _apply(bound: _Bound, weights: Dict[str, torch.Tensor], *args,
         bound, {f"net.{k}": v for k, v in weights.items()}, args, kwargs)
 
 
+def _moved(tree, device):
+    """Every tensor of a nested dict / list / tuple on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_moved(v, device) for v in tree)
+    return tree
+
+
 def net_weights(net: nn.Module) -> Dict[str, torch.Tensor]:
     """A network's parameters and buffers by name: what a stage takes as
     its weights."""
@@ -106,18 +119,33 @@ class ReenactmentPipeline:
     back to RGB on the host with OpenCV, which it needs;
     ``host_kp_downsample`` blurs and strides the frames to the keypoint
     detector's resolution on the host (OpenCV for uint8 frames, numpy for
-    float ones) and sends those, in bfloat16."""
+    float ones) and sends those, in bfloat16.
+
+    Frame parallelism (the JAX pipeline's ``mesh``): with ``mesh``, a list
+    of devices (``parallel.create_mesh``; a device may repeat; without it,
+    ``[device]``), the pipeline runs on the mesh's first device, the
+    weights are copied once to each other device, and each padded frame
+    batch's generation (``_gen_impl``) is split evenly across the devices,
+    each running its chunk, with the frames gathered on the first device.
+    The frames are independent given the source's keypoints, so the
+    result is the one device's. ``frame_batch`` must divide by the mesh's
+    length."""
 
     def __init__(self, net_g, motion_estimator, relative: bool = False,
                  adapt_scale: bool = False, frame_batch: int = 8,
                  w: float = 1.0,
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16,
                  u8_io: bool = False, host_kp_downsample: bool = False,
-                 yuv420_io: bool = False, device="cuda"):
+                 yuv420_io: bool = False, device="cuda", mesh=None):
+        self.mesh = ([torch.device(device)] if mesh is None
+                     else create_mesh(mesh))
+        if frame_batch % len(self.mesh):
+            raise ValueError(f"frame_batch {frame_batch} does not split "
+                             f"evenly across {len(self.mesh)} devices")
         self.compute_dtype = compute_dtype or torch.float32
-        self.device = (strict_float32(device)
-                       if self.compute_dtype == torch.float32
-                       else torch.device(device))
+        self.device = self.mesh[0]
+        if self.compute_dtype == torch.float32:
+            strict_float32(self.device)
         self.net_g = net_g.to(self.device, self.compute_dtype).eval()
         self.motion_estimator = motion_estimator.to(
             self.device, self.compute_dtype).eval()
@@ -133,6 +161,11 @@ class ReenactmentPipeline:
         self.img_size = self.net_g.img_size
         self.g_weights = net_weights(self.net_g)
         self.m_weights = net_weights(self.motion_estimator)
+        self._replicas = {self.device: (self.g_weights, self.m_weights)}
+        for d in self.mesh:
+            if d not in self._replicas:
+                self._replicas[d] = (_moved(self.g_weights, d),
+                                     _moved(self.m_weights, d))
         me = self.motion_estimator
         self._kp_net = _Bound(me, "estimate_kp")
         self._motion_net = _Bound(me, "estimate_motion_w_kp")
@@ -198,9 +231,17 @@ class ReenactmentPipeline:
         return self._enc_impl(self.g_weights, self._to_device(source))
 
     def _gen_fn(self, source, src_feats, kp_source, kp_driving, kp_initial):
-        return self._gen_impl(self.g_weights, self.m_weights,
-                              self._to_device(source), src_feats, kp_source,
-                              kp_driving, kp_initial)
+        source = self._to_device(source)
+        c = kp_driving["value"].shape[0] // len(self.mesh)
+        outs = []
+        for i, d in enumerate(self.mesh):  # queued on every device first
+            g_w, m_w = self._replicas[d]
+            chunk = {k: v[i * c:(i + 1) * c].to(d)
+                     for k, v in kp_driving.items()}
+            outs.append(self._gen_impl(
+                g_w, m_w, *_moved((source, src_feats, kp_source), d), chunk,
+                _moved(kp_initial, d)))
+        return torch.cat([o.to(self.device) for o in outs])
 
     # -------------------- host orchestration --------------------
 

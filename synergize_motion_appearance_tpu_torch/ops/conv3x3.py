@@ -7,10 +7,13 @@ port's NCHW layout: x (B, C, H, W), w (Cout, C, 3, 3) as ``nn.Conv2d``
 holds it, optional bias (Cout,). Returns (B, Cout, H, W) in x's dtype,
 accumulated in float32 (float64 for float64 inputs, as the JAX package).
 
-On a CUDA tensor the call launches the hand-written kernel
-``csrc/conv3x3.cu`` or raises; on a CPU tensor it runs
-``conv3x3_reference``, the plain PyTorch version, which the tests hold
-against the JAX package and the on-card check holds the kernel against.
+``conv3x3`` is the ``torch.library`` custom op ``samt::conv3x3``. On a CUDA
+tensor it launches the hand-written kernel ``csrc/conv3x3.cu`` or raises;
+on a CPU tensor it runs ``conv3x3_reference``, the plain PyTorch version,
+which the tests hold against the JAX package and the on-card check holds
+the kernel against. Its fake implementation gives the output's shape to
+tracing, and a checkpoint policy can name it (``training.trainer``'s
+selective remat saves its outputs).
 The gradient is laid out like ``conv3x3_wl_ad``'s custom VJP: the input
 gradient is the same kernel on dy with the weights rotated 180 degrees and
 their channels swapped, the weight gradient 9 shifted float32 contractions,
@@ -41,16 +44,18 @@ import torch.nn.functional as F
 from . import cuda_build
 
 # Kernel launches made by `conv3x3` (forward and input gradient) since the
-# last reset, and how many of them ran at each
-# (B, C, Cout, H, W, dtype name); and those made by `conv3x3_nhwc`.
+# last reset, how many of them were input gradients, and how many ran at
+# each (B, C, Cout, H, W, dtype name); and those made by `conv3x3_nhwc`.
 launches = 0
+input_grad_launches = 0
 launch_shapes: Counter = Counter()
 nhwc_launches = 0
 
 
 def reset_launches() -> None:
-    global launches, nhwc_launches
+    global launches, input_grad_launches, nhwc_launches
     launches = 0
+    input_grad_launches = 0
     nhwc_launches = 0
     launch_shapes.clear()
 
@@ -171,7 +176,7 @@ def _check(x, w, b):
 def _launch_cuda(x, w, b, flip=False):
     """flip: w is (C, Cout, 3, 3), the weights of the conv whose input
     gradient this is; the kernel rotates and channel-swaps them."""
-    global launches
+    global launches, input_grad_launches
     B, C, H, W = x.shape
     Cout = w.shape[1] if flip else w.shape[0]
     tensors = [x, w] + ([b] if b is not None else [])
@@ -195,17 +200,9 @@ def _launch_cuda(x, w, b, flip=False):
         raise RuntimeError(f"conv3x3 kernel launch failed with CUDA error "
                            f"{err}")
     launches += 1
+    input_grad_launches += int(flip)
     launch_shapes[(B, C, Cout, H, W, str(x.dtype).split(".")[1])] += 1
     return y
-
-
-def _forward(x, w, b):
-    if x.device.type == "cpu":
-        return conv3x3_reference(x, w, b)
-    if x.device.type == "cuda":
-        return _launch_cuda(x.contiguous(), w.contiguous(),
-                            None if b is None else b.contiguous())
-    raise ValueError(f"no conv3x3 for device {x.device}")
 
 
 def flipped_weights(w):
@@ -243,30 +240,53 @@ def weight_grad(x, dy):
     return dw.to(x.dtype)
 
 
-class _Conv3x3(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        ctx.has_bias = b is not None
-        return _forward(x, w, b)
+@torch.library.custom_op("samt::conv3x3", mutates_args=(),
+                         device_types="cpu")
+def _conv_op(x: torch.Tensor, w: torch.Tensor,
+             b: Optional[torch.Tensor]) -> torch.Tensor:
+    return conv3x3_reference(x, w, b)
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = conv3x3_input_grad(dy, w)
-        if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, dy).to(w.dtype)
-        if ctx.has_bias and ctx.needs_input_grad[2]:
-            db = dy.to(_acc_dtype(dy)).sum(dim=(0, 2, 3)).to(dy.dtype)
-        return dx, dw, db
+
+@_conv_op.register_kernel("cuda")
+def _conv_cuda(x, w, b):
+    return _launch_cuda(x.contiguous(), w.contiguous(),
+                        None if b is None else b.contiguous())
+
+
+@_conv_op.register_fake
+def _conv_fake(x, w, b):
+    _check(x, w, b)
+    return x.new_empty(x.shape[0], w.shape[0], x.shape[2], x.shape[3])
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, b = inputs
+    ctx.save_for_backward(x, w)
+    ctx.has_bias = b is not None
+
+
+def _backward(ctx, dy):
+    """``conv3x3_wl_ad``'s VJP: the input gradient launches the kernel
+    again, the weight and bias gradients are float32 contractions."""
+    x, w = ctx.saved_tensors
+    dx = dw = db = None
+    if ctx.needs_input_grad[0]:
+        dx = conv3x3_input_grad(dy, w)
+    if ctx.needs_input_grad[1]:
+        dw = weight_grad(x, dy).to(w.dtype)
+    if ctx.has_bias and ctx.needs_input_grad[2]:
+        db = dy.to(_acc_dtype(dy)).sum(dim=(0, 2, 3)).to(dy.dtype)
+    return dx, dw, db
+
+
+_conv_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def conv3x3(x, w, b: Optional[torch.Tensor] = None):
-    """3x3, stride-1, pad-1 conv plus bias (see the module docstring)."""
+    """3x3, stride-1, pad-1 conv plus bias (see the module docstring), as
+    the op ``samt::conv3x3``."""
     _check(x, w, b)
-    return _Conv3x3.apply(x, w, b)
+    return torch.ops.samt.conv3x3(x, w, b)
 
 
 # ---------------------------------------------------------------------------

@@ -6,14 +6,26 @@ train.py; the reference's basicsr/train.py:116-227).
 
 ``main`` parses the arguments and the option file; ``run(opt)`` trains
 from an option dict, so a caller without a YAML reader passes one built
-in Python (``configs.py``) through ``utils.options.derive_paths``. One
-process on one device: batches from the frame-folder dataset (threaded
-``BatchLoader``) or from a native frame cache (``datasets.train.
-native_cache``), ``training.Trainer`` steps, resume from ``path.
-resume_state`` or the newest checkpoint, ``print_freq`` logging with the
-step's ``time`` and ``data_time`` (the wait for its batch),
-``save_checkpoint_freq`` checkpoints, and in-training validation of the EMA
-generator.
+in Python (``configs.py``) through ``utils.options.derive_paths``.
+Batches from the frame-folder dataset (threaded ``BatchLoader``) or from a
+native frame cache (``datasets.train.native_cache``), ``training.Trainer``
+steps, resume from ``path.resume_state`` or the newest checkpoint,
+``print_freq`` logging with the step's ``time`` and ``data_time`` (the
+wait for its batch), ``save_checkpoint_freq`` checkpoints, and in-training
+validation of the EMA generator.
+
+Several GPUs, one process each (``--launcher pytorch`` under ``torchrun``,
+or ``--launcher slurm`` under ``srun``), as the JAX entry point runs its
+data mesh: each rank trains on ``cuda:<local rank>`` with
+``batch_size_per_gpu`` samples of a global batch of that times the world
+size, from its own share of the sampler (or the native cache seeded with
+``seed + rank``); the step averages the gradients over the ranks
+(``training.trainer``). Rank 0 alone writes the log file, TensorBoard and
+the checkpoints, and runs validation.
+
+    torchrun --nproc_per_node 2 \
+        -m synergize_motion_appearance_tpu_torch.train \
+        -opt options/train_v5e2.yml --launcher pytorch
 """
 from __future__ import annotations
 
@@ -29,33 +41,52 @@ def main(argv=None) -> List[Dict[str, Any]]:
                         help="Path to option YAML file.")
     parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"],
                         default="none",
-                        help="multi-process launcher; only 'none' (one "
-                             "process, one device) is ported")
+                        help="multi-process launcher: 'pytorch' reads the "
+                             "torchrun variables, 'slurm' derives them like "
+                             "the reference's dist_util.py:28-57")
     parser.add_argument("--steps", type=int, default=None,
                         help="override total_iter (smoke runs)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda)")
     args = parser.parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher}: multi-GPU training is not ported; "
-            f"run with --launcher none")
 
     from .utils.options import parse
 
     opt = parse(args.opt, is_train=True)
     if args.steps is not None:
         opt["train"]["total_iter"] = args.steps
-    return run(opt, device=args.device)
+    return run(opt, device=args.device, launcher=args.launcher)
 
 
-def run(opt: Dict[str, Any], device="cuda") -> List[Dict[str, Any]]:
+def run(opt: Dict[str, Any], device="cuda", launcher: str = "none"
+        ) -> List[Dict[str, Any]]:
     """Train from ``opt`` (with its paths derived) on ``device`` up to
     ``train.total_iter``; returns the records that were logged (every
     ``print_freq`` steps): iter, epoch, lrs, time, data_time and the
-    step's logs as floats."""
+    step's logs as floats (the global means). With a ``launcher`` other
+    than 'none' it joins the process group (``parallel.init_distributed``:
+    NCCL for a card, gloo for the CPU), trains on ``cuda:<local rank>``
+    when ``device`` is 'cuda', and leaves the group at the end."""
+    from .parallel import in_process_group, init_distributed
+
+    info = init_distributed(launcher, device=device)
+    joined = launcher != "none" and in_process_group()
+    if joined and str(device) == "cuda":
+        device = f"cuda:{info.local_rank}"
+    try:
+        return _train(opt, device, info.rank, info.world_size)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(opt, device, rank, world):
+    """``run``'s body, as rank ``rank`` of ``world``."""
     from .data import BatchLoader, EnlargedSampler, build_dataset, \
         infinite_batches
+    from .parallel import barrier
     from .training import (Trainer, batch_to_device, latest_checkpoint,
                            restore_checkpoint, save_checkpoint,
                            step_generator)
@@ -70,30 +101,34 @@ def run(opt: Dict[str, Any], device="cuda") -> List[Dict[str, Any]]:
     logger.info(get_env_info())
     logger.info(dict2str(opt))
     tb_logger = None
-    if opt.get("logger", {}).get("use_tb_logger"):
+    if opt.get("logger", {}).get("use_tb_logger") and rank == 0:
         init_wandb_logger(opt)
         tb_logger = init_tb_logger(osp.join(opt["path"]["log"], "tb_logger"))
 
     seed = opt.get("manual_seed", 0)
-    set_random_seed(seed)
+    # the data's draws differ by rank; the weights seed themselves from
+    # `seed` (weights.seeded_train_nets), the same on every rank
+    set_random_seed(seed + rank)
 
     # ---- data ----
     ds_opt = opt["datasets"]["train"]
     ds_opt["is_train"] = True
-    batch_size = int(ds_opt.get("batch_size_per_gpu", 4))
+    batch_size = int(ds_opt.get("batch_size_per_gpu", 4))  # per rank
     if ds_opt.get("native_cache"):
-        batches, n_videos = _native_batches(ds_opt, batch_size, seed, logger)
+        batches, n_videos = _native_batches(ds_opt, batch_size, seed, logger,
+                                            rank, world)
     else:
         dataset = build_dataset(ds_opt)
         n_videos = len(dataset)
         sampler = EnlargedSampler(
-            n_videos, 1, 0, ratio=int(ds_opt.get("dataset_enlarge_ratio", 1)))
+            n_videos, world, rank,
+            ratio=int(ds_opt.get("dataset_enlarge_ratio", 1)))
         loader = BatchLoader(dataset, batch_size, sampler,
                              num_workers=int(ds_opt.get("num_worker_per_gpu",
                                                         4)))
         batches = infinite_batches(loader)
     logger.info(f"Dataset {ds_opt.get('name')}: {n_videos} videos, "
-                f"{batch_size} samples per step.")
+                f"{batch_size} samples per step on each of {world} ranks.")
 
     # ---- model / state ----
     trainer = Trainer(opt, device=device, seed=seed)
@@ -102,6 +137,7 @@ def run(opt: Dict[str, Any], device="cuda") -> List[Dict[str, Any]]:
     resume = opt["path"].get("resume_state") or latest_checkpoint(ckpt_dir)
     if resume:
         start_epoch = restore_checkpoint(resume, trainer)
+        trainer.broadcast_state()
         start_iter = trainer.state.step
         logger.info(f"Resumed from {resume} @ iter {start_iter}")
 
@@ -137,10 +173,13 @@ def run(opt: Dict[str, Any], device="cuda") -> List[Dict[str, Any]]:
 
         if current_iter % save_freq == 0 or current_iter == total_iter:
             path = save_checkpoint(ckpt_dir, trainer, epoch)
-            logger.info(f"Saved checkpoint {path} @ iter {current_iter} "
-                        f"({sizeof_fmt(osp.getsize(path))})")
+            if path:
+                logger.info(f"Saved checkpoint {path} @ iter {current_iter} "
+                            f"({sizeof_fmt(osp.getsize(path))})")
+            barrier()
 
-        if val_state is not None and current_iter % val_state["freq"] == 0:
+        if (val_state is not None and rank == 0
+                and current_iter % val_state["freq"] == 0):
             _run_validation(opt, trainer, val_state, current_iter,
                             tb_logger, logger)
         data_t = time.time()
@@ -151,29 +190,34 @@ def run(opt: Dict[str, Any], device="cuda") -> List[Dict[str, Any]]:
     return records
 
 
-def _native_batches(ds_opt, batch_size, seed, logger):
+def _native_batches(ds_opt, batch_size, seed, logger, rank=0, world=1):
     """(epoch, batch) stream from the native frame cache, the counterpart
     of ``infinite_batches(BatchLoader)``; builds the cache from the frame
-    tree under ``root_dir`` when it does not exist. Returns it and the
-    cache's number of videos. Epochs count consumed samples against the
-    sampler's virtual length (videos x dataset_enlarge_ratio)."""
+    tree under ``root_dir`` when it does not exist (rank 0 builds it, the
+    others wait). Returns it and the cache's number of videos. Each rank's
+    loader is seeded with ``seed + rank``. Epochs count consumed global
+    samples against the sampler's virtual length (videos x
+    dataset_enlarge_ratio)."""
+    from .parallel import barrier
     from .data.native_loader import NativeFrameCacheLoader, \
         cache_from_frame_tree
 
     cache = ds_opt["native_cache"]
-    if not osp.exists(cache):
+    if not osp.exists(cache) and rank == 0:
         root = osp.join(ds_opt["root_dir"], "train")
         if not osp.isdir(root):
             root = ds_opt["root_dir"]
         logger.info(f"Building frame cache {cache} from {root} ...")
         cache_from_frame_tree(root, cache, int(ds_opt.get("gt_size", 256)))
+    barrier()
     loader = NativeFrameCacheLoader(
         cache, batch_size,
-        num_workers=int(ds_opt.get("num_worker_per_gpu", 4)), seed=seed,
+        num_workers=int(ds_opt.get("num_worker_per_gpu", 4)),
+        seed=seed + rank,
         hflip=bool(ds_opt.get("use_hflip", True)),
         time_flip=bool(ds_opt.get("use_time_flip", True)))
     ratio = int(ds_opt.get("dataset_enlarge_ratio", 1))
-    epoch_len = max(loader.num_videos * ratio // batch_size, 1)
+    epoch_len = max(loader.num_videos * ratio // (batch_size * world), 1)
 
     def gen():
         step = 0

@@ -33,7 +33,13 @@ def _cpu(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 def save_checkpoint(ckpt_dir: str, trainer, epoch: int = 0) -> str:
     """Write ``trainer``'s state to ``ckpt_dir/iter_<step>`` and point
-    ``latest`` at it; returns the file's path."""
+    ``latest`` at it; returns the file's path. In a process group only
+    rank 0 writes (master_only, dist_util.py:74-82); the others return
+    ''."""
+    from ..parallel import is_master
+
+    if not is_master():
+        return ""
     st = trainer.state
     ckpt = {"epoch": int(epoch), "step": int(st.step),
             "ema_g": _cpu(st.ema_g)}

@@ -19,11 +19,36 @@ Mixed precision as in the JAX step (``compute_dtype: bfloat16``): the
 generator and the VGG pyramid run on bfloat16 casts of the float32 master
 weights, cast inside the graph (so gradients land in float32); the motion
 networks and the discriminator stay float32; losses are float32.
-``remat`` is not ported: activations are always kept for the backward.
+
+``remat`` (the JAX step's rematerialization, trainer.py:239-268, 479-513)
+wraps what the JAX step wraps, the generator forward and the perceptual
+loss, in ``torch.utils.checkpoint``: ``true`` recomputes their every
+activation in the backward; ``selective`` saves the outputs of
+convolutions (``aten.convolution``, ``samt::conv3x3``), matmuls and the
+attention op, and of ``grid_sampler_2d`` (the JAX names ``conv_out``,
+``dense_out`` and ``warp_corners``) and recomputes the rest. The motion
+estimator is not wrapped, so no BatchNorm runs twice. Values do not
+change, only memory does. The port's default is ``false``: every shipped
+option file but the tiny one sets the key, and the JAX default (``true``)
+was chosen for a v5e's 16 GB.
+
+Data parallel, the counterpart of the JAX step over its data-sharded batch:
+in a ``torch.distributed`` process group every rank runs this step on its
+slice of the global batch, on the same weights. The networks are not
+wrapped in ``DistributedDataParallel``, since the step takes its gradients
+with ``torch.autograd.grad``; instead it averages over the ranks
+(``parallel.all_reduce_mean``) the G + M gradients after the G phase, the
+D gradients after the D phase, the adaptive weight's two probe gradients
+before their norms, and the logs, whose global generator loss is the
+nonfinite gate of every rank. BatchNorm takes the global batch's
+statistics (``models.layers.BatchNorm2d``), and the equivariance loss's
+TPS warp is drawn for the global batch and sliced, so the ranks together
+compute the one-process step on the whole batch.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
@@ -32,12 +57,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import weights
 from ..losses import (EquivarianceLoss, GANLoss, KPDistanceLoss, L1Loss,
                       MultiScalePyramidPerceptualLoss)
 from ..ops import (grid_sample, make_coordinate_grid, sample_random_tps,
                    tps_warp_frame_grid)
+from ..parallel import (all_reduce_mean, broadcast_module, broadcast_tensors,
+                        get_dist_info, in_process_group)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +292,31 @@ def _restore_buffers(module, saved: Dict[str, torch.Tensor]) -> None:
         b.copy_(saved[k])
 
 
+def _saved_ops():
+    """The ops whose outputs selective remat keeps: JAX's ``conv_out``
+    (convolutions, K3), ``dense_out`` (matmuls, K1 and K2) and
+    ``warp_corners`` (the warps)."""
+    aten, samt = torch.ops.aten, torch.ops.samt
+    ops = {aten.convolution.default, aten.mm.default, aten.addmm.default,
+           aten.bmm.default, aten.grid_sampler_2d.default,
+           samt.conv3x3.default, samt.fused_attention_packed.default,
+           samt.fused_attention.default}
+    if hasattr(aten, "cudnn_grid_sampler"):
+        ops.add(aten.cudnn_grid_sampler.default)
+    return frozenset(ops)
+
+
+def _selective_policy(saved, ctx, func, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if func in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def parse_remat(value):
+    """An option file's ``train.remat``: False, True or 'selective', as
+    the JAX trainer reads it (absent means False here)."""
+    return value if value == "selective" else bool(value)
+
+
 class Trainer:
     """Builds the networks and losses from a reference-style option dict
     (``opt['network_g']``, ``['network_motion_estimator']``,
@@ -304,6 +358,12 @@ class Trainer:
         cd = t.get("compute_dtype")
         self.compute_dtype = (torch.bfloat16 if cd in ("bfloat16", "bf16")
                               else None)
+        self.remat = parse_remat(t.get("remat", False))
+        self._remat_context = (
+            functools.partial(create_selective_checkpoint_contexts,
+                              functools.partial(_selective_policy,
+                                                _saved_ops()))
+            if self.remat == "selective" else None)
         self.scale_adaptive_gan_weight = float(
             t.get("scale_adaptive_gan_weight", 0.8))
         self.net_d_start_iter = int(t.get("net_d_start_iter", 0))
@@ -322,13 +382,28 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self, seed: int) -> None:
         """Seeded random weights for the four networks, fresh optimizer
-        states, step 0."""
+        states, step 0. In a process group every rank then takes rank 0's
+        weights (the JAX entry point's ``replicate``)."""
         g, me, d, vgg = weights.seeded_train_nets(self.opt, seed)
         self.net_g = g.to(self.device)
         self.motion_estimator = me.to(self.device).train()
         self.net_d = d.to(self.device).train()
         self.vgg = vgg.to(self.device).eval().requires_grad_(False)
+        for net in (self.net_g, self.motion_estimator, self.net_d, self.vgg):
+            broadcast_module(net)
         self.reset_optimizers()
+
+    def broadcast_state(self) -> None:
+        """Rank 0's weights, statistics, EMA and Adam moments in every
+        rank (no-op outside a process group); after a restore."""
+        for net in (self.net_g, self.motion_estimator, self.net_d, self.vgg):
+            broadcast_module(net)
+        if self.vgg_c is not self.vgg:
+            broadcast_module(self.vgg_c)
+        st = self.state
+        broadcast_tensors(list(st.ema_g.values()) + [
+            t for o in (st.opt_g, st.opt_m, st.opt_d)
+            for t in list(o.mu.values()) + list(o.nu.values())])
 
     def reset_optimizers(self, step: int = 0) -> None:
         """EMA = the current generator weights, zero Adam states; also
@@ -383,6 +458,14 @@ class Trainer:
         return self.cri_perceptual.from_target_feats(
             self.vgg_c, x.to(dt), gt_feats).float()
 
+    def _remat(self, fn, *args):
+        """``fn(*args)``, rematerialized as ``remat`` says."""
+        if not self.remat:
+            return fn(*args)
+        kw = ({} if self._remat_context is None
+              else {"context_fn": self._remat_context})
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
     def _probe_d_weight(self, pre_final, gt, gt_feats):
         """Adaptive GAN weight (appmotioncomp_model.py:222-228, 325-345):
         the ratio of the norms of the reconstruction loss's and the GAN
@@ -415,6 +498,9 @@ class Trainer:
             pred = functional_call(self.net_d, d_vars, (out_from(kern),))
             g_gan, = torch.autograd.grad(
                 self.cri_gan(pred, True, is_disc=False), kern)
+        if in_process_group():  # the global batch's gradients, then norms
+            g_recon, g_gan = all_reduce_mean(
+                {"recon": g_recon.float(), "gan": g_gan.float()}).values()
 
         def norm(g):
             return g.float().pow(2).sum().sqrt()
@@ -431,12 +517,18 @@ class Trainer:
         or drawn from ``generator``. Updates the modules and ``state`` in
         place; returns the logs as 0-d float32 tensors on the device.
 
+        In a process group ``batch`` is this rank's slice of the global
+        batch, ``tps`` (if given) the global batch's warp, and the logs are
+        the global means.
+
         One host sync per step: whether the generator loss is finite
         decides, on the host, which updates apply. It is read after the
         discriminator's backward is queued."""
         st = self.state
         source, gt = batch["source"], batch["driving"]
         B, _, H, W = gt.shape
+        rank, world = get_dist_info()
+        grouped = in_process_group()
         step = st.step
         d_on = step > self.net_d_start_iter          # (:325, :414)
         g_on = step >= self.net_g_start_iter
@@ -455,13 +547,14 @@ class Trainer:
 
         # ---- G phase ----
         dense_motion = self.motion_estimator(gt, source)
-        out = self._g_forward(source, dense_motion, gt)
+        out = self._remat(self._g_forward, source, dense_motion, gt)
         total = 0.0
         if self.cri_pix is not None:
             logs["l_g_pix"] = self.cri_pix(out["out"], gt)
             total = total + logs["l_g_pix"]
         if self.cri_perceptual is not None:
-            logs["l_g_percep"] = self._percep(out["out"], gt_feats)
+            logs["l_g_percep"] = self._remat(self._percep, out["out"],
+                                             gt_feats)
             total = total + logs["l_g_percep"]
         if self.cri_gan is not None:
             fake_pred = self.net_d(out["out"])   # updates D's statistics
@@ -494,20 +587,25 @@ class Trainer:
                                                        gt) * wlr
                 total = total + logs[f"l_g_pix_lr_{i}"]
             if self.cri_perceptual is not None:
-                logs[f"l_g_percep_lr_{i}"] = self._percep(
-                    out["out_lr"][i], gt_feats) * wlr
+                logs[f"l_g_percep_lr_{i}"] = self._remat(
+                    self._percep, out["out_lr"][i], gt_feats) * wlr
                 total = total + logs[f"l_g_percep_lr_{i}"]
         if self.w_app_code > 0:
             logs["l_g_app_codebook_code"] = sum(
                 out["codebook_loss_app_list"]) * self.w_app_code
             total = total + logs["l_g_app_codebook_code"]
         if self.cri_equivariance is not None:
-            if tps is None:
+            if tps is None:  # the global batch's draw
                 tp = self.cri_equivariance.transform_params
-                tps = sample_random_tps(generator, B, tp["sigma_affine"],
-                                        tp["sigma_tps"], tp["points_tps"],
-                                        device=self.device)
+                tps = sample_random_tps(generator, B * world,
+                                        tp["sigma_affine"], tp["sigma_tps"],
+                                        tp["points_tps"], device=self.device)
             tps = type(tps)(*(t.to(self.device) for t in tps))
+            if tps.theta.shape[0] != B:  # this rank's slice of it
+                tps = tps._replace(
+                    theta=tps.theta[rank * B:(rank + 1) * B],
+                    control_params=tps.control_params[rank * B:
+                                                      (rank + 1) * B])
             transformed_frame = grid_sample(
                 gt, tps_warp_frame_grid(tps, H, W), align_corners=False,
                 padding_mode="reflection")
@@ -532,6 +630,12 @@ class Trainer:
                  zip(grads, list(params_g.values()) + list(params_m.values()))]
         grads_g = dict(zip(params_g, grads[:len(params_g)]))
         grads_m = dict(zip(params_m, grads[len(params_g):]))
+        if grouped:
+            red = iter(all_reduce_mean(
+                {**{"g." + k: v for k, v in grads_g.items()},
+                 **{"m." + k: v for k, v in grads_m.items()}}).values())
+            grads_g = {k: next(red) for k in grads_g}
+            grads_m = {k: next(red) for k in grads_m}
 
         # ---- D phase (:414-432), on the statistics the G phase left ----
         if self.cri_gan is not None:
@@ -543,11 +647,17 @@ class Trainer:
             if d_on:  # before the onset the JAX step drops these grads
                 grads_d = dict(zip(params_d, torch.autograd.grad(
                     l_d_real + l_d_fake, list(params_d.values()))))
+                if grouped:
+                    grads_d = all_reduce_mean(grads_d)
             logs.update(l_d_real=l_d_real, l_d_fake=l_d_fake,
                         out_d_real=real_pred.mean(),
                         out_d_fake=fake_pred.mean())
 
         # ---- updates ----
+        if grouped:  # global means: the gate below is one for all ranks
+            logs = all_reduce_mean({
+                k: torch.as_tensor(v, device=self.device).detach().float()
+                for k, v in logs.items()})
         finite = bool(torch.isfinite(logs["l_g_total"]))
         logs["step_skipped_nonfinite"] = torch.full(
             (), 0.0 if finite else 1.0, device=self.device)

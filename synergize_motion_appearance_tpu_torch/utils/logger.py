@@ -1,6 +1,7 @@
 """Logging: the root logger, the per-iteration message logger with its ETA,
 TensorBoard and wandb. The reference's utils/logger.py:10-169; the port's
-copy of the JAX package's utils/logger.py, for one process."""
+copy of the JAX package's utils/logger.py. In a process group only rank 0
+logs below ERROR and writes the log file."""
 from __future__ import annotations
 
 import datetime
@@ -15,7 +16,10 @@ def get_root_logger(logger_name: str = "samt",
                     log_level: int = logging.INFO,
                     log_file: Optional[str] = None) -> logging.Logger:
     """The named logger, to the console and, on its first call, to
-    ``log_file``."""
+    ``log_file``; on a rank other than 0 it logs errors only, to the
+    console."""
+    from ..parallel import is_master
+
     logger = logging.getLogger(logger_name)
     if logger_name in initialized_loggers:
         return logger
@@ -25,11 +29,14 @@ def get_root_logger(logger_name: str = "samt",
     sh.setFormatter(fmt)
     logger.addHandler(sh)
     logger.propagate = False
-    logger.setLevel(log_level)
-    if log_file is not None:
-        fh = logging.FileHandler(log_file, "a")
-        fh.setFormatter(fmt)
-        logger.addHandler(fh)
+    if not is_master():
+        logger.setLevel(logging.ERROR)
+    else:
+        logger.setLevel(log_level)
+        if log_file is not None:
+            fh = logging.FileHandler(log_file, "a")
+            fh.setFormatter(fmt)
+            logger.addHandler(fh)
     initialized_loggers[logger_name] = True
     return logger
 
@@ -90,8 +97,12 @@ def init_tb_logger(log_dir: str):
 
 
 def init_wandb_logger(opt) -> None:
-    """wandb is not ported: warns when an option file asks for it
-    (``logger.wandb.project``) and does nothing."""
+    """wandb is not ported: warns (on rank 0) when an option file asks for
+    it (``logger.wandb.project``) and does nothing."""
+    from ..parallel import is_master
+
+    if not is_master():
+        return
     project = ((opt.get("logger") or {}).get("wandb") or {}).get("project")
     if project:
         get_root_logger().warning(
@@ -99,10 +110,12 @@ def init_wandb_logger(opt) -> None:
 
 
 def get_env_info() -> str:
-    """The versions of the package, torch and CUDA, and the device."""
+    """The versions of the package, torch and CUDA, the device and the
+    world size."""
     import torch
 
     from .. import __version__
+    from ..parallel import get_dist_info
 
     cuda = torch.cuda.is_available()
     device = (f"{torch.cuda.get_device_name(0)} x "
@@ -110,4 +123,5 @@ def get_env_info() -> str:
     return (f"\nsynergize_motion_appearance_tpu_torch {__version__}"
             f"\n\ttorch {torch.__version__}"
             f"\n\tcuda {torch.version.cuda}"
-            f"\n\tdevice {device}")
+            f"\n\tdevice {device}"
+            f"\n\tworld size {get_dist_info()[1]}")

@@ -229,10 +229,18 @@ def test_restore_is_strict(tmp_path, runs):
         restore_checkpoint(runs["ckpt3"], tr)
 
 
-def test_other_launchers_raise(tmp_path, tree):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.main(["-opt", _cli_opt(tmp_path, tree), "--launcher",
-                    "pytorch", "--device", "cpu"])
+def test_other_launchers_raise(tmp_path, tree, monkeypatch):
+    """--launcher pytorch and slurm need their launcher's variables
+    (torchrun's, slurm's): without them each raises before it trains."""
+    for var in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(var, raising=False)
+    opt_path = _cli_opt(tmp_path, tree)
+    with pytest.raises(KeyError, match="RANK"):
+        train.main(["-opt", opt_path, "--launcher", "pytorch", "--device",
+                    "cpu"])
+    with pytest.raises(RuntimeError, match="slurm"):
+        train.main(["-opt", opt_path, "--launcher", "slurm", "--device",
+                    "cpu"])
 
 
 def test_model_api_round_trip(tmp_path, runs):
