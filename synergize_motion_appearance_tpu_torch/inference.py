@@ -36,7 +36,9 @@ def normalize_kp(kp_source, kp_driving, kp_driving_initial,
                  use_relative_jacobian: bool = False):
     """Relative-motion keypoint normalization (reference demo.py:24-44),
     batched over driving frames; kp_source and kp_driving_initial have
-    batch 1. The hull area stays on the device."""
+    batch 1. The hull area stays on the device. Keypoints without
+    Jacobians (a detector built with ``estimate_jacobian=False``) move by
+    their values alone."""
     if adapt_movement_scale:
         source_area = convex_hull_area(kp_source["value"][0])
         driving_area = convex_hull_area(kp_driving_initial["value"][0])
@@ -47,7 +49,7 @@ def normalize_kp(kp_source, kp_driving, kp_driving_initial,
     if use_relative_movement:
         diff = (kp_driving["value"] - kp_driving_initial["value"]) * scale
         kp_new["value"] = diff + kp_source["value"]
-        if use_relative_jacobian:
+        if use_relative_jacobian and kp_driving.get("jacobian") is not None:
             jac_diff = kp_driving["jacobian"] @ inv2x2(
                 kp_driving_initial["jacobian"].float())
             kp_new["jacobian"] = jac_diff @ kp_source["jacobian"]

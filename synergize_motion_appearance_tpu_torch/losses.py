@@ -120,6 +120,10 @@ class EquivarianceLoss:
             l_value = self.loss_weight_value * (
                 kp_driving["value"] - warped).abs().mean()
         if self.use_jacobian:
+            if "jacobian" not in transformed_kp:  # a KeyError in JAX too
+                raise KeyError("EquivarianceLoss(use_jacobian=True) needs "
+                               "keypoint Jacobians: the detector is built "
+                               "with estimate_jacobian=False")
             jac_t = tps_jacobian(tps_params, transformed_kp["value"])
             jacobian_transformed = jac_t @ transformed_kp["jacobian"]
             value = inv2x2(kp_driving["jacobian"].float()) @ \

@@ -8,6 +8,19 @@ cross-attention, with nested codebook prefixes per scale. Feature maps are
 NCHW; flows are (B, H, W, 2) in [-1, 1] and stay float32 whatever the
 compute dtype. Module names are the reference's torch names.
 
+The JAX module's switches (the paper's ablations) are constructor
+arguments with the same names and defaults: ``with_position_emb``,
+``warp_s_d_kp_query`` (the motion query from the warped source and the
+driving keypoints), ``MRFA_motion_enc`` (the flow/occlusion residual
+head; without it the motion readout ``to_motion`` gives the flow residual
+and no occlusion residual), ``motion_codebook_split`` /
+``app_codebook_split`` (a codebook chunk per scale, nested prefixes, or
+with ``wo_motion_cdbk_share`` / ``wo_app_cdbk_share`` disjoint chunks),
+``multiscale_sft`` and ``multiscale_feature_fusion`` (the two fusions of
+each connected scale). A multi-mask occlusion list from the dense motion
+is read positionally, one map per scale. ``quantizer_type`` and
+``detach_motion_query`` are taken and unused, as in the JAX package.
+
 The training forward (``inference=False``) adds what the trainer reads:
 the motion-codebook reconstructions and commit losses, the appearance
 commit losses on the driving frame (``gt``), the parallel low-res decode
@@ -211,14 +224,34 @@ class AppMotionCompFormer(nn.Module):
                  n_head: int = 8, dim_embd_motion: int = 32,
                  n_layers_motion: int = 2, dim_embd_app: int = 256,
                  n_layers_app: int = 2, num_kp: int = 15,
+                 quantizer_type: str = "nearest",
+                 with_position_emb: bool = True,
+                 warp_s_d_kp_query: bool = True,
+                 MRFA_motion_enc: bool = True,
+                 motion_codebook_split: bool = True,
+                 detach_motion_query: bool = True,
+                 multiscale_feature_fusion: bool = True,
+                 multiscale_sft: bool = True,
+                 app_codebook_split: bool = True,
+                 wo_motion_cdbk_share: bool = False,
+                 wo_app_cdbk_share: bool = False,
                  connect_list: Optional[Sequence[Any]] = None,
                  connect_app_list: Optional[Sequence[Any]] = None):
-        """Arguments as the JAX module's fields. The JAX module's boolean
-        switches are fixed at the value every config uses: position
-        embeddings, per-scale codebook prefixes for both codebooks,
-        multiscale fusion, warped-source queries and the MRFA motion
-        encoder (``build_network`` checks them)."""
+        """Arguments as the JAX module's fields."""
         super().__init__()
+        # taken and never read, as in the JAX package: the quantizer is
+        # always the nearest entry, and the motion embedding always takes
+        # the detached flow (appmotion_former.py:241, 257, 515)
+        del quantizer_type, detach_motion_query
+        self.with_position_emb = with_position_emb
+        self.warp_s_d_kp_query = warp_s_d_kp_query
+        self.MRFA_motion_enc = MRFA_motion_enc
+        self.motion_codebook_split = motion_codebook_split
+        self.multiscale_feature_fusion = multiscale_feature_fusion
+        self.multiscale_sft = multiscale_sft
+        self.app_codebook_split = app_codebook_split
+        self.wo_motion_cdbk_share = wo_motion_cdbk_share
+        self.wo_app_cdbk_share = wo_app_cdbk_share
         ch_mult = tuple(ch_mult)
         attn_resolutions = tuple(attn_resolutions)
         self.img_size = img_size
@@ -273,14 +306,18 @@ class AppMotionCompFormer(nn.Module):
                                             beta)
         self.quantize_motion = VectorQuantizer(codebook_size_motion,
                                                embed_dim_motion, beta)
-        self.fuse_convs_dict = nn.ModuleDict(
-            {str(r): FuseSftBlock(ch[r], ch[r]) for r in self.connect})
-        self.fuse_ms_dict = nn.ModuleDict(
-            {str(r): Conv2d(ch[r], ch[r], 3, padding=1)
-             for r in self.connect})
-        self.position_emb_app = nn.Parameter(torch.zeros(t * t, dim_embd_app))
-        self.position_emb_motion = nn.Parameter(
-            torch.zeros(t * t, dim_embd_motion))
+        if multiscale_sft:
+            self.fuse_convs_dict = nn.ModuleDict(
+                {str(r): FuseSftBlock(ch[r], ch[r]) for r in self.connect})
+        if multiscale_feature_fusion:
+            self.fuse_ms_dict = nn.ModuleDict(
+                {str(r): Conv2d(ch[r], ch[r], 3, padding=1)
+                 for r in self.connect})
+        if with_position_emb:
+            self.position_emb_app = nn.Parameter(
+                torch.zeros(t * t, dim_embd_app))
+            self.position_emb_motion = nn.Parameter(
+                torch.zeros(t * t, dim_embd_motion))
 
         dm = dim_embd_motion
         self.motion_emb = nn.Sequential(
@@ -297,40 +334,48 @@ class AppMotionCompFormer(nn.Module):
             [TransformerLayer(dim_embd_app, n_head, dim_embd_app * 2)
              for _ in range(n_layers_app)])
 
-        self.BasicMotionEncoder = BasicMotionEncoder(dm)
-        self.to_context = nn.ModuleList(
-            [nn.Conv2d(feat_ch[r], 192, 1) for r in self.scales])
-        self.refine = RefineFlow()
-        for r in self.scales:
-            self.add_module(f"warped_source_enc_{r}",
-                            nn.Conv2d(feat_ch[r], dm, 1))
-        self.driving_kp_enc = nn.Conv2d(num_kp, dm, 1)
-        self.motion_query_enc_1 = nn.Conv2d(2 * dm, dm, 1)
-        self.motion_query_enc_2 = nn.Conv2d(2 * dm, dm, 1)
+        if MRFA_motion_enc:
+            self.BasicMotionEncoder = BasicMotionEncoder(dm)
+            self.to_context = nn.ModuleList(
+                [nn.Conv2d(feat_ch[r], 192, 1) for r in self.scales])
+            self.refine = RefineFlow()
+        if warp_s_d_kp_query:
+            for r in self.scales:
+                self.add_module(f"warped_source_enc_{r}",
+                                nn.Conv2d(feat_ch[r], dm, 1))
+            self.driving_kp_enc = nn.Conv2d(num_kp, dm, 1)
+            self.motion_query_enc_1 = nn.Conv2d(2 * dm, dm, 1)
+            self.motion_query_enc_2 = nn.Conv2d(2 * dm, dm, 1)
 
     # ---------------- helpers ----------------
 
     @property
     def compute_dtype(self):
-        return self.driving_kp_enc.weight.dtype
+        return self.motion_emb[0].weight.dtype
 
-    def _codebook_context(self, quantizer, split_count, res):
-        """(K, D) codebook prefix shared by the whole batch: the first
-        ``scale index + 1`` of ``split_count`` chunks."""
-        scale_idx = self.scales.index(res) + 1
-        return quantizer.codebook_slice(
-            quantizer.codebook_size // split_count * scale_idx)
+    def _codebook_range(self, quantizer, split_count, res, split, disjoint):
+        """(start, num) of the codebook rows that scale ``res`` reads
+        (appmotioncodebook_arch.py:400-407, 508-525): the whole book
+        without ``split``; else the scale's chunk of ``split_count``
+        (``disjoint``) or every chunk up to it (nested prefixes)."""
+        if not split:
+            return 0, quantizer.codebook_size
+        chunk = quantizer.codebook_size // split_count
+        idx = self.scales.index(res) + 1
+        return (chunk * (idx - 1), chunk) if disjoint else (0, chunk * idx)
 
     def motion_codebook_compensation(self, motion, query_feat, res,
                                      warp_ctx, train: bool = False):
         """appmotioncodebook_arch.py:373-427.
 
         motion: (B, Hd, Wd, 2) flow residual in pixels; query_feat:
-        (B, dim, t, t); warp_ctx: relu(to_context(warped source)) at
-        (Hd, Wd). Returns the (B, 3, Hd, Wd) flow residual and occlusion
-        logit, and with ``train`` the (B, Hd, Wd, 2) reconstruction of the
-        motion from its quantized embedding and the commit loss (else
-        None, None)."""
+        (B, dim, t, t), or None without ``warp_s_d_kp_query`` (the motion
+        embedding is then the query); warp_ctx: relu(to_context(warped
+        source)) at (Hd, Wd), or None without ``MRFA_motion_enc``. Returns
+        the (B, 3, Hd, Wd) flow residual and occlusion logit (MRFA), or
+        the (B, 2, 2t, 2t) flow residual of ``to_motion``, and with
+        ``train`` the (B, Hd, Wd, 2) reconstruction of the motion from its
+        quantized embedding and the commit loss (else None, None)."""
         B, Hd, Wd, _ = motion.shape
         t = self.token_hw
         dim = self.dim_embd_motion
@@ -346,28 +391,36 @@ class AppMotionCompFormer(nn.Module):
             return _promoted(module, dt, *args, **kwargs)
 
         m_feat = run(self.motion_emb, m.detach())             # (B, dim, t, t)
-        if query_feat.shape[2:] != m_feat.shape[2:]:
-            query_feat = resize_bilinear(query_feat, tuple(m_feat.shape[2:]),
-                                         align_corners=True)
-        query_emb = run(self.motion_query_enc_2,
-                        torch.cat([m_feat, query_feat.to(dt)], dim=1))
+        if query_feat is None:
+            query_emb = m_feat
+        else:
+            if query_feat.shape[2:] != m_feat.shape[2:]:
+                query_feat = resize_bilinear(
+                    query_feat, tuple(m_feat.shape[2:]), align_corners=True)
+            query_emb = run(self.motion_query_enc_2,
+                            torch.cat([m_feat, query_feat.to(dt)], dim=1))
         tokens = query_emb.flatten(2).transpose(1, 2)         # (B, t*t, dim)
-        pos = self.position_emb_motion[None]
-        context = self._codebook_context(self.quantize_motion,
-                                         1 + len(self.connect), res)
+        pos = self.position_emb_motion[None] if self.with_position_emb \
+            else None
+        start, num = self._codebook_range(
+            self.quantize_motion, 1 + len(self.connect), res,
+            self.motion_codebook_split, self.wo_motion_cdbk_share)
+        context = self.quantize_motion.codebook_slice(start, num)
         for block in self.motion_block:
             tokens = run(block, tokens, context.to(dt), (t, t),
                          query_pos=pos)
         query_emb = tokens.transpose(1, 2).reshape(B, dim, t, t)
-        motion_f = resize_bilinear(query_emb, (Hd, Wd), align_corners=True)
-        m_f = run(self.BasicMotionEncoder, m.to(dt), motion_f)
-        m_res = run(self.refine, m_f, warp_ctx.to(dt))
+        if self.MRFA_motion_enc:
+            motion_f = resize_bilinear(query_emb, (Hd, Wd),
+                                       align_corners=True)
+            m_f = run(self.BasicMotionEncoder, m.to(dt), motion_f)
+            m_res = run(self.refine, m_f, warp_ctx.to(dt))
+        else:
+            m_res = run(self.to_motion, query_emb)
         if not train:
             return m_res, None, None
-        chunk = self.quantize_motion.codebook_size // (1 + len(self.connect))
-        num = chunk * (self.scales.index(res) + 1)
         z_q, loss, _ = self.quantize_motion(m_feat.permute(0, 2, 3, 1),
-                                            num=num)
+                                            start=start, num=num)
         m_recon = run(self.to_motion, z_q.permute(0, 3, 1, 2))
         return m_res, m_recon.permute(0, 2, 3, 1), loss
 
@@ -397,9 +450,10 @@ class AppMotionCompFormer(nn.Module):
                             align_corners=True)               # (B, 2, t, t)
         ignore = ((m > 1) | (m < -1)).any(dim=1).reshape(B, t * t)
         tokens = self._app_tokens(feat, r)
-        pos = self.position_emb_app[None]
-        context = self._codebook_context(self.quantize_app,
-                                         len(self.connect_app), r)
+        pos = self.position_emb_app[None] if self.with_position_emb else None
+        context = self.quantize_app.codebook_slice(*self._codebook_range(
+            self.quantize_app, len(self.connect_app), r,
+            self.app_codebook_split, self.wo_app_cdbk_share))
         for j, block in enumerate(self.app_block):
             tokens = block(tokens, context, (t, t),
                            key_padding_mask=ignore if j == 0 else None,
@@ -408,18 +462,19 @@ class AppMotionCompFormer(nn.Module):
 
     def app_codebook_loss(self, gt):
         """Commit losses of the driving frame's encoder features against
-        the appearance codebook prefix of each scale
+        the appearance codebook rows of each scale
         (appmotioncodebook_arch.py:429-469)."""
         taps = {self.enc_taps[r]: r for r in self.connect_app}
         _, feats = self.encoder(gt, taps=taps)
         t = self.token_hw
-        chunk = self.quantize_app.codebook_size // len(self.connect_app)
         losses = []
         for r in self.connect_app:
             tokens = self._app_tokens(feats[self.enc_taps[r]], r)
             grid = tokens.reshape(-1, t, t, self.dim_embd_app)
-            _, loss, _ = self.quantize_app(
-                grid, num=chunk * (self.scales.index(r) + 1))
+            start, num = self._codebook_range(
+                self.quantize_app, len(self.connect_app), r,
+                self.app_codebook_split, self.wo_app_cdbk_share)
+            _, loss, _ = self.quantize_app(grid, start=start, num=num)
             losses.append(loss)
         return losses
 
@@ -463,38 +518,69 @@ class AppMotionCompFormer(nn.Module):
         out_occ = []
         motion_recon_list = []
         codebook_loss_motion_list = []
-        dense_occ = dense_motion["occlusion_map"]          # (B, 1, Hd, Wd)
+        if "occlusion_map" not in dense_motion:
+            # the JAX generator reads the key unconditionally and fails
+            raise KeyError("AppMotionCompFormer needs the dense motion's "
+                           "'occlusion_map': build the motion estimator with "
+                           "estimate_occlusion_map=True")
+        # (B, 1, Hd, Wd), or with multi_mask a coarse-to-fine list of
+        # maps, one per scale in order, whose MRFA occlusion residuals are
+        # computed and not applied (:598, 606-610, 702-706)
+        dense_occ = dense_motion["occlusion_map"]
+        occ_maps = (list(dense_occ) if isinstance(dense_occ, (list, tuple))
+                    else None)
 
-        kp_heat = resize_bilinear(dense_motion["driving_kp_heatmap"], (t, t),
-                                  align_corners=True)
-        driving_kp_feat = F.relu(self.driving_kp_enc(kp_heat.to(dt)))
+        def occlusion(d_occ):
+            """The occlusion map of the current scale."""
+            if occ_maps is not None:
+                return occ_maps.pop(0)
+            if not self.MRFA_motion_enc:
+                return dense_occ
+            out_occ.append(torch.sigmoid(
+                (out_occ[-1] if out_occ else dense_occ) + d_occ))
+            return out_occ[-1]
+
+        driving_kp_feat = None
+        if self.warp_s_d_kp_query:
+            kp_heat = resize_bilinear(dense_motion["driving_kp_heatmap"],
+                                      (t, t), align_corners=True)
+            driving_kp_feat = F.relu(self.driving_kp_enc(kp_heat.to(dt)))
 
         def motion_pass(feat, res):
-            """One motion-codebook pass at feature resolution ``res``.
-            Above 2*Hd the full-resolution warp is replaced by warps at
-            the downsample taps (deform_input_resized), as in JAX."""
+            """One motion-codebook pass at feature resolution ``res``;
+            returns the MRFA occlusion logit, or None. Where the query or
+            the MRFA context reads the warped feature above twice its
+            size, the full-resolution warp is replaced by warps at the
+            downsample taps (deform_input_resized), as in JAX. With
+            neither switch the JAX pass warps the feature and reads
+            nothing of it; here it is not warped."""
             motion_q = motion_list[-1]
             H = feat.shape[2]
-            dense = 2 * t >= H or 2 * Hd >= H
+            dense = ((self.warp_s_d_kp_query and 2 * t >= H)
+                     or (self.MRFA_motion_enc and 2 * Hd >= H))
             warp_src = deform_input(feat, motion_q) if dense else None
-            if warp_src is not None:
-                ws = resize_bilinear(warp_src, (t, t), align_corners=True)
-            else:
-                ws = deform_input_resized(feat, motion_q, t)
-            ws = F.relu(getattr(self, f"warped_source_enc_{res}")(ws))
-            q_feat = self.motion_query_enc_1(
-                torch.cat([ws, driving_kp_feat], dim=1))
-            to_context = self.to_context[self.scales.index(res)]
+            q_feat = warp_ctx = None
+            if self.warp_s_d_kp_query:
+                if warp_src is not None:
+                    ws = resize_bilinear(warp_src, (t, t),
+                                         align_corners=True)
+                else:
+                    ws = deform_input_resized(feat, motion_q, t)
+                ws = F.relu(getattr(self, f"warped_source_enc_{res}")(ws))
+                q_feat = self.motion_query_enc_1(
+                    torch.cat([ws, driving_kp_feat], dim=1))
+            if self.MRFA_motion_enc:
+                to_context = self.to_context[self.scales.index(res)]
 
-            def ctx_fn(v):
-                return F.relu(to_context(v))
+                def ctx_fn(v):
+                    return F.relu(to_context(v))
 
-            if warp_src is not None:
-                warp_ctx = resize_bilinear(ctx_fn(warp_src), (Hd, Wd),
-                                           align_corners=True)
-            else:
-                warp_ctx = deform_input_resized(feat, motion_q, Hd,
-                                                point_fn=ctx_fn)
+                if warp_src is not None:
+                    warp_ctx = resize_bilinear(ctx_fn(warp_src), (Hd, Wd),
+                                               align_corners=True)
+                else:
+                    warp_ctx = deform_input_resized(feat, motion_q, Hd,
+                                                    point_fn=ctx_fn)
             m_res, m_recon, cb_loss = self.motion_codebook_compensation(
                 (motion_q - grid) * half, q_feat, res, warp_ctx, train)
             res_motion_list.append(m_res[:, 0:2].permute(0, 2, 3, 1) / half)
@@ -502,13 +588,12 @@ class AppMotionCompFormer(nn.Module):
             if train:
                 motion_recon_list.append(m_recon / half)
                 codebook_loss_motion_list.append(cb_loss)
-            return m_res[:, 2:3]
+            return m_res[:, 2:3] if self.MRFA_motion_enc else None
 
         # base scale (the token grid)
-        d_occ = motion_pass(x, self.scales[0])
-        out_occ.append(torch.sigmoid(dense_occ + d_occ))
+        occ = occlusion(motion_pass(x, self.scales[0]))
         m_com = motion_list[-1]
-        lq_feat = occlude_input(deform_input(x, m_com), out_occ[0])
+        lq_feat = occlude_input(deform_input(x, m_com), occ)
         lq_feat = self.app_codebook_compensation(lq_feat, m_com)
         codebook_loss_app_list = (self.app_codebook_loss(gt)
                                   if train and gt is not None else None)
@@ -536,17 +621,19 @@ class AppMotionCompFormer(nn.Module):
                 continue
             f_res = gen_tap_idx[i]
             enc_feat = enc_feat_dict[f_res]
-            d_occ = motion_pass(enc_feat, f_res)
+            occ = occlusion(motion_pass(enc_feat, f_res))
             m_com = motion_list[-1]
-            out_occ.append(torch.sigmoid(out_occ[-1] + d_occ))
             enc_feat_warped = occlude_input(deform_input(enc_feat, m_com),
-                                            out_occ[-1])
+                                            occ)
             if f_res <= max_app_res:
                 enc_feat_warped = self.app_codebook_compensation(
                     enc_feat_warped, m_com)
             with decoder_region(region):
-                xg = self.fuse_convs_dict[str(f_res)](enc_feat_warped, xg, w)
-                xg = xg + self.fuse_ms_dict[str(f_res)](enc_feat_warped)
+                if self.multiscale_sft:
+                    xg = self.fuse_convs_dict[str(f_res)](enc_feat_warped,
+                                                          xg, w)
+                if self.multiscale_feature_fusion:
+                    xg = xg + self.fuse_ms_dict[str(f_res)](enc_feat_warped)
 
         out = {
             "out": xg,

@@ -92,11 +92,16 @@ class HourglassDecoder(nn.Module):
                  num_blocks: int = 3, max_features: int = 256):
         super().__init__()
         blocks = []
+        # channels of each stage's output, coarse to fine: the block's
+        # output and the encoder skip it is concatenated with
+        self.stage_channels = []
         for i in reversed(range(num_blocks)):
             cin = (1 if i == num_blocks - 1 else 2) * min(
                 max_features, block_expansion * 2 ** (i + 1))
             cout = min(max_features, block_expansion * 2 ** i)
             blocks.append(UpBlock2d(cin, cout))
+            self.stage_channels.append(cout + (in_features if i == 0
+                                               else cout))
         self.up_blocks = nn.ModuleList(blocks)
         self.out_filters = block_expansion + in_features
 

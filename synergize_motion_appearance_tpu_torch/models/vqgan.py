@@ -211,9 +211,12 @@ class VectorQuantizer(nn.Module):
         codebook[start:start + num]: (z_q, commit loss, stats)."""
         return vq_quantize(z, self.embedding.weight, self.beta, start, num)
 
-    def codebook_slice(self, num: int):
-        """The first ``num`` codebook entries, (num, emb_dim)."""
-        return self.embedding.weight[:num]
+    def codebook_slice(self, start: int = 0, num: Optional[int] = None):
+        """Codebook entries ``start`` to ``start + num`` (by default to the
+        end), (num, emb_dim)."""
+        if num is None:
+            num = self.codebook_size - start
+        return self.embedding.weight[start:start + num]
 
 
 class VQGANDiscriminator(nn.Module):

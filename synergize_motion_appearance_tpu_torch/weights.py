@@ -22,6 +22,7 @@ counts) into a ``training.Trainer``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
@@ -183,19 +184,36 @@ class _Exporter:
 
 def motion_estimator_state_dict(variables, me_cfg) -> Dict[str, torch.Tensor]:
     """MotionEstimator variables -> the port's (reference-named)
-    state_dict. ``me_cfg`` is the network_motion_estimator config."""
-    kp_cfg = dict(me_cfg["kp_detector_params"])
-    dm_cfg = dict(me_cfg["dense_motion_params"])
-    channels = me_cfg["common_params"].get("num_channels", 3)
+    state_dict. ``me_cfg`` is the network_motion_estimator config; its
+    switches decide which heads exist: the Jacobian conv
+    (``estimate_jacobian``), and the occlusion head
+    (``estimate_occlusion_map``), which with ``multi_mask`` is the list
+    ``occlusion.{i}`` and the UpBlock2d chain ``up.{i}``."""
+    common = dict(me_cfg.get("common_params", {}))
+    kp_cfg = {**common, **me_cfg["kp_detector_params"]}
+    dm_cfg = {**common, **me_cfg["dense_motion_params"]}
+    channels = common.get("num_channels", 3)
     e = _Exporter(variables)
     e.hourglass("kp_detector.predictor", "kp_detector/predictor",
                 kp_cfg.get("num_blocks", 5))
     e.conv2d("kp_detector.kp", "kp_detector/kp")
-    e.conv("kp_detector.jacobian", "kp_detector/jacobian")  # plain nn.Conv
-    e.hourglass("dense_motion_network.hourglass",
-                "dense_motion_network/hourglass", dm_cfg.get("num_blocks", 5))
-    e.conv2d("dense_motion_network.mask", "dense_motion_network/mask")
-    e.conv2d("dense_motion_network.occlusion", "dense_motion_network/occlusion")
+    if kp_cfg.get("estimate_jacobian", True):
+        e.conv("kp_detector.jacobian", "kp_detector/jacobian")  # nn.Conv
+    dm = "dense_motion_network"
+    e.hourglass(f"{dm}.hourglass", f"{dm}/hourglass",
+                dm_cfg.get("num_blocks", 5))
+    e.conv2d(f"{dm}.mask", f"{dm}/mask")
+    if dm_cfg.get("estimate_occlusion_map", True):
+        if dm_cfg.get("multi_mask", False):
+            up_nums = int(math.log(1.0 / dm_cfg.get("scale_factor", 0.25),
+                                   2))
+            for i in range(dm_cfg.get("occlusion_num", 5)):
+                e.conv2d(f"{dm}.occlusion.{i}", f"{dm}/occlusion_{i}")
+            for i in range(up_nums):
+                e.conv2d(f"{dm}.up.{i}.conv", f"{dm}/up_{i}/conv")
+                e.bn(f"{dm}.up.{i}.norm", f"{dm}/up_{i}/norm")
+        else:
+            e.conv2d(f"{dm}.occlusion", f"{dm}/occlusion")
     sd = e.state_dict()
     for key, cfg in (("kp_detector", kp_cfg), ("dense_motion_network", dm_cfg)):
         scale = cfg.get("scale_factor", 0.25)
@@ -225,16 +243,19 @@ def net_g_state_dict(variables, net_cfg) -> Dict[str, torch.Tensor]:
             e.dense(f"to_app_feat_{r}.0", f"to_app_feat_{r}")
     e.direct("quantize_app.embedding.weight", "quantize_app/embedding")
     e.direct("quantize_motion.embedding.weight", "quantize_motion/embedding")
-    e.direct("position_emb_app", "position_emb_app")
-    e.direct("position_emb_motion", "position_emb_motion")
+    if net.with_position_emb:
+        e.direct("position_emb_app", "position_emb_app")
+        e.direct("position_emb_motion", "position_emb_motion")
     for r in net.connect:
         t, f = f"fuse_convs_dict.{r}", f"fuse_convs_{r}"
-        e.res_block(f"{t}.encode_enc", f"{f}/encode_enc")
-        e.conv2d(f"{t}.scale.0", f"{f}/scale1")
-        e.conv2d(f"{t}.scale.2", f"{f}/scale2")
-        e.conv2d(f"{t}.shift.0", f"{f}/shift1")
-        e.conv2d(f"{t}.shift.2", f"{f}/shift2")
-        e.conv2d(f"fuse_ms_dict.{r}", f"fuse_ms_{r}")
+        if net.multiscale_sft:
+            e.res_block(f"{t}.encode_enc", f"{f}/encode_enc")
+            e.conv2d(f"{t}.scale.0", f"{f}/scale1")
+            e.conv2d(f"{t}.scale.2", f"{f}/scale2")
+            e.conv2d(f"{t}.shift.0", f"{f}/shift1")
+            e.conv2d(f"{t}.shift.2", f"{f}/shift2")
+        if net.multiscale_feature_fusion:
+            e.conv2d(f"fuse_ms_dict.{r}", f"fuse_ms_{r}")
     e.conv2d("motion_emb.0", "motion_emb_conv")
     e.conv2d("motion_emb.1.conv", "motion_emb_down/conv")
     e.res_block("motion_emb.2", "motion_emb_res")
@@ -246,17 +267,20 @@ def net_g_state_dict(variables, net_cfg) -> Dict[str, torch.Tensor]:
         e.transformer_layer(f"motion_block.{i}", f"motion_block_{i}")
     for i in range(net.n_layers_app):
         e.transformer_layer(f"app_block.{i}", f"app_block_{i}")
-    for name in ("convc1", "convc2", "convf1", "convf2", "conv"):
-        e.conv2d(f"BasicMotionEncoder.{name}", f"BasicMotionEncoder/{name}")
-    for i, r in enumerate(net.scales):  # to_context order == scales order
-        e.conv2d(f"to_context.{i}", f"to_context_{r}")
-    for name in ("convc1", "conv1", "conv2", "convo1", "convo2"):
-        e.conv2d(f"refine.{name}", f"refine/{name}")
-    for r in net.scales:
-        e.conv2d(f"warped_source_enc_{r}", f"warped_source_enc_{r}")
-    e.conv2d("driving_kp_enc", "driving_kp_enc")
-    e.conv2d("motion_query_enc_1", "motion_query_enc_1")
-    e.conv2d("motion_query_enc_2", "motion_query_enc_2")
+    if net.MRFA_motion_enc:
+        for name in ("convc1", "convc2", "convf1", "convf2", "conv"):
+            e.conv2d(f"BasicMotionEncoder.{name}",
+                     f"BasicMotionEncoder/{name}")
+        for i, r in enumerate(net.scales):  # to_context order == scales
+            e.conv2d(f"to_context.{i}", f"to_context_{r}")
+        for name in ("convc1", "conv1", "conv2", "convo1", "convo2"):
+            e.conv2d(f"refine.{name}", f"refine/{name}")
+    if net.warp_s_d_kp_query:
+        for r in net.scales:
+            e.conv2d(f"warped_source_enc_{r}", f"warped_source_enc_{r}")
+        e.conv2d("driving_kp_enc", "driving_kp_enc")
+        e.conv2d("motion_query_enc_1", "motion_query_enc_1")
+        e.conv2d("motion_query_enc_2", "motion_query_enc_2")
     return e.state_dict()
 
 

@@ -298,8 +298,8 @@ def test_generator_inference_call(nets):
                                       ("test.yml", "flagship_256")])
 def test_build_network_takes_jax_options(yml, name):
     """The JAX package's option files build the same networks as the
-    port's configs: build_network drops the keys that act only on a TPU or
-    in training and checks the switches the port fixes."""
+    port's configs: build_network drops the keys that act only on a TPU
+    (wl_*), and takes the ablation switches at their other values too."""
     yaml = pytest.importorskip("yaml")
     root = osp.dirname(osp.dirname(osp.abspath(__file__)))
     with open(osp.join(root, "options", yml)) as f:
@@ -311,9 +311,11 @@ def test_build_network_takes_jax_options(yml, name):
             ours = build_network(configs.get(name)[net])
         assert {k: v.shape for k, v in from_yml.state_dict().items()} == {
             k: v.shape for k, v in ours.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="multiscale_feature"):
-        build_network(dict(opt["network_g"], multiscale_feature_fusion=False))
-    me = opt["network_motion_estimator"]
-    with pytest.raises(NotImplementedError, match="estimate_jacobian"):
-        build_network(dict(me, kp_detector_params=dict(
+    with torch.device("meta"):
+        g = build_network(dict(opt["network_g"],
+                               multiscale_feature_fusion=False))
+        me = opt["network_motion_estimator"]
+        me = build_network(dict(me, kp_detector_params=dict(
             me["kp_detector_params"], estimate_jacobian=False)))
+    assert not any(k.startswith("fuse_ms_dict.") for k in g.state_dict())
+    assert not any(".jacobian." in k for k in me.state_dict())
