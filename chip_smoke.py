@@ -51,6 +51,17 @@ at the flagship 256x256 width with seeded random weights:
   the main path's frames (within 1 level of the live frames, K1 launched
   from the exported generation program), and a weight swap without
   export at the tiny config.
+- VQGAN stage-1 training (sr_model): model_api.SRModel over a
+  VQAutoEncoder at the flagship generator's widths
+  (configs.FLAGSHIP_VQGAN_SR, batch 2, f32), 5 steps of the L1 pixel
+  loss on an identity target (ms/step, peak memory, l_pix falling, no
+  samt kernel launched: the JAX VQAutoEncoder reaches no Pallas kernel),
+  test() and PSNR validation; full-width forwards of VQAutoEncoder (equal
+  codebook indices) and AutoEncoder_MSDecoder, PerceptualLoss with a
+  style term, VGGFeatureExtractor, and r1_penalty and
+  gradient_penalty_loss over the flagship discriminator with their double
+  backward, each against the CPU; one tiny SRModel step against the CPU;
+  and train.vgg_weights read by the flagship Trainer.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -68,6 +79,7 @@ import subprocess
 import sys
 import time
 from collections import Counter, defaultdict
+from unittest import mock
 
 import numpy as np
 
@@ -3006,6 +3018,333 @@ def serving_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
             "frames_per_s": fps, "swap": swap}
 
 
+SR_STEPS = 5        # timed SRModel steps of the VQGAN stage-1 path
+SR_BATCH = 2        # its batch of 256x256 frames
+SR_OUT_REL = 1e-4   # full-width f32 forwards and losses, card vs CPU:
+#                     max error over the largest magnitude
+SR_GRAD_REL = 1e-3  # penalties' gradients to D, card vs CPU, 2-norm
+
+
+def sr_frames(torch, n, size, seed):
+    """n seeded image-like frames in [-1, 1], NHWC float32 numpy."""
+    return image_like(torch, n, size, seed).astype(np.float32) / 127.5 - 1.0
+
+
+def max_rel(torch, got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def samt_launches(fa, k3):
+    return {"k1": fa.launches, "k2": fa.split_launches, "k3": k3.launches,
+            "k4": k3.nhwc_launches}
+
+
+def sr_train(torch, configs, build_model, fa, k3, seed, card):
+    """VQGAN stage-1 training at full width (configs.FLAGSHIP_VQGAN_SR):
+    build_model -> feed_data -> SR_STEPS optimize_parameters on an
+    identity target, timed by the host clock with the kernel counts set to
+    0 just before and read just after; then test() and
+    nondist_validation on the card. l_pix finite and falling; no samt
+    kernel launched (the JAX VQAutoEncoder reaches no Pallas kernel)."""
+    cfg = configs.get("flagship_vqgan_sr")
+    model = build_model(cfg, device="cuda")
+    data = sr_frames(torch, SR_BATCH, 256, seed + 90)
+    model.feed_data({"lq": data, "gt": data})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    k3.reset_launches()
+    times, l_pix = [], []
+    for it in range(1, SR_STEPS + 1):
+        t0 = time.perf_counter()
+        model.optimize_parameters(it)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        l_pix.append(model.get_current_log()["l_pix"])
+    launches = samt_launches(fa, k3)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(v) for v in l_pix), l_pix
+    assert l_pix[-1] < l_pix[0], l_pix
+    assert not any(launches.values()), launches
+    out = model.test()
+    assert out.shape == (SR_BATCH, 3, 256, 256)
+    assert torch.isfinite(out).all()
+    val = model.nondist_validation([{"lq": data, "gt": data}], SR_STEPS)
+    assert math.isfinite(val["psnr"]), val
+    ms = float(np.median(times))
+    print(f"sr_model: VQGAN stage-1 (SRModel over VQAutoEncoder, 256^2, "
+          f"batch {SR_BATCH}, f32) {ms:.2f} ms/step median of {SR_STEPS} "
+          f"(host clock; first {times[0]:.2f} ms), peak "
+          f"{peak / 2 ** 30:.2f} GiB, l_pix {l_pix[0]:.5f} -> "
+          f"{l_pix[-1]:.5f}, EMA PSNR {val['psnr']:.3f} dB, samt launches "
+          f"{launches} on {card}", flush=True)
+    del model
+    return {"step_ms": times, "ms_per_step_median": ms, "peak_bytes": peak,
+            "l_pix": l_pix, "psnr": val["psnr"], "launches": launches}
+
+
+def sr_forwards(torch, configs, build_network, seed):
+    """One full-width f32 forward, batch 1, of VQAutoEncoder and
+    AutoEncoder_MSDecoder (configs.FLAGSHIP_VQGAN_SR's widths) on the card
+    against the same module on the CPU. The codebook is drawn at the
+    latents' scale: at its default init (+-1/1024) the nearest-entry
+    distances of a latent tie to float32 rounding, so the card and the
+    CPU would pick among near-equal entries."""
+    g_cfg = configs.get("flagship_vqgan_sr")["network_g"]
+    x = torch.from_numpy(sr_frames(torch, 1, 256, seed + 91)).permute(
+        0, 3, 1, 2).contiguous()
+    torch.manual_seed(seed + 92)
+    vq = build_network(g_cfg).eval()
+    with torch.no_grad():
+        z = vq.encoder(x)[0]
+        gen = torch.Generator().manual_seed(seed + 93)
+        vq.quantize.embedding.weight.copy_(
+            torch.randn(vq.quantize.embedding.weight.shape, generator=gen)
+            * z.std())
+        want, loss_cpu, st_cpu = vq(x)
+        got, loss_card, st_card = vq.cuda()(x.cuda())
+    idx_cpu = st_cpu["min_encoding_indices"]
+    idx_card = st_card["min_encoding_indices"].cpu()
+    equal = bool(torch.equal(idx_cpu, idx_card))
+    report = {"vq_autoencoder": {
+        "max_rel_err": max_rel(torch, got, want),
+        "codebook_loss_rel_err": abs(float(loss_card) - float(loss_cpu))
+        / abs(float(loss_cpu)),
+        "indices_equal": equal,
+        "distinct_indices": int(idx_cpu.unique().numel())}}
+    del vq
+    ms_cfg = {k: v for k, v in g_cfg.items() if k != "codebook_size"}
+    ms_cfg["type"] = "AutoEncoder_MSDecoder"
+    torch.manual_seed(seed + 94)
+    ms = build_network(ms_cfg).eval()
+    with torch.no_grad():
+        want = ms(x)
+        got = ms.cuda()(x.cuda())
+    report["autoencoder_ms_decoder"] = {"max_rel_err": max_rel(torch, got,
+                                                               want)}
+    del ms
+    print(f"sr_model forwards, f32 card vs CPU at 256^2: VQAutoEncoder "
+          f"{report['vq_autoencoder']['max_rel_err']:.3e} (indices equal "
+          f"{equal}, {report['vq_autoencoder']['distinct_indices']} "
+          f"distinct), AutoEncoder_MSDecoder "
+          f"{report['autoencoder_ms_decoder']['max_rel_err']:.3e}",
+          flush=True)
+    assert equal, "VQAutoEncoder: other codebook indices on the card"
+    assert report["vq_autoencoder"]["max_rel_err"] <= SR_OUT_REL, report
+    assert report["vq_autoencoder"]["codebook_loss_rel_err"] <= SR_OUT_REL
+    assert report["autoencoder_ms_decoder"]["max_rel_err"] <= SR_OUT_REL, \
+        report
+    return report
+
+
+def sr_losses(torch, build_network, seed):
+    """PerceptualLoss (with a style term) over VGG19Features,
+    VGGFeatureExtractor (vgg19, relu1_1 ... relu5_1) at 256^2, and
+    r1_penalty and gradient_penalty_loss over the flagship
+    VQGANDiscriminator with their gradients to D's weights (a double
+    backward), each on the card against the CPU."""
+    from synergize_motion_appearance_tpu_torch import losses as tl
+    from synergize_motion_appearance_tpu_torch.models import VGG19Features
+
+    x = torch.from_numpy(sr_frames(torch, 2, 256, seed + 95)).permute(
+        0, 3, 1, 2).contiguous()
+    y = torch.from_numpy(sr_frames(torch, 2, 256, seed + 96)).permute(
+        0, 3, 1, 2).contiguous()
+    report = {}
+    torch.manual_seed(seed + 97)
+    vgg = VGG19Features().eval().requires_grad_(False)
+    perc = tl.build_loss({"type": "PerceptualLoss", "layer_weights": {
+        "conv1_2": 0.1, "relu2_1": 0.1, "conv3_4": 1.0, "relu4_1": 1.0,
+        "conv5_4": 1.0}, "perceptual_weight": 1.0, "style_weight": 50.0,
+        "criterion": "l1", "range_norm": True})
+    with torch.no_grad():
+        want = perc(vgg, x[:1], y[:1])
+        vgg_card = vgg.cuda()
+        got = perc(vgg_card, x[:1].cuda(), y[:1].cuda())
+    report["perceptual_values"] = {"cpu": [float(w) for w in want],
+                                   "card": [float(g) for g in got]}
+    report["perceptual"] = max(
+        abs(float(g) - float(w)) / abs(float(w)) for g, w in zip(got, want))
+    del vgg, vgg_card
+    torch.manual_seed(seed + 98)
+    ext = build_network({"type": "VGGFeatureExtractor", "layer_name_list": [
+        "relu1_1", "relu2_1", "relu3_1", "relu4_1", "relu5_1"],
+        "vgg_type": "vgg19"}).eval()
+    with torch.no_grad():
+        want = ext(x[:1])
+        got = ext.cuda()(x[:1].cuda())
+    report["vgg_feature_extractor"] = max(
+        max_rel(torch, got[k], want[k]) for k in want)
+    del ext
+    torch.manual_seed(seed + 99)
+    d = build_network({"type": "VQGANDiscriminator", "nc": 3, "ndf": 64,
+                       "n_layers": 4}).eval()
+
+    # WGAN-GP's blend weights: one CPU draw, given to both sides
+    alpha = torch.rand((x.shape[0], 1, 1, 1),
+                       generator=torch.Generator().manual_seed(seed + 100))
+
+    def penalties(net, real, fake, device):
+        params = list(net.parameters())
+        gen = torch.Generator(device=device).manual_seed(seed + 101)
+        r1 = tl.r1_penalty(net, real)
+        with mock.patch.object(tl, "_draw_alpha",
+                               lambda n, g, dev, dt: alpha.to(dev, dt)):
+            gp = tl.gradient_penalty_loss(net, real, fake, gen)
+        grads = [torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+            v, params, allow_unused=True) if g is not None]).cpu()
+            for v in (r1, gp)]
+        return [float(r1.detach()), float(gp.detach())], grads
+
+    want, gwant = penalties(d, x, y, "cpu")
+    got, ggot = penalties(d.cuda(), x.cuda(), y.cuda(), "cuda")
+    report["r1_penalty"] = abs(got[0] - want[0]) / abs(want[0])
+    report["gradient_penalty"] = abs(got[1] - want[1]) / abs(want[1])
+    report["penalty_grad_rel_2norm"] = [
+        float((g - w).norm() / w.norm()) for g, w in zip(ggot, gwant)]
+    print(f"sr_model losses, f32 card vs CPU at 256^2: PerceptualLoss "
+          f"(+style) {report['perceptual']:.3e}, VGGFeatureExtractor "
+          f"{report['vgg_feature_extractor']:.3e}, r1 "
+          f"{report['r1_penalty']:.3e}, WGAN-GP "
+          f"{report['gradient_penalty']:.3e}, their gradients to D "
+          f"{report['penalty_grad_rel_2norm']}", flush=True)
+    for k in ("perceptual", "vgg_feature_extractor", "r1_penalty",
+              "gradient_penalty"):
+        assert report[k] <= SR_OUT_REL, (k, report[k])
+    assert max(report["penalty_grad_rel_2norm"]) <= SR_GRAD_REL, report
+    return report
+
+
+# tests/test_sr_model.py's model: the 32x32 AutoEncoder with nf 8
+TINY_SR = {
+    "model_type": "SRModel", "is_train": True, "manual_seed": 0,
+    "network_g": {"type": "AutoEncoder", "img_size": 32, "nf": 8,
+                  "ch_mult": [1, 2], "res_blocks": 1,
+                  "attn_resolutions": [8], "emb_dim": 16},
+    "train": {"optim_g": {"type": "Adam", "lr": 1e-3},
+              "pixel_opt": {"type": "L1Loss", "loss_weight": 1.0},
+              "ema_decay": 0.99},
+}
+
+
+def sr_tiny_step(torch, build_model, seed):
+    """One tiny SRModel step (TINY_SR) on the card against the CPU from
+    the same seeded weights, with tests/test_torch_sr_model.py's bounds:
+    logs within 1e-5 relative; the gradient, from the Adam first moments,
+    within 1e-3 in the 2-norm and per leaf within 1e-3 of the leaf's
+    largest entry plus a floor of 2e-5 of the network's; weights and EMA
+    within 2 lr, and within 1e-6 on 0.999 of the entries whose gradient
+    is above the floor."""
+    lr, b1 = TINY_SR["train"]["optim_g"]["lr"], 0.9
+    data = sr_frames(torch, 2, 32, seed + 102)
+    models = [build_model(TINY_SR, device=dev) for dev in ("cpu", "cuda")]
+    for m in models:
+        m.feed_data({"lq": data, "gt": data})
+        m.optimize_parameters(1)
+    cpu, card = models
+    for k, v in cpu.get_current_log().items():
+        assert abs(card.get_current_log()[k] - v) <= 1e-5 * abs(v), k
+    grads = [{k: v.cpu() / (1 - b1) for k, v in m.adam_state.mu.items()}
+             for m in models]
+    floor = 2e-5 * max(float(g.abs().max()) for g in grads[0].values())
+    worst_leaf = 0.0
+    for k, w in grads[0].items():
+        err = float((grads[1][k] - w).abs().max())
+        bound = 1e-3 * float(w.abs().max()) + floor
+        worst_leaf = max(worst_leaf, err / bound)
+    num = sum(float(((grads[1][k] - w) ** 2).sum())
+              for k, w in grads[0].items())
+    den = sum(float((w ** 2).sum()) for w in grads[0].values())
+    rel = math.sqrt(num / den)
+    shares = {}
+    for what in ("params", "ema"):
+        if what == "params":
+            a, b = (dict(m.net_g.named_parameters()) for m in models)
+        else:
+            a, b = cpu.ema, card.ema
+        diffs = torch.cat([(b[k].detach().cpu() - a[k].detach()).abs()
+                           .reshape(-1) for k in a])
+        above = torch.cat([(grads[0][k].abs() > floor).reshape(-1)
+                           for k in a])
+        assert float(diffs.max()) <= 2 * lr * (1 + 1e-3), (what, diffs.max())
+        shares[what] = float((diffs[above] <= 1e-6).float().mean())
+    print(f"sr_model tiny step, f32 card vs CPU: gradient "
+          f"{rel:.3e} relative 2-norm, worst leaf {worst_leaf:.2f} of its "
+          f"bound, entries within 1e-6 {shares}", flush=True)
+    assert rel <= 1e-3, rel
+    assert worst_leaf <= 1.0, worst_leaf
+    assert min(shares.values()) >= 0.999, shares
+    return {"grad_rel_2norm": rel, "worst_leaf_over_bound": worst_leaf,
+            "share_within_1e6": shares}
+
+
+def sr_vgg_weights(torch, configs, Trainer, seed):
+    """train.vgg_weights: the flagship Trainer built on the card with the
+    key pointing at a .npz that tools/convert_vgg_weights.py's save_npz
+    wrote from random VGG19 weights holds that file's tensors bit for bit
+    (and its bf16 copy their cast); an absent path raises and names it."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from convert_vgg_weights import save_npz, torch_vgg_to_flax
+
+    from synergize_motion_appearance_tpu_torch.models import VGG19Features
+    from synergize_motion_appearance_tpu_torch.weights import vgg_state_dict
+
+    work = os.path.join(ROOT, "build", "chip_smoke_vgg")
+    os.makedirs(work, exist_ok=True)
+    try:
+        torch.manual_seed(seed + 103)
+        params = torch_vgg_to_flax({k: v.numpy() for k, v in
+                                    VGG19Features().state_dict().items()})
+        path = os.path.join(work, "vgg19.npz")
+        save_npz(params, path)
+        want = vgg_state_dict(params)
+        cfg = configs.get("flagship_train")
+        cfg["train"]["vgg_weights"] = path
+        tr = Trainer(cfg, device="cuda", seed=seed)
+        got, got_c = tr.vgg.state_dict(), tr.vgg_c.state_dict()
+        for k, w in want.items():
+            assert torch.equal(got[k].cpu(), w), k
+            assert torch.equal(got_c[k].cpu(), w.to(got_c[k].dtype)), k
+        del tr
+        missing = os.path.join(work, "missing.npz")
+        cfg["train"]["vgg_weights"] = missing
+        try:
+            Trainer(cfg, device="cuda", seed=seed)
+        except RuntimeError as e:
+            assert missing in str(e), e
+        else:
+            raise AssertionError("an absent train.vgg_weights did not raise")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"sr_model vgg_weights: the flagship Trainer holds the file's "
+          f"{len(want)} tensors bit for bit; an absent file raises",
+          flush=True)
+    return {"tensors": len(want), "absent_raises": True}
+
+
+def sr_model(torch, configs, fa, k3, seed, card):
+    """VQGAN stage-1 training (SRModel over VQAutoEncoder) at full width,
+    the forwards and losses of its family on the card against the CPU, a
+    tiny SRModel step against the CPU, and train.vgg_weights."""
+    from synergize_motion_appearance_tpu_torch.model_api import build_model
+    from synergize_motion_appearance_tpu_torch.models import build_network
+    from synergize_motion_appearance_tpu_torch.training import Trainer
+
+    t0 = time.perf_counter()
+    report = {"train": sr_train(torch, configs, build_model, fa, k3, seed,
+                                card)}
+    torch.cuda.empty_cache()
+    report["forwards"] = sr_forwards(torch, configs, build_network, seed)
+    report["losses"] = sr_losses(torch, build_network, seed)
+    report["tiny_step"] = sr_tiny_step(torch, build_model, seed)
+    torch.cuda.empty_cache()
+    report["vgg_weights"] = sr_vgg_weights(torch, configs, Trainer, seed)
+    report["wall_s"] = time.perf_counter() - t0
+    print(f"sr_model: phase {report['wall_s']:.1f} s on {card}", flush=True)
+    return report
+
+
 def kernel_entry(name, source, replaces, rows, weight, launches,
                  times_are, summed=None, **extra):
     """One kernel's entry of the kernels line: errors over its f32 and bf16
@@ -3120,6 +3459,9 @@ def main():
     torch.cuda.empty_cache()
     report["serving"] = serving_path(
         torch, configs, ReenactmentPipeline, seeded_nets, fa, args.seed, card)
+    torch.cuda.empty_cache()
+    report["sr_model"] = sr_model(torch, configs, fa, k3, args.seed, card)
+    sr_launches = report["sr_model"]["train"]["launches"]
 
     cli = report["train_cli"]["fresh"]["launches"]
     k3_per_step = report["train_path"]["k3_launches_per_step"]
@@ -3158,7 +3500,8 @@ def main():
             launches_ablations={
                 name: {"frame_batch": row["inference"]["k1_launches"],
                        "train_step": row["train"]["k1_launches"]}
-                for name, row in ablated.items()}),
+                for name, row in ablated.items()},
+            launches_sr_model=sr_launches["k1"]),
         kernel_entry(
             "fused_attention (head-split)", "fused_attention_packed.cu",
             "fused_attention.py:56", report["k2_cases"],
@@ -3186,8 +3529,12 @@ def main():
             launches_dp_train=dp["two_ranks"]["k3_launches"],
             launches_ablations={name: row["train"]["k3_launches"]
                                 for name, row in ablated.items()},
+            launches_sr_model=sr_launches["k3"],
             launches_note="launches_dp_train is per rank per step of the "
-                          "two-rank data-parallel step; K3 is the op "
+                          "two-rank data-parallel step; launches_sr_model "
+                          f"over the {SR_STEPS} steps of VQGAN stage-1 "
+                          "training (SRModel), which reaches no TPU kernel "
+                          "in the JAX package either; K3 is the op "
                           "samt::conv3x3"),
         kernel_entry(
             "conv3x3_nhwc", "conv3x3.cu", "pallas_conv.py:39",

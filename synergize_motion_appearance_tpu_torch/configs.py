@@ -5,6 +5,9 @@
 same code paths at img_size 64 with ~100x smaller nets. ``FLAGSHIP_TRAIN``
 (options/train.yml) and ``TINY_TRAIN`` (options/tiny_train.yml) add the
 discriminator and the ``train`` block that ``training.Trainer`` reads.
+``FLAGSHIP_VQGAN_SR`` is VQGAN stage-1 training through
+``model_api.SRModel``: a ``VQAutoEncoder`` at the flagship generator's
+widths.
 Keys that hold one value in every config, or act only on a TPU, are left
 out; ``models.build_network`` accepts and checks them, so the JAX
 package's network configs load as they are.
@@ -104,6 +107,31 @@ FLAGSHIP_TRAIN = {
 FLAGSHIP_TRAIN["datasets"] = {"train": dict(gt_size=256,
                                             batch_size_per_gpu=2)}
 
+# VQGAN stage-1 training (the codebook the reenactment model builds on):
+# SRModel over a VQAutoEncoder with FLAGSHIP_256's encoder, codebook and
+# decoder widths (nf 64, ch_mult [1, 2, 2, 4], 2 res blocks, 1024 x 256
+# codebook; attention at 16, the JAX VQAutoEncoder's default), the L1
+# pixel loss, options/train.yml's Adam (lr 8e-5) and EMA (0.995); float32,
+# batch 2 of 256x256
+FLAGSHIP_VQGAN_SR = {
+    "model_type": "SRModel",
+    "is_train": True,
+    "manual_seed": 0,
+    "network_g": dict(type="VQAutoEncoder", img_size=256, nf=64,
+                      ch_mult=[1, 2, 2, 4], res_blocks=2,
+                      attn_resolutions=[16], codebook_size=1024,
+                      emb_dim=256),
+    "train": dict(
+        optim_g=dict(type="Adam", lr=8e-5, weight_decay=0,
+                     betas=[0.9, 0.99]),
+        ema_decay=0.995,
+        pixel_opt=dict(type="L1Loss", loss_weight=1.0, reduction="mean"),
+    ),
+    "val": {"metrics": {"psnr": {"type": "calculate_psnr",
+                                 "crop_border": 0}}},
+    "datasets": {"train": dict(gt_size=256, batch_size_per_gpu=2)},
+}
+
 # options/tiny_train.yml: float32, the discriminator from step 3
 TINY_TRAIN = {
     **copy.deepcopy(TINY),
@@ -115,7 +143,8 @@ TINY_TRAIN["datasets"] = {"train": dict(gt_size=64, batch_size_per_gpu=2)}
 
 def get(name: str):
     """A deep copy of the named config ('flagship_256', 'tiny',
-    'flagship_train' or 'tiny_train')."""
+    'flagship_train', 'flagship_vqgan_sr' or 'tiny_train')."""
     return copy.deepcopy({"flagship_256": FLAGSHIP_256, "tiny": TINY,
                           "flagship_train": FLAGSHIP_TRAIN,
+                          "flagship_vqgan_sr": FLAGSHIP_VQGAN_SR,
                           "tiny_train": TINY_TRAIN}[name])

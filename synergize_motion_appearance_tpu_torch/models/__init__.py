@@ -1,8 +1,8 @@
 """Networks of the reenactment and training paths, and their registry.
 
 ``build_network({'type': ..., **kwargs})`` takes the same ``type`` strings
-as the JAX package's, including the reference alias
-``Motion_Estimator_keypoint_aware``.
+as the JAX package's, including the reference aliases
+``Motion_Estimator_keypoint_aware`` and ``AutoEncoder_MSDecoder``.
 """
 from typing import Any, Dict
 
@@ -11,15 +11,20 @@ from .appmotion_former import AppMotionCompFormer
 from .dense_motion import DenseMotionNetwork, MotionEstimator
 from .keypoint_detector import KPDetector
 from .transformer import MultiheadAttention, TransformerLayer
-from .vgg import VGG19Features
-from .vqgan import Encoder, Generator, VectorQuantizer, VQGANDiscriminator
+from .vgg import VGG19Features, VGGFeatureExtractor
+from .vqgan import (AutoEncoder, Encoder, Generator, VectorQuantizer,
+                    VQAutoEncoder, VQGANDiscriminator)
+from .vqgan_extras import (AutoEncoderMSDecoder, FuseFeatBlock,
+                           GumbelQuantizer, MSGenerator)
 
 for _cls in (KPDetector, DenseMotionNetwork, MotionEstimator,
-             AppMotionCompFormer, VQGANDiscriminator):
+             VQAutoEncoder, AutoEncoder, VQGANDiscriminator,
+             AppMotionCompFormer, VGGFeatureExtractor):
     ARCH_REGISTRY.register(_cls)
-# reference alias (archs/motion_estimator_arch.py:15)
+# reference aliases (archs/motion_estimator_arch.py:15, vqgan_arch.py:629)
 ARCH_REGISTRY.register(MotionEstimator,
                        name="Motion_Estimator_keypoint_aware")
+ARCH_REGISTRY.register(AutoEncoderMSDecoder, name="AutoEncoder_MSDecoder")
 
 
 # keys of the JAX configs that the port does not take: they choose the
@@ -42,8 +47,10 @@ def build_network(opt: Dict[str, Any]):
 
 
 __all__ = [
-    "AppMotionCompFormer", "DenseMotionNetwork", "Encoder", "Generator",
-    "KPDetector", "MotionEstimator", "MultiheadAttention",
-    "TransformerLayer", "VGG19Features", "VQGANDiscriminator",
+    "AppMotionCompFormer", "AutoEncoder", "AutoEncoderMSDecoder",
+    "DenseMotionNetwork", "Encoder", "FuseFeatBlock", "Generator",
+    "GumbelQuantizer", "KPDetector", "MSGenerator", "MotionEstimator",
+    "MultiheadAttention", "TransformerLayer", "VGG19Features",
+    "VGGFeatureExtractor", "VQAutoEncoder", "VQGANDiscriminator",
     "VectorQuantizer", "build_network",
 ]

@@ -1,4 +1,4 @@
-"""VGG19 feature slices of the perceptual pyramid loss, NCHW.
+"""VGG feature extractors of the perceptual losses, NCHW.
 
 Counterpart of the JAX package's models/vgg.py ``VGG19Features``
 (reference archs/vgg_arch.py:166-207): the frame is normalised with the
@@ -7,10 +7,17 @@ VGG19 ``features`` up to relu5_1, returning [relu1_1, relu2_1, relu3_1,
 relu4_1, relu5_1]. ``features`` holds the layers at torchvision's indices,
 so a torchvision VGG19 state_dict loads into it as it is. As in the
 reference, frames in [-1, 1] go in unscaled.
+
+``VGGFeatureExtractor`` is the JAX package's named-layer extractor
+(reference archs/vgg_arch.py:57-164): the layers of vgg11/13/16/19 up to
+the deepest requested one, in an ``nn.Sequential`` named by layer
+(``vgg_net.conv1_1``, ...), so the JAX params, named by layer too, map
+one to one; its forward returns ``{layer name: feature}``.
 """
 from __future__ import annotations
 
-from typing import List
+from collections import OrderedDict
+from typing import Dict, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -51,3 +58,67 @@ class VGG19Features(nn.Module):
             if i in SLICE_ENDS:
                 outs.append(x)
         return outs
+
+
+# layer-name sequences per VGG type (vgg_arch.py:13-36); a conv's channels
+# follow its block: block 1..5 -> 64/128/256/512/512
+def _names(convs_per_block):
+    names = []
+    for block, n in enumerate(convs_per_block, start=1):
+        for i in range(1, n + 1):
+            names += [f"conv{block}_{i}", f"relu{block}_{i}"]
+        names.append(f"pool{block}")
+    return names
+
+
+VGG_NAMES = {"vgg11": _names((1, 1, 2, 2, 2)),
+             "vgg13": _names((2, 2, 2, 2, 2)),
+             "vgg16": _names((2, 2, 3, 3, 3)),
+             "vgg19": _names((2, 2, 4, 4, 4))}
+_BLOCK_CHANNELS = {1: 64, 2: 128, 3: 256, 4: 512, 5: 512}
+
+
+class VGGFeatureExtractor(nn.Module):
+    """The taps ``layer_name_list`` of ``vgg_type``; ``range_norm`` maps
+    [-1, 1] to [0, 1] first, ``use_input_norm`` then applies the ImageNet
+    mean and std (in float32, as the JAX module does), ``remove_pooling``
+    drops the max pools and ``pooling_stride`` sets their stride."""
+
+    def __init__(self, layer_name_list: Sequence[str],
+                 vgg_type: str = "vgg19", use_input_norm: bool = True,
+                 range_norm: bool = False, remove_pooling: bool = False,
+                 pooling_stride: int = 2):
+        super().__init__()
+        names = VGG_NAMES[vgg_type]
+        for v in layer_name_list:
+            if v not in names:
+                raise ValueError(f"layer {v!r} not in {vgg_type}")
+        self.layer_name_list = list(layer_name_list)
+        self.use_input_norm = use_input_norm
+        self.range_norm = range_norm
+        layers = OrderedDict()
+        ch = 3
+        for name in names[:max(names.index(v) for v in layer_name_list) + 1]:
+            if name.startswith("conv"):
+                out = _BLOCK_CHANNELS[int(name[4])]
+                layers[name] = nn.Conv2d(ch, out, 3, padding=1)
+                ch = out
+            elif name.startswith("relu"):
+                layers[name] = nn.ReLU(inplace=False)
+            elif not remove_pooling:
+                layers[name] = nn.MaxPool2d(2, stride=pooling_stride)
+        self.vgg_net = nn.Sequential(layers)
+
+    def forward(self, x) -> Dict[str, torch.Tensor]:
+        if self.range_norm:
+            x = (x + 1.0) / 2.0
+        if self.use_input_norm:
+            mean = torch.tensor(_IMAGENET_MEAN, device=x.device)
+            std = torch.tensor(_IMAGENET_STD, device=x.device)
+            x = (x - mean[:, None, None]) / std[:, None, None]
+        out = {}
+        for name, layer in self.vgg_net.named_children():
+            x = layer(x)
+            if name in self.layer_name_list:
+                out[name] = x
+        return out

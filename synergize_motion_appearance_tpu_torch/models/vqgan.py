@@ -182,7 +182,8 @@ class Encoder(nn.Module):
 
 class Generator(nn.Module):
     """The decoder's blocks. AppMotionCompFormer runs them one by one,
-    fusing the warped source features after the tap blocks."""
+    fusing the warped source features after the tap blocks; ``forward``
+    runs them all, as the autoencoders do."""
 
     def __init__(self, nf: int = 64, emb_dim: int = 256,
                  ch_mult: Sequence[int] = (1, 2, 2, 4),
@@ -192,6 +193,11 @@ class Generator(nn.Module):
         self.blocks = make_blocks(
             generator_block_defs(nf, emb_dim, ch_mult, num_res_blocks,
                                  resolution, attn_resolutions), emb_dim)
+
+    def forward(self, x):
+        for block in self.blocks:
+            x = block(x)
+        return x
 
 
 class VectorQuantizer(nn.Module):
@@ -240,3 +246,46 @@ class VQGANDiscriminator(nn.Module):
 
     def forward(self, x):
         return self.main(x)
+
+
+class VQAutoEncoder(nn.Module):
+    """Encoder -> VectorQuantizer -> Generator (vqgan_arch.py:467-530), the
+    codebook model of stage-1 training. Returns (reconstruction, the
+    codebook loss, the quantizer's stats), as the JAX module does. Its
+    convs are plain cuDNN convs: it never enters the decoder region."""
+
+    def __init__(self, img_size: int = 256, nf: int = 64,
+                 ch_mult: Sequence[int] = (1, 2, 2, 4), res_blocks: int = 2,
+                 attn_resolutions: Sequence[int] = (16,),
+                 codebook_size: int = 1024, emb_dim: int = 256,
+                 beta: float = 0.25):
+        super().__init__()
+        self.encoder = Encoder(nf, emb_dim, ch_mult, res_blocks, img_size,
+                               attn_resolutions)
+        self.quantize = VectorQuantizer(codebook_size, emb_dim, beta)
+        self.generator = Generator(nf, emb_dim, ch_mult, res_blocks,
+                                   img_size, attn_resolutions)
+
+    def forward(self, x):
+        x, _ = self.encoder(x)
+        quant, codebook_loss, quant_stats = self.quantize(
+            x.permute(0, 2, 3, 1))
+        x = self.generator(quant.permute(0, 3, 1, 2))
+        return x, codebook_loss, quant_stats
+
+
+class AutoEncoder(nn.Module):
+    """The codebook-free autoencoder (vqgan_arch.py:578-627)."""
+
+    def __init__(self, img_size: int = 256, nf: int = 64,
+                 ch_mult: Sequence[int] = (1, 2, 2, 4), res_blocks: int = 2,
+                 attn_resolutions: Sequence[int] = (16,),
+                 emb_dim: int = 256):
+        super().__init__()
+        self.encoder = Encoder(nf, emb_dim, ch_mult, res_blocks, img_size,
+                               attn_resolutions)
+        self.generator = Generator(nf, emb_dim, ch_mult, res_blocks,
+                                   img_size, attn_resolutions)
+
+    def forward(self, x):
+        return self.generator(self.encoder(x)[0])

@@ -156,8 +156,10 @@ def load_variables(path: str, param_key: str = "params",
     ``params``, or a bare state_dict) or the ``.npz`` of flax variables
     that tools/convert_reference_checkpoint.py writes ('/'-joined keys),
     which goes through ``weights``' bridge for the network config
-    ``net_cfg`` (the motion estimator's BatchNorm statistics ride along).
-    An orbax directory needs JAX and raises."""
+    ``net_cfg`` (the motion estimator's BatchNorm statistics ride along;
+    ``{"type": "VGG19Features"}`` reads the ``.npz`` of
+    tools/convert_vgg_weights.py). An orbax directory needs JAX and
+    raises."""
     path = osp.abspath(path)
     if osp.isdir(path):
         raise RuntimeError(
@@ -166,7 +168,8 @@ def load_variables(path: str, param_key: str = "params",
             f"tools/convert_reference_checkpoint.py to an .npz, or load the "
             f"torch file itself")
     if path.endswith(".npz"):
-        from ..weights import motion_estimator_state_dict, net_g_state_dict
+        from ..weights import (motion_estimator_state_dict, net_g_state_dict,
+                               vgg_state_dict)
 
         if net_cfg is None:
             raise ValueError(f"loading {path} needs the network's config "
@@ -176,8 +179,48 @@ def load_variables(path: str, param_key: str = "params",
         variables = {"params": _pick(restored, param_key)}
         if "batch_stats" in restored:
             variables["batch_stats"] = restored["batch_stats"]
+        if net_cfg["type"] == "VGG19Features":
+            return vgg_state_dict(variables["params"])
         if net_cfg["type"] == "Motion_Estimator_keypoint_aware":
             return motion_estimator_state_dict(variables, net_cfg)
         return net_g_state_dict(variables, net_cfg)
     restored = torch.load(path, map_location="cpu", weights_only=True)
     return dict(_pick(restored, param_key))
+
+
+# the '/'-joined params of VGG19Features in the .npz of
+# tools/convert_vgg_weights.py: its 13 convs, through relu5_1
+_VGG_KEYS = {f"conv{i}/Conv_0/{leaf}" for i in range(13)
+             for leaf in ("kernel", "bias")}
+
+
+def load_vgg_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The perceptual pyramid's VGG19 named by ``train.vgg_weights``, as
+    the state_dict of ``models.VGG19Features``: the ``.npz`` of
+    tools/convert_vgg_weights.py, or a torch file in VGG19Features' names
+    (torchvision's ``features.<i>``). An absent file raises a RuntimeError,
+    a tree other than VGG19Features' a ValueError; each names the path."""
+    if not osp.exists(path):
+        raise RuntimeError(
+            f"train.vgg_weights={path} does not exist. Convert torchvision's "
+            f"VGG19 with tools/convert_vgg_weights.py --src vgg19.pth --dst "
+            f"<file>.npz, or remove the key to train against a random VGG.")
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            tree = _pick(_unflatten({k: f[k] for k in f.files}), "params")
+        got = set(_flat_keys(tree))
+        if got != _VGG_KEYS:
+            raise ValueError(
+                f"train.vgg_weights={path}: param tree does not match "
+                f"VGG19Features (missing {sorted(_VGG_KEYS - got)}, "
+                f"unexpected {sorted(got - _VGG_KEYS)})")
+    return load_variables(path, net_cfg={"type": "VGG19Features"})
+
+
+def _flat_keys(tree, prefix=""):
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat_keys(v, key)
+        else:
+            yield key

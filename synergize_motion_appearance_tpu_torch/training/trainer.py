@@ -382,9 +382,21 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self, seed: int) -> None:
         """Seeded random weights for the four networks, fresh optimizer
-        states, step 0. In a process group every rank then takes rank 0's
-        weights (the JAX entry point's ``replicate``)."""
+        states, step 0; the VGG19 of the perceptual pyramid from
+        ``train.vgg_weights`` when the key is set (the JAX
+        ``Trainer.init_state``), loaded before the broadcast and the
+        compute-dtype copy. In a process group every rank then takes rank
+        0's weights (the JAX entry point's ``replicate``)."""
         g, me, d, vgg = weights.seeded_train_nets(self.opt, seed)
+        vgg_path = self.opt["train"].get("vgg_weights")
+        if vgg_path:
+            from .checkpoint import load_vgg_weights
+
+            state_dict = load_vgg_weights(str(vgg_path))
+            try:
+                vgg.load_state_dict(state_dict, strict=True)
+            except RuntimeError as e:
+                raise ValueError(f"train.vgg_weights={vgg_path}: {e}") from e
         self.net_g = g.to(self.device)
         self.motion_estimator = me.to(self.device).train()
         self.net_d = d.to(self.device).train()

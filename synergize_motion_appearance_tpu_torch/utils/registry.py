@@ -36,5 +36,6 @@ class Registry:
 
 ARCH_REGISTRY = Registry("arch")
 DATASET_REGISTRY = Registry("dataset")
+LOSS_REGISTRY = Registry("loss")
 METRIC_REGISTRY = Registry("metric")
 MODEL_REGISTRY = Registry("model")

@@ -16,7 +16,11 @@ HWIO -> OIHW, linear (I, O) -> (O, I), attention wq/wk/wv -> the packed
 fixed anti-alias blur buffers, which have no JAX parameter. The
 discriminator's names follow ``map_net_d`` of that tool, and VGG19's are
 torchvision's, the reverse of tools/convert_vgg_weights.py's
-``torch_vgg_to_flax``. ``load_train_state`` carries a whole JAX
+``torch_vgg_to_flax``. The VQGAN family (``VQAutoEncoder``,
+``AutoEncoder``, ``AutoEncoder_MSDecoder``, and ``GumbelQuantizer`` and
+``FuseFeatBlock``) and ``VGGFeatureExtractor`` map through
+``network_state_dict``; ``MSGenerator``'s torch names are its JAX module
+names. ``load_train_state`` carries a whole JAX
 ``TrainState`` (weights, BatchNorm statistics, EMA, Adam moments and
 counts) into a ``training.Trainer``.
 """
@@ -30,7 +34,8 @@ import torch
 
 from .models import VGG19Features, build_network
 from .models.vgg import CONV_INDICES
-from .models.vqgan import encoder_block_defs, generator_block_defs
+from .models.vqgan import (AttnBlock, Upsample, VQGANResBlock,
+                           encoder_block_defs, generator_block_defs)
 from .ops import antialias_weight
 
 
@@ -161,13 +166,32 @@ class _Exporter:
             elif kind == "res":
                 self.res_block(t, f)
             elif kind == "attn":
-                self.gn(f"{t}.norm", f"{f}/norm")
-                for name in ("q", "k", "v", "proj_out"):
-                    self.conv2d(f"{t}.{name}", f"{f}/{name}")
+                self.attn(t, f)
             elif kind in ("down", "up"):
                 self.conv2d(f"{t}.conv", f"{f}/conv")
             elif kind == "norm":
                 self.gn(t, f"{f}/norm")
+
+    def attn(self, t, f):
+        self.gn(f"{t}.norm", f"{f}/norm")
+        for name in ("q", "k", "v", "proj_out"):
+            self.conv2d(f"{t}.{name}", f"{f}/{name}")
+
+    def modules_by_kind(self, module, t_prefix, f_prefix):
+        """Each child of a port module whose attribute names are the JAX
+        module names (``MSGenerator``), mapped by its kind."""
+        for name, m in module.named_children():
+            t, f = f"{t_prefix}.{name}", f"{f_prefix}/{name}"
+            if isinstance(m, VQGANResBlock):
+                self.res_block(t, f)
+            elif isinstance(m, AttnBlock):
+                self.attn(t, f)
+            elif isinstance(m, Upsample):
+                self.conv2d(f"{t}.conv", f"{f}/conv")
+            elif isinstance(m, torch.nn.GroupNorm):
+                self.gn(t, f)
+            else:
+                self.conv2d(t, f)
 
     def transformer_layer(self, t, f):
         self.mha(f"{t}.self_attn", f"{f}/self_attn")
@@ -304,6 +328,57 @@ def vgg_state_dict(params) -> Dict[str, torch.Tensor]:
     e = _Exporter({"params": params})
     for i, idx in enumerate(CONV_INDICES):
         e.conv2d(f"features.{idx}", f"conv{i}")
+    return e.state_dict()
+
+
+def vgg_extractor_state_dict(params) -> Dict[str, torch.Tensor]:
+    """VGGFeatureExtractor params (``conv1_1/Conv_0/{kernel,bias}``, ...)
+    -> the port's state_dict (``vgg_net.conv1_1.weight``, ...)."""
+    e = _Exporter({"params": params})
+    for name in params:
+        e.conv2d(f"vgg_net.{name}", name)
+    return e.state_dict()
+
+
+# the JAX defaults of the autoencoders' constructors
+_AE_DEFAULTS = dict(nf=64, emb_dim=256, ch_mult=(1, 2, 2, 4), res_blocks=2,
+                    img_size=256, attn_resolutions=(16,))
+
+
+def network_state_dict(variables, net_cfg) -> Dict[str, torch.Tensor]:
+    """Variables of the JAX network that ``net_cfg`` builds -> the port's
+    state_dict, for ``VQAutoEncoder``, ``AutoEncoder``,
+    ``AutoEncoder_MSDecoder`` and ``VGGFeatureExtractor`` (by ``type``),
+    and ``GumbelQuantizer`` and ``FuseFeatBlock`` (not registered in
+    either package; ``type`` names the class)."""
+    kind = net_cfg["type"]
+    params = variables["params"]
+    e = _Exporter(variables)
+    if kind == "VGGFeatureExtractor":
+        return vgg_extractor_state_dict(params)
+    if kind == "GumbelQuantizer":
+        e.conv2d("proj", "proj")
+        e.direct("embed.weight", "embed")
+        return e.state_dict()
+    if kind == "FuseFeatBlock":
+        e.res_block("encode_enc", "encode_enc")
+        return e.state_dict()
+    c = {**_AE_DEFAULTS, **net_cfg}
+    args = (c["nf"], c["emb_dim"], c["ch_mult"], c["res_blocks"],
+            c["img_size"], c["attn_resolutions"])
+    e.block_list(encoder_block_defs(*args), "encoder.blocks",
+                 "encoder/blocks")
+    if kind == "VQAutoEncoder":
+        e.direct("quantize.embedding.weight", "quantize/embedding")
+    if kind in ("VQAutoEncoder", "AutoEncoder"):
+        e.block_list(generator_block_defs(*args), "generator.blocks",
+                     "generator/blocks")
+    elif kind == "AutoEncoder_MSDecoder":
+        with torch.device("meta"):  # structure only
+            net = build_network(net_cfg)
+        e.modules_by_kind(net.generator, "generator", "generator")
+    else:
+        raise KeyError(f"no weight map for {kind!r}")
     return e.state_dict()
 
 
