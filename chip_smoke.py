@@ -62,6 +62,21 @@ at the flagship 256x256 width with seeded random weights:
   gradient_penalty_loss over the flagship discriminator with their double
   backward, each against the CPU; one tiny SRModel step against the CPU;
   and train.vgg_weights read by the flagship Trainer.
+- train_options (after the train profile): the flagship Trainer with a
+  fixed GAN weight (use_adaptive_weight false) and weight decay on its
+  three optimizers, 3 timed steps (K1 and K3 as the train path, no
+  adaptive-weight probe), the tiny step card vs CPU with both options,
+  and steps with the generator's telemetry on and off in turns;
+- model_api_mesh (after distributed): AppMotionCompModel fed the global
+  batch on two gloo ranks on cuda:0, bit for bit the trainer's step on
+  each rank's slice, test() the global batch on both ranks;
+- serving also exports a two-device (cpu, cuda) artifact: the card's
+  programs against the live card pipeline (K1 from gen), the CPU's
+  (plain attention, no samt op) at the tiny config against the live CPU
+  pipeline;
+- blocks (last): DCNv2Pack, ModulatedDeformConvPack, upfirdn2d,
+  fused_leaky_relu, SPADEResnetBlock, KPHourglass and flow_warp at real
+  widths, each on the card against the CPU, with ms and peak memory.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -2917,7 +2932,8 @@ def serving_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
     that program, no weights in any program file. Then the tiny weight
     swap. Times export, load to first frame batch against build_and_load
     plus the first frame batch, and served against live frames/s (the two
-    in turns). The directory is removed afterwards."""
+    in turns). Then the two-device artifact (serving_two_device). The
+    directory is removed afterwards."""
     from synergize_motion_appearance_tpu_torch import serving
     from synergize_motion_appearance_tpu_torch.demo import build_and_load
 
@@ -2997,6 +3013,9 @@ def serving_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
         fps = {k: [FRAMES / t for t in v] for k, v in times.items()}
         swap = serving_swap(torch, configs, ReenactmentPipeline,
                             seeded_nets, serving, work, seed)
+        two_device = serving_two_device(
+            torch, configs, ReenactmentPipeline, seeded_nets, serving, fa,
+            live, src, drv, work, seed, card, per_batch)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     same = float((diff == 0).mean())
@@ -3015,7 +3034,7 @@ def serving_path(torch, configs, ReenactmentPipeline, seeded_nets, fa, seed,
             "max_diff_levels": int(diff.max()), "identical_share": same,
             "k1_launches": launches, "k2_launches": split,
             "k1_ops": k1_ops, "first_run_s": first_run_s,
-            "frames_per_s": fps, "swap": swap}
+            "frames_per_s": fps, "swap": swap, "two_device": two_device}
 
 
 SR_STEPS = 5        # timed SRModel steps of the VQGAN stage-1 path
@@ -3345,6 +3364,692 @@ def sr_model(torch, configs, fa, k3, seed, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# the last train-step options and the generator's telemetry
+# ---------------------------------------------------------------------------
+
+OPTION_DECAY = 1e-4  # every optimizer's weight_decay in train_options
+OPTION_STEPS = 3     # timed flagship steps with the options, after 1 warm-up
+OPTION_TINY_STEPS = 3  # tiny card-vs-CPU steps with the options, D on
+
+
+def options_cfg(configs, name):
+    """Config ``name`` with a fixed GAN weight (use_adaptive_weight
+    false) and Adam's weight decay OPTION_DECAY on all three
+    optimizers."""
+    cfg = configs.get(name)
+    t = cfg["train"]
+    t["use_adaptive_weight"] = False
+    for key in ("optim_g", "optim_motion", "optim_d"):
+        t[key] = dict(t.get(key, t["optim_g"]), weight_decay=OPTION_DECAY)
+    return cfg
+
+
+def telemetry_step(torch, tr, batch, gen, fa, k3):
+    """One train step whose generator forward runs with telemetry=True:
+    its ms, K1 and K3 launches, the forward's outputs (before the
+    trainer's float32 cast) and the tensor the first appearance
+    compensation took."""
+    net = tr.net_g
+    real_forward, real_comp = net.forward, net.app_codebook_compensation
+    seen, outs = [], []
+
+    def forward(*args, **kwargs):
+        outs.append(real_forward(*args, telemetry=True, **kwargs))
+        return outs[-1]
+
+    def compensation(feat, motion):
+        seen.append(feat)
+        return real_comp(feat, motion)
+
+    fa.reset_launches()
+    k3.reset_launches()
+    with mock.patch.object(net, "forward", forward), \
+            mock.patch.object(net, "app_codebook_compensation",
+                              compensation):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = tr.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+    return {"ms": 1e3 * (time.perf_counter() - t0), "k1": fa.launches,
+            "k3": k3.launches, "logs": logs, "out": outs[-1],
+            "first_comp_input": seen[0]}
+
+
+def plain_step_ms(torch, tr, batch, gen):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_step(batch, generator=gen)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def shapes_of(entries):
+    return [[list(t.shape) for t in e] if isinstance(e, tuple)
+            else list(e.shape) for e in entries]
+
+
+# the tiny check's decays, large enough that the decay term lr * wd * p
+# lies far above float32's rounding of the update (the CPU test's too)
+TINY_DECAY = {"optim_g": 0.5, "optim_motion": 0.25, "optim_d": 1.0}
+
+
+def assert_decayed_update(torch, before, after, lrs, betas, decays,
+                          eps=1e-8):
+    """Each network's weights after a step are its weights before it
+    less lr * (the bias-corrected Adam direction from its new moments +
+    wd * p), in float64 from the float32 states, within 4 float32 ulps of
+    the weight and 1e-6 of lr; and the decay term lies above that bound
+    on most entries, so a missing or another optimizer's decay fails.
+    Returns the worst difference over its bound."""
+    b1, b2 = betas
+    worst = 0.0
+    for net in ("g", "m", "d"):
+        count = after[net + "_count"]
+        bc1 = 1.0 - float(np.float32(b1) ** np.float32(count))
+        bc2 = 1.0 - float(np.float32(b2) ** np.float32(count))
+        lr, wd = lrs[net], decays[net]
+        over, seen = [], []
+        for k, mu in after[net + "_mu"].items():
+            p0 = before[net][k].double()
+            u = (mu.double() / bc1) / (
+                (after[net + "_nu"][k].double() / bc2).sqrt() + eps)
+            want = p0 - lr * (u + wd * p0)
+            tol = 4 * 2.0 ** -23 * p0.abs() + 4e-6 * lr
+            over.append(((after[net][k].double() - want).abs() / tol).flatten())
+            seen.append((lr * wd * p0.abs() > 10 * tol).flatten())
+        over, seen = torch.cat(over), torch.cat(seen)
+        assert float(over.max()) <= 1.0, (net, float(over.max()))
+        assert float(seen.float().mean()) > 0.5, (net, "decay not visible")
+        worst = max(worst, float(over.max()))
+    return worst
+
+
+def tiny_options_parity(torch, configs, Trainer, sample_random_tps, k3,
+                        seed):
+    """TINY_TRAIN in float32 with the fixed GAN weight, TINY_DECAY and
+    net_d_start_iter -1 (the GAN term and D's decayed update at every
+    step): OPTION_TINY_STEPS steps from the init on the card and on the
+    CPU, each from the CPU's state (the adaptive weight's probe patched
+    to raise). Every step: the logs within tiny_train_parity's bounds,
+    d_weight 0.8; the card's weights after the update its own Adam
+    direction and decay (assert_decayed_update); every weight within 2 lr
+    of the CPU's and each network's gradient within DP_GROSS_GAP. Each
+    network holds compare_updates' 2-norm bounds and 0.999 update share
+    at one step at least, as the two-rank step does: with the GAN term
+    on, a single float32 step is as ill-conditioned as the two-rank one
+    (measured on an H100 with these options: G 1.2e-2 from the CPU in
+    2-norm at one of four steps, its worst leaf 22.6 times the leaf
+    bound, with no nearest-codebook pick differing between the two
+    devices; without the options the init step's worst leaves lay 1.12
+    (G) and 1.49 (M) times the leaf bound, the 2-norms within theirs;
+    PERF.md §6, PR 12)."""
+    cfg = configs.get("tiny_train")
+    t = cfg["train"]
+    t["use_adaptive_weight"] = False
+    t["net_d_start_iter"] = -1
+    for key, wd in TINY_DECAY.items():
+        t[key] = dict(t.get(key, t["optim_g"]), weight_decay=wd)
+    decays = {"g": TINY_DECAY["optim_g"], "m": TINY_DECAY["optim_motion"],
+              "d": TINY_DECAY["optim_d"]}
+    gen = torch.Generator().manual_seed(seed + 32)
+    tp = t["equivariance_opt"]["transform_params"]
+    trainers = {d: Trainer(cfg, device=d, seed=seed) for d in ("cpu", "cuda")}
+    batch = smooth_train_batch(torch, 64, seed + 33)
+    batches = {d: {k: v.to(d) for k, v in batch.items()} for d in trainers}
+    betas = [float(b) for b in t["optim_g"]["betas"]]
+    worst_log, worst_decay, launches = 0.0, 0.0, 0
+    gaps, off_bounds, held = [], [], {}
+    for i in range(OPTION_TINY_STEPS):
+        w = sample_random_tps(gen, TRAIN_BATCH, tp["sigma_affine"],
+                              tp["sigma_tps"], tp["points_tps"])
+        sync_trainer(trainers["cpu"], trainers["cuda"])
+        before = train_state(trainers["cpu"])
+        cpu_tr = trainers["cpu"]
+        step = cpu_tr.state.step
+        lrs = {"g": cpu_tr.lr_g(step), "m": cpu_tr.lr_m(step),
+               "d": cpu_tr.lr_d(step)}
+        logs = {}
+        for d, tr in trainers.items():
+            k3.reset_launches()
+            with mock.patch.object(tr, "_probe_d_weight",
+                                   side_effect=AssertionError("probe ran")):
+                logs[d] = {k: float(v) for k, v in
+                           tr.train_step(batches[d], tps=w).items()}
+            launches += k3.launches if d == "cuda" else 0
+        cpu, card = train_state(trainers["cpu"]), train_state(
+            trainers["cuda"])
+        worst_decay = max(worst_decay, assert_decayed_update(
+            torch, before, card, lrs, betas, decays))
+        grads, step_gaps = gradient_gaps(before, cpu, card, betas)
+        gaps.append(step_gaps)
+        for net, gap in step_gaps.items():
+            assert (gap["rel_norm"] <= DP_GROSS_GAP and gap["nu_rel_norm"]
+                    <= 2 * DP_GROSS_GAP), (i, net, gap)
+        shares = {}
+        assert_updates_close(torch, cpu, card, grads, max(lrs.values()),
+                             min_share=None, shares=shares)
+        missed = bounds_missed(step_gaps, shares)
+        for key in set(step_gaps) | set(shares):
+            held.setdefault(key, []).append(key not in missed)
+        if missed:
+            off_bounds.append({"step": i + 1, "missed": missed})
+        assert sorted(logs["cpu"]) == sorted(logs["cuda"])
+        for k, v in logs["cpu"].items():
+            err = abs(logs["cuda"][k] - v)
+            worst_log = max(worst_log, err / (abs(v) + 1e-1))
+            assert err <= 1e-3 * abs(v) + 1e-4, (k, logs["cuda"][k], v)
+        assert logs["cuda"]["d_weight"] == np.float32(0.8), logs["cuda"]
+    assert all(any(steps) for steps in held.values()), (held, off_bounds)
+    assert launches > 0, "tiny training on the card missed K3"
+    return {"steps": OPTION_TINY_STEPS, "worst_log_rel_diff": worst_log,
+            "worst_decayed_update_over_bound": worst_decay,
+            "gradient_gaps": gaps, "steps_off_bounds": off_bounds,
+            "k3_launches": launches}
+
+
+def train_options(torch, configs, Trainer, sample_random_tps, fa, k3, seed,
+                  card, plain_ms):
+    """The flagship Trainer (options/train.yml, batch 2, bf16,
+    net_d_start_iter 1) with use_adaptive_weight false and weight_decay
+    OPTION_DECAY on its three optimizers: one warm-up step, then
+    OPTION_STEPS timed steps, each with the kernel counts set to 0 just
+    before it and read just after (K1 and K3 as train_path; the adaptive
+    weight's probe patched to raise, so it never runs; d_weight the fixed
+    0.8 once D is on); the tiny card step against the CPU's with the same
+    options; then steps with the generator's telemetry on and off in
+    turns (off, on, on, off): ms each, K1 and K3 of the telemetry steps,
+    the four lists' lengths and shapes, and app_before_comp_list[0] being
+    the tensor the first appearance compensation took."""
+    t_phase = time.perf_counter()
+    cfg = options_cfg(configs, "flagship_train")
+    cfg["train"]["net_d_start_iter"] = 1
+    g_cfg = cfg["network_g"]
+    k1_per, k3_per = (k1_per_train_step(g_cfg),
+                      2 * sum(k3_forward_convs(g_cfg).values()))
+    tr = Trainer(cfg, device="cuda", seed=seed)
+    assert not tr.use_adaptive_weight
+    assert all(a.weight_decay == OPTION_DECAY
+               for a in (tr.adam_g, tr.adam_m, tr.adam_d))
+    batch = train_batch(torch, 256, seed + 40, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    with mock.patch.object(tr, "_probe_d_weight",
+                           side_effect=AssertionError("probe ran")):
+        tr.train_step(batch, generator=gen)
+        for _ in range(OPTION_STEPS):
+            fa.reset_launches()
+            k3.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = tr.train_step(batch, generator=gen)
+            torch.cuda.synchronize()
+            steps.append({"ms": 1e3 * (time.perf_counter() - t0),
+                          "k1": fa.launches, "k3": k3.launches,
+                          "k2": fa.split_launches, "k4": k3.nhwc_launches,
+                          "logs": {k: float(v) for k, v in logs.items()}})
+    peak = torch.cuda.max_memory_allocated()
+    for i, st in enumerate(steps, start=1):
+        for k, v in st["logs"].items():
+            assert math.isfinite(v), (i, k, v)
+        assert st["logs"]["step_skipped_nonfinite"] == 0.0, i
+        want = np.float32(0.8) if i >= 2 else 0.0
+        assert st["logs"]["d_weight"] == want, (i, st["logs"]["d_weight"])
+        assert (st["k1"], st["k3"]) == (k1_per, k3_per), st
+        assert st["k2"] == st["k4"] == 0, st
+    med = float(np.median([st["ms"] for st in steps]))
+    tiny = tiny_options_parity(torch, configs, Trainer, sample_random_tps,
+                               k3, seed)
+
+    times = {"off": [], "on": []}
+    tele = None
+    for mode in ("off", "on", "on", "off"):
+        if mode == "on":
+            tele = telemetry_step(torch, tr, batch, gen, fa, k3)
+            times["on"].append(tele["ms"])
+            assert (tele["k1"], tele["k3"]) == (k1_per, k3_per), (
+                tele["k1"], tele["k3"])
+        else:
+            times["off"].append(plain_step_ms(torch, tr, batch, gen))
+    out = tele["out"]
+    lists = {k: shapes_of(out[k]) for k in (
+        "app_before_comp_list", "app_comp_list", "deform_feat_list",
+        "app_recon_list")}
+    net = tr.net_g
+    n_app = 1 + sum(r <= max(net.connect_app) for r in net.connect)
+    assert len(lists["app_before_comp_list"]) == len(
+        lists["app_comp_list"]) == n_app, lists
+    assert len(lists["deform_feat_list"]) == 1 + len(net.connect), lists
+    assert len(lists["app_recon_list"]) == len(net.connect_app), lists
+    assert out["app_before_comp_list"][0] is tele["first_comp_input"]
+    for key in ("app_before_comp_list", "app_comp_list",
+                "deform_feat_list"):
+        for t in out[key]:
+            assert bool(torch.isfinite(t).all()), key
+    report = {
+        "config": "flagship_train, use_adaptive_weight false, weight_decay "
+                  f"{OPTION_DECAY} (optim_g, optim_motion, optim_d), "
+                  "net_d_start_iter 1",
+        "step_ms": [st["ms"] for st in steps], "step_ms_median": med,
+        "train_path_step_ms_median": plain_ms,
+        "max_memory_allocated_bytes": peak,
+        "k1_launches_per_step": k1_per, "k3_launches_per_step": k3_per,
+        "k1_launches": sum(st["k1"] for st in steps),
+        "k3_launches": sum(st["k3"] for st in steps),
+        "logs": [st["logs"] for st in steps], "tiny": tiny,
+        "telemetry": {"step_ms_on": times["on"], "step_ms_off": times["off"],
+                      "k1_launches": tele["k1"], "k3_launches": tele["k3"],
+                      "lists": lists,
+                      "first_entry_is_compensation_input": True},
+        "wall_s": time.perf_counter() - t_phase}
+    print(f"train_options: flagship_train bf16 batch {TRAIN_BATCH}, "
+          f"use_adaptive_weight false, weight_decay {OPTION_DECAY} on all "
+          f"three optimizers, on {card}: {OPTION_STEPS} steps after 1 "
+          f"warm-up, median {med:.2f} ms/step "
+          f"({[round(st['ms'], 2) for st in steps]}) against train_path's "
+          f"{plain_ms:.2f}; K1 {k1_per} and K3 {k3_per} launches per step; "
+          f"d_weight 0.8 fixed once D is on, no probe; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} bytes)", flush=True)
+    print(f"  tiny f32 with the options (decays {TINY_DECAY}), D on, "
+          f"{OPTION_TINY_STEPS} steps card vs CPU, each from the CPU's "
+          f"state: logs worst |diff| / (|cpu| + 0.1) "
+          f"{tiny['worst_log_rel_diff']:.3e}; the card's updates its own "
+          f"Adam direction + decay within "
+          f"{tiny['worst_decayed_update_over_bound']:.3f} of the bound; "
+          f"gradient gaps by step {tiny['gradient_gaps']}; steps off "
+          f"compare_updates' bounds {tiny['steps_off_bounds']}", flush=True)
+    print(f"  telemetry=True: ms/step on {[round(t, 2) for t in times['on']]}"
+          f" off {[round(t, 2) for t in times['off']]} (turns off, on, on, "
+          f"off); K1 {tele['k1']} and K3 {tele['k3']} launches; lists "
+          f"{ {k: len(v) for k, v in lists.items()} } shapes {lists}; "
+          f"app_before_comp_list[0] is the first compensation's input; "
+          f"phase {report['wall_s']:.1f} s", flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the model API over two ranks
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2  # steps of AppMotionCompModel beside the trainer, per rank
+
+
+def mesh_rank(rank, world, port, work, seed):
+    """One rank of model_api_mesh (spawned; gloo, every rank on cuda:0):
+    AppMotionCompModel fed the tiny global batch (NHWC numpy) beside two
+    Trainers of the same seed stepped on this rank's slice, MESH_STEPS
+    steps each (states and their digests, logs, K1 and K3 launches of the
+    model's step); then test(), the model's EMA forward on its slice, the
+    slice fed, and the error of an uneven global batch. Writes
+    <work>/rank<r>.pt."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from synergize_motion_appearance_tpu_torch import configs
+    from synergize_motion_appearance_tpu_torch.model_api import (
+        AppMotionCompModel,
+    )
+    from synergize_motion_appearance_tpu_torch.ops import conv3x3 as k3
+    from synergize_motion_appearance_tpu_torch.ops import fused_attention as fa
+    from synergize_motion_appearance_tpu_torch.parallel import (
+        init_distributed, shard_batch,
+    )
+    from synergize_motion_appearance_tpu_torch.training import (
+        Trainer, batch_to_device, step_generator,
+    )
+
+    device = "cuda:0"
+    torch.cuda.set_device(device)
+    init_distributed("pytorch", backend="gloo", device=device,
+                     environ=rank_env(rank, world, port))
+    cfg = configs.get("tiny_train")
+    cfg["train"]["net_d_start_iter"] = 0  # D and the probe at step 2
+    cfg["manual_seed"] = seed
+    model = AppMotionCompModel(cfg, device=device)
+    trainers = [Trainer(cfg, device=device, seed=model.seed)
+                for _ in range(2)]
+    glob = {k: v.permute(0, 2, 3, 1).numpy() for k, v in smooth_train_batch(
+        torch, 64, seed + 70, n=DP_GLOBAL_TINY).items()}
+    shard = shard_batch(batch_to_device(glob, device))
+    out = {"steps": []}
+    for i in range(MESH_STEPS):
+        model.feed_data(glob)
+        fa.reset_launches()
+        k3.reset_launches()
+        model.optimize_parameters(i)
+        launches = (fa.launches, k3.launches)
+        logs = [{k: float(v) for k, v in tr.train_step(
+            shard, generator=step_generator(model.seed, i, device)).items()}
+            for tr in trainers]
+        out["steps"].append({
+            "model_digest": state_digest(torch, model.trainer),
+            "trainer_digest": state_digest(torch, trainers[0]),
+            "repeat_digest": state_digest(torch, trainers[1]),
+            "model_state": train_state(model.trainer),
+            "trainer_state": train_state(trainers[0]),
+            "repeat_state": train_state(trainers[1]),
+            "model_logs": dict(model.get_current_log()),
+            "trainer_logs": logs[0], "repeat_logs": logs[1],
+            "k1_launches": launches[0], "k3_launches": launches[1]})
+    out["test"] = model.test().cpu()
+    out["own_ema"] = model.trainer.ema_forward(shard["source"],
+                                               shard["driving"]).cpu()
+    out["fed"] = {k: v.cpu() for k, v in model.batch.items()}
+    out["global"] = glob
+    try:
+        model.feed_data({k: v[:3] for k, v in glob.items()})
+    except ValueError as e:
+        out["uneven"] = str(e)
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def model_api_mesh(torch, configs, seed, card):
+    """Two ranks over gloo, both on cuda:0, as dp_two_ranks runs them on
+    one card: AppMotionCompModel takes the global batch and keeps each
+    rank's slice; its optimize_parameters is Trainer.train_step on that
+    slice; test() gives the global batch on both ranks, the two slices'
+    EMA forwards in rank order; a global batch of 3 raises. The ranks'
+    model states are bit-identical after every step. Against the
+    trainer: the card's train step does not repeat itself bit for bit
+    (the backward of the grid sampler and of bilinear resizing add with
+    atomics), so a second trainer stepped on the same slice measures the
+    card's own gap, and the model lies no further from the first trainer
+    than that (largest difference at most 3 times, share within 1e-6 at
+    most 0.05 lower, as dp_world1 holds a world of one), and the first
+    step's logs, computed before any update, are equal; where the second
+    trainer repeats the first bit for bit, so must the model. (A later
+    step's logs may part further: a nearest-codebook pick of the motion
+    reconstruction can go either way once the weights differ in their
+    last bits; on an H100, l_g_motion_codebook_recon moved by 8.2e-3 at
+    the second step, PERF.md §6, PR 12.) The CPU test holds the model to
+    the trainer bit for bit."""
+    work = os.path.join(ROOT, "build", "chip_smoke_mesh")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    try:
+        run_ranks(mesh_rank, 2, (free_port(), work, seed), RANK_TIMEOUT)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    k1_per = k1_per_train_step(configs.get("tiny_train")["network_g"])
+    gaps = []
+    for r, res in enumerate(ranks):
+        for i, st in enumerate(res["steps"]):
+            worst, close = state_gap(torch, st["model_state"],
+                                     st["trainer_state"])
+            noise_worst, noise_close = state_gap(
+                torch, st["repeat_state"], st["trainer_state"])
+            gaps.append({"rank": r, "step": i + 1, "worst": worst,
+                         "share_within_1e6": close,
+                         "repeat_worst": noise_worst,
+                         "repeat_share_within_1e6": noise_close,
+                         "bit_identical":
+                             st["model_digest"] == st["trainer_digest"],
+                         "repeat_bit_identical":
+                             st["repeat_digest"] == st["trainer_digest"]})
+            assert worst <= 3 * noise_worst and \
+                close >= noise_close - 0.05, gaps[-1]
+            gaps[-1]["log_diffs"] = {
+                side: max(abs(st[side][k] - v) / (abs(v) + 1e-6)
+                          for k, v in st["trainer_logs"].items())
+                for side in ("model_logs", "repeat_logs")}
+            if i == 0:  # before any update: one state, one forward
+                assert st["model_logs"] == st["trainer_logs"], (r, i)
+            for v in st["model_logs"].values():
+                assert math.isfinite(v), (r, i, st["model_logs"])
+            assert st["k1_launches"] == k1_per and st["k3_launches"] > 0, st
+        glob = res["global"]
+        for k in ("source", "driving"):
+            want = torch.from_numpy(glob[k][2 * r:2 * r + 2]).permute(
+                0, 3, 1, 2)
+            assert torch.equal(res["fed"][k], want), (r, k)
+        assert "does not split evenly across 2 ranks" in res["uneven"], res
+    assert ranks[0]["steps"][1]["model_logs"]["d_weight"] > 0
+    for a, b in zip(*(r["steps"] for r in ranks)):
+        assert a["model_digest"] == b["model_digest"], "ranks part"
+    want = torch.cat([r["own_ema"] for r in ranks])
+    for res in ranks:
+        assert res["test"].shape == (DP_GLOBAL_TINY, 3, 64, 64)
+        assert torch.equal(res["test"], want), "test() is not the global batch"
+    report = {"backend": "gloo", "where": "both ranks on cuda:0",
+              "steps": MESH_STEPS, "global_batch": DP_GLOBAL_TINY,
+              "gaps": gaps, "k1_launches_per_step": k1_per,
+              "k3_launches_per_step": ranks[0]["steps"][0]["k3_launches"],
+              "digests": [[st["model_digest"] for st in r["steps"]]
+                          for r in ranks],
+              "spawn_and_run_s": wall}
+    print(f"model_api_mesh: two ranks over gloo on cuda:0 ({card}), tiny "
+          f"f32, global batch {DP_GLOBAL_TINY} fed to AppMotionCompModel "
+          f"on both ranks: each rank keeps its slice; {MESH_STEPS} "
+          f"optimize_parameters steps against Trainer.train_step on the "
+          f"slice, and a second trainer against the first (the card's own "
+          f"gap): {[(g['step'], round(g['worst'], 9), round(g['share_within_1e6'], 6), round(g['repeat_worst'], 9), round(g['repeat_share_within_1e6'], 6), g['bit_identical'], g['repeat_bit_identical']) for g in gaps]} "
+          f"(step, worst, share within 1e-6, repeat's worst, repeat's "
+          f"share, bit-identical, repeat bit-identical); largest relative "
+          f"log difference from the first trainer, model and repeat: "
+          f"{[(g['step'], g['log_diffs']) for g in gaps]}; the first "
+          f"step's logs equal; the ranks' model "
+          f"states bit-identical; K1 {k1_per} and K3 "
+          f"{report['k3_launches_per_step']} launches a step; test() the "
+          f"global batch on both ranks; a batch of 3 raises; {wall:.1f} s",
+          flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# the blocks off the main path: DCN, StyleGAN ops, SPADE, KPHourglass,
+# flow_warp, each on the card against the CPU
+# ---------------------------------------------------------------------------
+
+BLOCK_REL = 1e-4  # card vs CPU, f32 without TF32: relative max error
+BLOCK_ITERS = 10  # timed calls of each block, after 2 warm-up calls
+
+
+def _block_cases(torch, seed):
+    """name -> (module or function, CPU inputs, what it stands for): the
+    cases of the blocks phase, seeded, on the CPU."""
+    from synergize_motion_appearance_tpu_torch.models import (
+        arch_util, extended_blocks,
+    )
+    from synergize_motion_appearance_tpu_torch.ops import (
+        fused_leaky_relu, make_resample_kernel, upfirdn2d,
+    )
+
+    g = torch.Generator().manual_seed(seed + 80)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+
+    def offsets_live(pack):
+        """conv_offset starts at 0 (offsets 0, mask 0.5): draw it so the
+        offsets are a few pixels and the mask varies."""
+        with torch.no_grad():
+            w = pack.conv_offset.weight
+            w.copy_(randn(*w.shape, scale=2.0 / math.sqrt(w[0].numel())))
+        return pack
+
+    torch.manual_seed(seed + 81)
+    dcn = offsets_live(arch_util.DCNv2Pack(64, 64, deformable_groups=8))
+    mdcn = offsets_live(arch_util.ModulatedDeformConvPack(
+        64, 64, deformable_groups=8))
+    kernel = make_resample_kernel([1, 3, 3, 1])
+    x64 = randn(4, 64, 64, 64)
+    x256 = randn(2, 64, 256, 256)
+    cases = {
+        "DCNv2Pack": (dcn, (x64, randn(4, 64, 64, 64)),
+                      "EDVR alignment: 64 channels, deformable_groups 8, "
+                      "64x64, batch 4"),
+        "ModulatedDeformConvPack": (mdcn, (x64,),
+                                    "the same widths, offsets from x"),
+        "upfirdn2d_up2": (lambda x: upfirdn2d(x, kernel.to(x.device), up=2,
+                                              pad=(2, 1)), (x256,),
+                          "StyleGAN2 upsampling: [1, 3, 3, 1], up 2, "
+                          "256^2, 64 channels, batch 2"),
+        "upfirdn2d_down2": (lambda x: upfirdn2d(x, kernel.to(x.device),
+                                                down=2, pad=(1, 1)), (x256,),
+                            "StyleGAN2 downsampling: [1, 3, 3, 1], down 2"),
+        "fused_leaky_relu": (fused_leaky_relu, (x256, randn(64)),
+                             "bias + leaky ReLU * sqrt(2), 64 x 256^2, "
+                             "batch 2"),
+        "SPADEResnetBlock": (extended_blocks.SPADEResnetBlock(64, 32, 3),
+                             (randn(4, 64, 128, 128),
+                              randn(4, 3, 256, 256)),
+                             "64 -> 32 channels (learned shortcut), "
+                             "128x128, segmap 3 x 256^2, batch 4"),
+        "KPHourglass": (extended_blocks.KPHourglass(
+            32, 3, reshape_features=16384, reshape_depth=16, num_blocks=5,
+            max_features=1024).eval(), (randn(2, 3, 64, 64),),
+            "face-vid2vid's keypoint hourglass: block_expansion 32, "
+            "max_features 1024, 16384 channels as a depth-16 volume, 5 "
+            "blocks, 64x64 input, batch 2, eval mode"),
+        "flow_warp": (arch_util.flow_warp, (x256[:, :, :, :],
+                                            randn(2, 256, 256, 2,
+                                                  scale=3.0)),
+                      "64 x 256^2 by a flow of ~3 px, bilinear, zeros"),
+    }
+    return cases
+
+
+def blocks(torch, fa, k3, seed, card):
+    """Each case of _block_cases on the card against the CPU on the same
+    weights and inputs (within BLOCK_REL relative), with its median ms
+    over BLOCK_ITERS calls (CUDA events; the host's share included) and
+    its peak memory; no K1-K4 launch (none of these reaches a TPU kernel
+    in the JAX package)."""
+    t_phase = time.perf_counter()
+    report = {}
+    fa.reset_launches()
+    k3.reset_launches()
+    for name, (fn, args, what) in _block_cases(torch, seed).items():
+        with torch.no_grad():
+            want = fn(*args)
+            card_fn = (fn.to("cuda") if isinstance(fn, torch.nn.Module)
+                       else fn)
+            card_args = [a.to("cuda") for a in args]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = card_fn(*card_args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            err = max_rel(torch, got, want)
+            ms = time_ms(torch, lambda: card_fn(*card_args), BLOCK_ITERS)
+        assert tuple(got.shape) == tuple(want.shape), (name, got.shape)
+        assert err <= BLOCK_REL, (name, err)
+        report[name] = {"what": what, "max_rel_err": err, "ms": ms,
+                        "peak_bytes_above_inputs": peak,
+                        "out_shape": list(got.shape)}
+        print(f"blocks: {name} ({what}): card vs CPU max rel err {err:.3e}, "
+              f"{ms:.3f} ms (median of {BLOCK_ITERS}, CUDA events), peak "
+              f"{peak / 2 ** 20:.1f} MiB above its inputs", flush=True)
+        del got, want, card_fn, card_args
+        torch.cuda.empty_cache()
+    launches = samt_launches(fa, k3)
+    assert not any(launches.values()), launches
+    report["launches"] = launches
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"blocks: no K1-K4 launch; phase {report['wall_s']:.1f} s on "
+          f"{card}", flush=True)
+    return report
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def serving_two_device(torch, configs, ReenactmentPipeline, seeded_nets,
+                       serving, fa, live, src, drv, work, seed, card,
+                       per_batch):
+    """A two-device artifact (platforms=("cpu", "cuda")) of the main
+    path's pipeline ``live``: the card's programs hold per_batch samt ops
+    in gen and give frames within 1 level of the live card pipeline's,
+    launching K1 per_batch times a frame batch (counts set to 0 just
+    before, read just after); the CPU's programs hold no samt op; one
+    params.pt. Then a tiny f32 two-device artifact exported on the card
+    whose CPU programs, loaded with device "cpu", give frames within 1
+    level of the live CPU pipeline's on the same weights. Returns the
+    report; the artifacts are left in ``work`` for serving_path to
+    remove."""
+    size = live.img_size
+    art = os.path.join(work, "two_device")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serving.export_pipeline(live, art, platforms=("cpu", "cuda"))
+    export_s = time.perf_counter() - t0
+    assert sorted(os.listdir(art)) == ["cpu", "cuda", "manifest.json",
+                                       "params.pt"], os.listdir(art)
+    ops = {}
+    for dev in ("cpu", "cuda"):
+        for stage in serving._STAGES:
+            targets, state = graph_targets(
+                torch, os.path.join(art, dev, f"{stage}.pt2"))
+            assert not state, f"{dev}/{stage}.pt2 holds {len(state)} weights"
+            assert not any("scaled_dot_product" in t for t in targets)
+            ops[f"{dev}/{stage}"] = sum("samt." in t for t in targets)
+    assert ops == {"cpu/kp1": 0, "cpu/kpN": 0, "cpu/enc": 0, "cpu/gen": 0,
+                   "cuda/kp1": 0, "cuda/kpN": 0, "cuda/enc": 0,
+                   "cuda/gen": per_batch}, ops
+    served = serving.load_serving_pipeline(art)
+    assert served.device.type == "cuda"
+    fa.reset_launches()
+    out = served.animate(src, drv)
+    launches = fa.launches
+    n_batches = math.ceil(len(drv) / FRAME_BATCH)
+    assert launches == per_batch * n_batches, (launches, per_batch)
+    want = live.animate(src, drv)
+    diff = np.abs(out.astype(np.int32) - want.astype(np.int32))
+    assert out.shape == want.shape and diff.max() <= 1, diff.max()
+
+    cfg = configs.get("tiny")
+    kw = dict(relative=True, adapt_scale=True, frame_batch=4,
+              compute_dtype=torch.float32, u8_io=True)
+    tiny_art = os.path.join(work, "two_device_tiny")
+    serving.export_pipeline(ReenactmentPipeline(*seeded_nets(cfg, seed),
+                                                device="cuda", **kw),
+                            tiny_art, platforms=("cpu", "cuda"))
+    cpu_live = ReenactmentPipeline(*seeded_nets(cfg, seed), device="cpu",
+                                   **kw)
+    cpu_served = serving.load_serving_pipeline(tiny_art, "cpu")
+    t_src, t_drv = frames(1, 64, seed + 42), frames(6, 64, seed + 43)
+    fa.reset_launches()
+    cpu_out = cpu_served.animate(t_src, t_drv)
+    assert fa.launches == 0
+    cpu_diff = np.abs(cpu_out.astype(np.int32)
+                      - cpu_live.animate(t_src, t_drv).astype(np.int32))
+    assert cpu_diff.max() <= 1, cpu_diff.max()
+    card_served = serving.load_serving_pipeline(tiny_art)
+    card_diff = np.abs(card_served.animate(t_src, t_drv).astype(np.int32)
+                       - cpu_out.astype(np.int32))
+    report = {"export_s": export_s, "bytes": dir_bytes(art),
+              "stage_ops": ops, "k1_launches_card": launches,
+              "max_diff_levels_card": int(diff.max()),
+              "identical_share_card": float((diff == 0).mean()),
+              "k1_launches_cpu": 0,
+              "max_diff_levels_cpu_tiny": int(cpu_diff.max()),
+              "identical_share_cpu_tiny": float((cpu_diff == 0).mean()),
+              "tiny_card_vs_cpu_programs_max_levels": int(card_diff.max())}
+    print(f"serving: two-device artifact (cpu, cuda) of flagship-{size} "
+          f"bf16 uint8: {report['bytes']} bytes, export {export_s:.2f} s; "
+          f"samt ops by program {ops}; card programs vs the live card "
+          f"pipeline over {len(drv)} frames: max |diff| {diff.max()} levels "
+          f"(identical share {report['identical_share_card']:.6f}), K1 "
+          f"{launches} launches; tiny f32 CPU programs vs the live CPU "
+          f"pipeline: max |diff| {cpu_diff.max()} levels, no K1 launch "
+          f"(its card programs vs its CPU programs: {card_diff.max()} "
+          f"levels) on {card}", flush=True)
+    return report
+
+
 def kernel_entry(name, source, replaces, rows, weight, launches,
                  times_are, summed=None, **extra):
     """One kernel's entry of the kernels line: errors over its f32 and bf16
@@ -3444,6 +4149,10 @@ def main():
     report["train_profile"] = profile_train_step(torch, *train_run, card)
     del train_run
     torch.cuda.empty_cache()
+    report["train_options"] = train_options(
+        torch, configs, Trainer, sample_random_tps, fa, k3, args.seed, card,
+        report["train_path"]["step_ms_median"])
+    torch.cuda.empty_cache()
     report["ablations"] = ablations(
         torch, configs, ReenactmentPipeline, seeded_nets, Trainer,
         sample_random_tps, fa, k3, args.seed, card)
@@ -3454,6 +4163,7 @@ def main():
         torch, configs, Trainer, ReenactmentPipeline, seeded_nets, fa, k3,
         args.seed, card)
     torch.cuda.empty_cache()
+    report["model_api_mesh"] = model_api_mesh(torch, configs, args.seed, card)
     report["entry_points"] = entry_points(
         torch, configs, ReenactmentPipeline, seeded_nets, fa, args.seed, card)
     torch.cuda.empty_cache()
@@ -3462,6 +4172,10 @@ def main():
     torch.cuda.empty_cache()
     report["sr_model"] = sr_model(torch, configs, fa, k3, args.seed, card)
     sr_launches = report["sr_model"]["train"]["launches"]
+    torch.cuda.empty_cache()
+    report["blocks"] = blocks(torch, fa, k3, args.seed, card)
+    opts = report["train_options"]
+    two_device = report["serving"]["two_device"]
 
     cli = report["train_cli"]["fresh"]["launches"]
     k3_per_step = report["train_path"]["k3_launches_per_step"]
@@ -3501,7 +4215,14 @@ def main():
                 name: {"frame_batch": row["inference"]["k1_launches"],
                        "train_step": row["train"]["k1_launches"]}
                 for name, row in ablated.items()},
-            launches_sr_model=sr_launches["k1"]),
+            launches_sr_model=sr_launches["k1"],
+            launches_train_options=opts["k1_launches"],
+            launches_train_telemetry=opts["telemetry"]["k1_launches"],
+            launches_model_api_mesh=report["model_api_mesh"][
+                "k1_launches_per_step"],
+            launches_served_two_device_cuda=two_device["k1_launches_card"],
+            launches_served_two_device_cpu=two_device["k1_launches_cpu"],
+            launches_blocks=report["blocks"]["launches"]["k1"]),
         kernel_entry(
             "fused_attention (head-split)", "fused_attention_packed.cu",
             "fused_attention.py:56", report["k2_cases"],
@@ -3530,12 +4251,23 @@ def main():
             launches_ablations={name: row["train"]["k3_launches"]
                                 for name, row in ablated.items()},
             launches_sr_model=sr_launches["k3"],
+            launches_train_options=opts["k3_launches"],
+            launches_train_telemetry=opts["telemetry"]["k3_launches"],
+            launches_model_api_mesh=report["model_api_mesh"][
+                "k3_launches_per_step"],
+            launches_blocks=report["blocks"]["launches"]["k3"],
             launches_note="launches_dp_train is per rank per step of the "
                           "two-rank data-parallel step; launches_sr_model "
                           f"over the {SR_STEPS} steps of VQGAN stage-1 "
                           "training (SRModel), which reaches no TPU kernel "
-                          "in the JAX package either; K3 is the op "
-                          "samt::conv3x3"),
+                          "in the JAX package either; launches_train_options "
+                          f"over the {OPTION_STEPS} timed steps with a fixed "
+                          "GAN weight and weight decay, "
+                          "launches_train_telemetry over one step with "
+                          "telemetry=True, launches_model_api_mesh per rank "
+                          "per step of the tiny two-rank model API, "
+                          "launches_blocks over the blocks phase; K3 is the "
+                          "op samt::conv3x3"),
         kernel_entry(
             "conv3x3_nhwc", "conv3x3.cu", "pallas_conv.py:39",
             report["k4_cases"], "k3_launches_per_step",

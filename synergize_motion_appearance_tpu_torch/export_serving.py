@@ -11,7 +11,11 @@ options, and exports its stages and weights to a directory that
         --fast --frame_batch 16 [--cpu]
 
 The artifact runs on the device it is exported on: the card unless
-``--cpu``.
+``--cpu``. ``--platforms cpu,cuda`` writes one artifact with programs
+for both devices (``demo --from_export`` picks the card's, or the CPU's
+with ``--cpu``); it needs a card, since ``torch.export`` traces the
+card's programs only on one, and without a card it raises before
+anything is written.
 """
 from __future__ import annotations
 
@@ -32,26 +36,29 @@ def main(argv=None) -> str:
                    help="bf16 compute, uint8 frames to and from the device, "
                         "I420 fetch, keypoint inputs downsampled on the host")
     p.add_argument("--platforms", default=None,
-                   help="the one device to export for, cpu or cuda "
+                   help="the devices to export for: cpu, cuda or cpu,cuda "
                         "(default: cuda, or cpu with --cpu)")
     p.add_argument("--cpu", action="store_true")
     opt = p.parse_args(argv)
 
-    device = "cpu" if opt.cpu else "cuda"
+    platforms = ["cpu" if opt.cpu else "cuda"]
     if opt.platforms:
         platforms = opt.platforms.split(",")
-        if len(platforms) != 1:
-            raise ValueError(
-                f"--platforms {opt.platforms}: an artifact is exported for "
-                f"one device; multi-platform artifacts are not ported yet "
-                f"(ROADMAP.md, queue 1, item 5)")
-        if platforms[0] not in ("cpu", "cuda"):
-            raise ValueError(f"--platforms {opt.platforms}: want cpu or cuda")
-        if opt.cpu and platforms[0] != "cpu":
+        if not set(platforms) <= {"cpu", "cuda"} or len(set(platforms)) \
+                != len(platforms):
+            raise ValueError(f"--platforms {opt.platforms}: want cpu, cuda "
+                             f"or cpu,cuda")
+        if opt.cpu and "cuda" in platforms:
             raise ValueError(f"--cpu contradicts --platforms {opt.platforms}")
-        device = platforms[0]
+    # the networks live on the card when its programs are exported
+    device = "cuda" if "cuda" in platforms else "cpu"
 
     import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--platforms {','.join(platforms)}: exporting "
+                           f"the cuda programs needs a CUDA device, and "
+                           f"there is none here")
 
     from .demo import build_and_load
     from .inference import ReenactmentPipeline
@@ -66,11 +73,11 @@ def main(argv=None) -> str:
                        else torch.float32),
         u8_io=opt.fast, yuv420_io=opt.fast, host_kp_downsample=opt.fast,
         device=device)
-    export_pipeline(pipeline, opt.out)
-    total = sum(os.path.getsize(os.path.join(opt.out, f))
-                for f in os.listdir(opt.out))
+    export_pipeline(pipeline, opt.out, platforms)
+    total = sum(os.path.getsize(os.path.join(d, f))
+                for d, _, files in os.walk(opt.out) for f in files)
     print(f"Exported serving artifact to {opt.out} ({total / 1e6:.1f} MB, "
-          f"platforms=[{device}])")
+          f"platforms={platforms})")
     return opt.out
 
 

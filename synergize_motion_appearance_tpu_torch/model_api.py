@@ -5,6 +5,18 @@ feed_data / optimize_parameters / test / get_current_visuals / save /
 resume_training over the port's ``Trainer`` (``AppMotionCompModel``), and
 the single-network ``SRModel``. Batches are NHWC float32 numpy, as the
 loaders give them.
+
+Inside a ``torch.distributed`` process group ``AppMotionCompModel`` is
+the JAX one over its ``("data",)`` mesh (JAX model_api.py:34-52): every
+rank is fed the global batch and keeps its slice
+(``parallel.shard_batch``, which raises when the batch does not split
+evenly), ``optimize_parameters`` is the trainer's global-batch step (the
+gradients and logs averaged over the ranks), ``test`` and
+``get_current_visuals`` return the global batch on every rank, gathered
+in rank order, and ``save`` writes from rank 0 alone
+(``training.save_checkpoint``). Outside a group the global batch is the
+one process's. ``SRModel`` stays single-process, as the JAX one builds no
+mesh.
 """
 from __future__ import annotations
 
@@ -33,11 +45,15 @@ class AppMotionCompModel:
     # ---------------- data ----------------
 
     def feed_data(self, data: Dict[str, np.ndarray]):
-        """(appmotioncomp_model.py:110-113) Keeps the batch on the
-        device."""
+        """(appmotioncomp_model.py:110-113) Keeps this rank's slice of the
+        global batch on the device (the whole batch outside a process
+        group)."""
+        from .parallel import shard_batch
         from .training import batch_to_device
 
-        self.batch = batch_to_device(data, self.device)
+        self.batch = batch_to_device(shard_batch(
+            {k: np.asarray(data[k]) for k in ("source", "driving")}),
+            self.device)
 
     # ---------------- training ----------------
 
@@ -59,17 +75,24 @@ class AppMotionCompModel:
 
     def test(self, w: float = 1.0) -> torch.Tensor:
         """The evaluation forward with the EMA generator
-        (appmotioncomp_model.py:437-456); (B, 3, H, W)."""
-        self.output = self.trainer.ema_forward(
-            self.batch["source"], self.batch["driving"], w=w)
+        (appmotioncomp_model.py:437-456) on the global batch; (B, 3, H,
+        W), gathered on every rank."""
+        from .parallel import gather_batch
+
+        self.output = gather_batch(self.trainer.ema_forward(
+            self.batch["source"], self.batch["driving"], w=w))
         return self.output
 
     def get_current_visuals(self) -> Dict[str, np.ndarray]:
-        """result, source and gt as NHWC float32 numpy."""
-        def nhwc(t):
-            return t.permute(0, 2, 3, 1).float().cpu().numpy()
+        """result, source and gt of the global batch as NHWC float32
+        numpy."""
+        from .parallel import gather_batch
 
-        return {"result": nhwc(self.output),
+        def nhwc(t):
+            return gather_batch(t).permute(0, 2, 3, 1).float().cpu().numpy()
+
+        return {"result": self.output.permute(0, 2, 3, 1).float().cpu()
+                .numpy(),
                 "source": nhwc(self.batch["source"]),
                 "gt": nhwc(self.batch["driving"])}
 
@@ -130,7 +153,8 @@ class SRModel:
             t = opt["train"]
             optim_g = t.get("optim_g", {})
             self.lr = float(optim_g.get("lr", 2e-4))
-            self.adam = Adam(optim_g)
+            # the JAX SRModel's optax.adam takes no weight decay
+            self.adam = Adam({"betas": optim_g.get("betas", [0.9, 0.99])})
             self.ema_decay = float(t.get("ema_decay", 0))
             if t.get("pixel_opt"):
                 self.cri_pix = build_loss(t["pixel_opt"])

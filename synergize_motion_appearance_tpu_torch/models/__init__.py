@@ -8,6 +8,9 @@ from typing import Any, Dict
 
 from ..utils.registry import ARCH_REGISTRY
 from .appmotion_former import AppMotionCompFormer
+from .arch_util import (DCNv2Pack, ModulatedDeformConvPack, ResidualBlockNoBN,
+                        Upsample, flow_warp, make_layer, resize_flow,
+                        scaled_conv_kernel_init, trunc_normal_init)
 from .dense_motion import DenseMotionNetwork, MotionEstimator
 from .keypoint_detector import KPDetector
 from .transformer import MultiheadAttention, TransformerLayer
@@ -48,9 +51,11 @@ def build_network(opt: Dict[str, Any]):
 
 __all__ = [
     "AppMotionCompFormer", "AutoEncoder", "AutoEncoderMSDecoder",
-    "DenseMotionNetwork", "Encoder", "FuseFeatBlock", "Generator",
-    "GumbelQuantizer", "KPDetector", "MSGenerator", "MotionEstimator",
-    "MultiheadAttention", "TransformerLayer", "VGG19Features",
+    "DCNv2Pack", "DenseMotionNetwork", "Encoder", "FuseFeatBlock",
+    "Generator", "GumbelQuantizer", "KPDetector", "MSGenerator",
+    "ModulatedDeformConvPack", "MotionEstimator", "MultiheadAttention",
+    "ResidualBlockNoBN", "TransformerLayer", "Upsample", "VGG19Features",
     "VGGFeatureExtractor", "VQAutoEncoder", "VQGANDiscriminator",
-    "VectorQuantizer", "build_network",
+    "VectorQuantizer", "build_network", "flow_warp", "make_layer",
+    "resize_flow", "scaled_conv_kernel_init", "trunc_normal_init",
 ]

@@ -28,9 +28,21 @@ commit losses on the driving frame (``gt``), the parallel low-res decode
 Its decoder region, from the first ``Upsample`` of the generator sweep to
 the final RGB conv (both streams and the fusion blocks inside it, as the
 JAX package's ``wl_layout`` region off the TPU), runs every 3x3 conv on
-kernel K3 (``layers.decoder_region``). The JAX package's training-only
-telemetry that the trainer does not read (``deform_feat_list``,
-``app_recon_list``, ``app_before_comp_list``) is not computed.
+kernel K3 (``layers.decoder_region``).
+
+Telemetry (JAX appmotion_former.py:816-933). Every forward returns
+``app_before_comp_list`` (the warped, occluded features entering each
+appearance compensation: the token-scale feature, then each connected
+scale up to ``max(connect_app_list)``) and ``app_comp_list`` (the same
+features after it), which the forward computes anyway. The two lists
+that cost extra work, ``deform_feat_list`` (each scale's warp redone on
+detached features and occlusion) and ``app_recon_list`` (the driving
+frame's (quantized, unquantized) untokened features per appearance
+scale), come only with ``telemetry=True``: the JAX trainer never reads
+them and XLA drops them as dead code, where eager PyTorch would compute
+them on every step. With the keyword the training forward returns them
+as the JAX one does (``app_recon_list`` with ``gt``), and the inference
+forward an empty ``deform_feat_list``.
 """
 from __future__ import annotations
 
@@ -460,23 +472,29 @@ class AppMotionCompFormer(nn.Module):
                            query_pos=pos)
         return self._app_untokens(tokens, r)
 
-    def app_codebook_loss(self, gt):
+    def app_codebook_loss(self, gt, recon: bool = False):
         """Commit losses of the driving frame's encoder features against
         the appearance codebook rows of each scale
-        (appmotioncodebook_arch.py:429-469)."""
+        (appmotioncodebook_arch.py:429-469), and with ``recon`` each
+        scale's (quantized, unquantized) tokens untokened back to its
+        feature map (else an empty list): (recon_list, loss_list)."""
         taps = {self.enc_taps[r]: r for r in self.connect_app}
         _, feats = self.encoder(gt, taps=taps)
         t = self.token_hw
-        losses = []
+        recons, losses = [], []
         for r in self.connect_app:
             tokens = self._app_tokens(feats[self.enc_taps[r]], r)
             grid = tokens.reshape(-1, t, t, self.dim_embd_app)
             start, num = self._codebook_range(
                 self.quantize_app, len(self.connect_app), r,
                 self.app_codebook_split, self.wo_app_cdbk_share)
-            _, loss, _ = self.quantize_app(grid, start=start, num=num)
+            quant, loss, _ = self.quantize_app(grid, start=start, num=num)
             losses.append(loss)
-        return losses
+            if recon:
+                recons.append((
+                    self._app_untokens(quant.reshape(tokens.shape), r),
+                    self._app_untokens(tokens, r)))
+        return recons, losses
 
     def encode_source(self, x):
         """One encoder sweep -> {'latent', 'feats'}; pass it as
@@ -490,12 +508,14 @@ class AppMotionCompFormer(nn.Module):
     # ---------------- forward ----------------
 
     def forward(self, x, dense_motion, w: float = 1.0,
-                inference: bool = False, gt=None, source_feats=None):
+                inference: bool = False, gt=None, source_feats=None,
+                telemetry: bool = False):
         """x: (1 or B, 3, H, W) source in [-1, 1]; dense_motion from the
         MotionEstimator; gt: (B, 3, H, W) driving frame, whose appearance
         commit losses the training forward adds. Returns a dict whose 'out'
         is the (B, 3, H, W) generated frame; ``inference=False`` adds the
-        training outputs (see the module docstring)."""
+        training outputs and ``telemetry=True`` the two costly telemetry
+        lists (see the module docstring)."""
         if x.shape[2] != self.img_size or x.shape[3] != self.img_size:
             raise ValueError(
                 f"AppMotionCompFormer(img_size={self.img_size}) got source "
@@ -590,13 +610,25 @@ class AppMotionCompFormer(nn.Module):
                 codebook_loss_motion_list.append(cb_loss)
             return m_res[:, 2:3] if self.MRFA_motion_enc else None
 
+        def detached_warp(feat, occ):
+            """deform_feat_list's entry: the warp redone on the detached
+            feature and occlusion (the flow keeps its gradient)."""
+            return occlude_input(deform_input(feat.detach(), motion_list[-1]),
+                                 occ.detach())
+
+        deform_feat_list = []
         # base scale (the token grid)
         occ = occlusion(motion_pass(x, self.scales[0]))
         m_com = motion_list[-1]
         lq_feat = occlude_input(deform_input(x, m_com), occ)
+        if telemetry and train:
+            deform_feat_list.append(detached_warp(x, occ))
+        app_before_comp_list = [lq_feat]
         lq_feat = self.app_codebook_compensation(lq_feat, m_com)
-        codebook_loss_app_list = (self.app_codebook_loss(gt)
-                                  if train and gt is not None else None)
+        app_comp_list = [lq_feat]
+        app_recon_list, codebook_loss_app_list = (
+            self.app_codebook_loss(gt, recon=telemetry)
+            if train and gt is not None else ([], None))
 
         # generator sweep with per-scale fusion; in training also the
         # parallel low-res decode of lq_feat through the same blocks
@@ -625,9 +657,13 @@ class AppMotionCompFormer(nn.Module):
             m_com = motion_list[-1]
             enc_feat_warped = occlude_input(deform_input(enc_feat, m_com),
                                             occ)
+            if telemetry and train:
+                deform_feat_list.append(detached_warp(enc_feat, occ))
             if f_res <= max_app_res:
+                app_before_comp_list.append(enc_feat_warped)
                 enc_feat_warped = self.app_codebook_compensation(
                     enc_feat_warped, m_com)
+                app_comp_list.append(enc_feat_warped)
             with decoder_region(region):
                 if self.multiscale_sft:
                     xg = self.fuse_convs_dict[str(f_res)](enc_feat_warped,
@@ -641,11 +677,17 @@ class AppMotionCompFormer(nn.Module):
             "out_occ": out_occ,
             "deformation_list": motion_list,
             "res_deform_list": res_motion_list,
+            "app_comp_list": app_comp_list,
+            "app_before_comp_list": app_before_comp_list,
         }
+        if telemetry:
+            out["deform_feat_list"] = deform_feat_list
         if train:
             out.update(pre_final=pre_final, out_lr=[x_lr],
                        motion_recon_list=motion_recon_list,
                        codebook_loss_motion_list=codebook_loss_motion_list)
             if codebook_loss_app_list is not None:
                 out["codebook_loss_app_list"] = codebook_loss_app_list
+                if telemetry:
+                    out["app_recon_list"] = app_recon_list
         return out

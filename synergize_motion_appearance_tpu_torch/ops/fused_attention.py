@@ -25,9 +25,17 @@ the kernel against; no other device has an implementation. The fake
 implementation checks what the kernel takes, without data. The gradient
 differentiates the plain version, as the JAX package's custom VJPs do
 (there is no backward kernel).
+
+Inside ``plain_cpu_attention()`` a call on CPU tensors runs the plain
+version's ATen operators in place of the op, so that a program traced on
+the CPU holds no ``samt`` op: the CPU programs of a two-device serving
+artifact, as the JAX package traces its portable dense attention for a
+multi-platform export. A call on CUDA tensors still reaches the op.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import math
 from typing import Optional
@@ -46,6 +54,21 @@ def reset_launches() -> None:
     global launches, split_launches
     launches = 0
     split_launches = 0
+
+
+_PLAIN_CPU = contextvars.ContextVar("samt_plain_cpu_attention",
+                                    default=False)
+
+
+@contextlib.contextmanager
+def plain_cpu_attention():
+    """Scope in which attention on CPU tensors is traced as the plain
+    version's operators (see the module docstring)."""
+    tok = _PLAIN_CPU.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN_CPU.reset(tok)
 
 
 def fused_attention_reference(q, k, v, bias=None):
@@ -296,6 +319,8 @@ def fused_attention(q, k, v, bias: Optional[torch.Tensor] = None):
     """Softmax attention in head-split layout (see the module docstring):
     q (B, H, L, d); k, v (B, H, K, d) or a shared (1, H, K, d)."""
     _check_split(q, k, v, bias)
+    if _PLAIN_CPU.get() and q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, bias)
     return torch.ops.samt.fused_attention(q, k, v, bias)
 
 
@@ -304,4 +329,7 @@ def fused_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
     """Softmax attention in token-major layout (see the module docstring).
     Heads are split and merged inside the kernel."""
     _check(q, k, v, bias, num_heads)
+    if _PLAIN_CPU.get() and q.device.type == "cpu":
+        return fused_attention_packed_reference(q, k, v, bias,
+                                                num_heads=num_heads)
     return torch.ops.samt.fused_attention_packed(q, k, v, bias, num_heads)

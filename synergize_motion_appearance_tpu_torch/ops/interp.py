@@ -1,7 +1,8 @@
 """Resampling ops on the reenactment path, in PyTorch.
 
 Counterpart of the parts of ``synergize_motion_appearance_tpu/ops/
-interp.py`` that inference reaches. The JAX package writes its warps as
+interp.py`` that inference reaches, and of its ``resize_nearest``
+(``models.extended_blocks.SPADE``). The JAX package writes its warps as
 XLA gathers and its resizes as small matmuls; here the warps are
 ``F.grid_sample`` and the resizes ``F.interpolate`` or the same small
 matmuls. Images are NCHW; grids and flows are (B, H, W, 2) with (x, y) in
@@ -145,6 +146,20 @@ def interpolate_flow(flow, out_hw):
 def upsample_nearest(x, factor=2):
     """F.interpolate(scale_factor=factor), nearest, on NCHW."""
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+def resize_nearest(x, out_hw):
+    """(B, C, H, W) -> (B, C, h, w), nearest: rows floor(i * H / h) and
+    columns floor(j * W / w), as F.interpolate(mode='nearest') picks them
+    (the JAX ``resize_nearest``, interp.py:488-497); the identity when
+    the size is unchanged."""
+    _, _, H, W = x.shape
+    h, w = out_hw
+    if (H, W) == (h, w):
+        return x
+    iy = torch.from_numpy(np.floor(np.arange(h) * H / h).astype(np.int64))
+    ix = torch.from_numpy(np.floor(np.arange(w) * W / w).astype(np.int64))
+    return x[:, :, iy.to(x.device)][:, :, :, ix.to(x.device)]
 
 
 def avg_pool_2x(x):

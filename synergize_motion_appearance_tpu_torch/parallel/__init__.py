@@ -8,6 +8,7 @@ from .mesh import (
     broadcast_module,
     broadcast_tensors,
     create_mesh,
+    gather_batch,
     get_dist_info,
     in_process_group,
     init_distributed,
@@ -18,7 +19,7 @@ from .mesh import (
 )
 
 __all__ = ["DistInfo", "all_reduce_", "all_reduce_mean", "barrier",
-           "broadcast_module", "broadcast_tensors", "create_mesh",
+           "broadcast_module", "broadcast_tensors", "create_mesh", "gather_batch",
            "get_dist_info", "in_process_group", "init_distributed",
            "is_master", "reset_collectives", "shard_batch",
            "slurm_rendezvous"]

@@ -8,7 +8,8 @@ global BatchNorm statistics. Here every rank is a process that holds the
 whole model and its slice of the global batch:
 - ``init_distributed`` joins the ranks of a ``torchrun`` or slurm launch
   (NCCL for CUDA, gloo for the CPU);
-- ``shard_batch`` takes this rank's slice of a global batch;
+- ``shard_batch`` takes this rank's slice of a global batch, and
+  ``gather_batch`` puts the ranks' slices back together on every rank;
 - ``all_reduce_mean`` averages a dict of tensors (the gradients, the logs)
   over the ranks in a few flat float32 buckets, ``broadcast_tensors``
   copies rank 0's tensors to every rank (JAX's ``replicate``);
@@ -189,6 +190,19 @@ def shard_batch(batch: Dict[str, torch.Tensor], rank: Optional[int] = None,
                          f"evenly across {world} ranks")
     b = next(iter(n)) // world
     return {k: v[rank * b:(rank + 1) * b] for k, v in batch.items()}
+
+
+def gather_batch(t: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along the leading dim in rank order,
+    on every rank (the global batch of slices ``shard_batch`` took); ``t``
+    itself outside a process group."""
+    if not in_process_group():
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    _count(t)
+    dist.all_gather(parts, t)
+    return torch.cat(parts)
 
 
 def all_reduce_(t: torch.Tensor) -> torch.Tensor:

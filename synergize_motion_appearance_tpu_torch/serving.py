@@ -11,7 +11,8 @@ every stage is a deserialized program of ATen operators and the port's
 (``torch.ops.samt.fused_attention_packed``) on a card.
 
 Artifact layout (one directory):
-    manifest.json   the pipeline's options, the device, the format version
+    manifest.json   the pipeline's options, the devices ("platforms"), the
+                    format version
     kp1.pt2         keypoint stage, batch 1 (the source, driving[0])
     kpN.pt2         keypoint stage, batch frame_batch (driving chunks)
     enc.pt2         source encoder, batch 1
@@ -21,21 +22,36 @@ Artifact layout (one directory):
 
 The weights are arguments of every stage, not constants inside it, so no
 ``.pt2`` holds a copy of them and ``ServingPipeline.load_weights`` swaps
-weights of the same shapes without exporting again. An artifact runs on
-the device it was exported on ("cpu" or "cuda"), which the manifest
-records; loading it where that device is absent raises.
+weights of the same shapes without exporting again. A program runs on
+the device it was traced on ("cpu" or "cuda").
+
+A two-device artifact (``platforms=("cpu", "cuda")``, the JAX package's
+``--platforms cpu,tpu``) holds the four programs once per device, in
+``cpu/`` and ``cuda/``, beside one ``manifest.json`` and one
+``params.pt``; ``load_serving_pipeline`` loads the programs of the
+device it is given and moves the weights there. As the JAX package's
+multi-platform stages trace its portable dense attention, the CPU
+programs trace the plain attention (``fused_attention.
+plain_cpu_attention``) and hold no ``samt`` op; the card's programs keep
+kernel K1. Unlike XLA, which lowers a TPU program on any host,
+``torch.export`` traces a CUDA program only with a card: exporting for
+``cuda`` without one raises before anything is written, so no artifact
+names a device whose programs it lacks. A single-device artifact keeps
+the programs at the top of the directory, as before.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
 
 from .inference import ReenactmentPipeline
-from .ops import fused_attention  # noqa: F401  registers the samt ops
+from .ops import fused_attention  # registers the samt ops
 from .utils.misc import strict_float32
 
 FORMAT_VERSION = 1
@@ -71,17 +87,22 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def export_pipeline(pipeline: ReenactmentPipeline, out_dir: str) -> None:
-    """Export ``pipeline``'s stages and weights to ``out_dir``.
-
-    Its options (relative motion, scale adaptation, ``w``, the frame
-    batch, the frame types) are baked into the programs as its live
-    stages run them; the manifest records them for the host side. Each
-    stage is traced at its static shapes: ``kp1`` at batch 1 and ``kpN``
-    at ``frame_batch`` (both at the keypoint resolution in bfloat16 with
-    ``host_kp_downsample``), ``enc`` at batch 1, and ``gen`` on ``kp1``'s
-    keypoints for the source and ``kpN``'s for the driving frames."""
+def _pipeline_on(pipeline: ReenactmentPipeline, device: str
+                 ) -> ReenactmentPipeline:
+    """A copy of ``pipeline`` (its networks and options) on ``device``."""
     p = pipeline
+    return ReenactmentPipeline(
+        copy.deepcopy(p.net_g).to(device),
+        copy.deepcopy(p.motion_estimator).to(device), relative=p.relative,
+        adapt_scale=p.adapt_scale, frame_batch=p.frame_batch, w=p.w,
+        compute_dtype=p.compute_dtype, u8_io=p.u8_io,
+        host_kp_downsample=p.host_kp_downsample, yuv420_io=p.yuv420_io,
+        device=device)
+
+
+def _export_programs(p: ReenactmentPipeline, out_dir: str) -> None:
+    """The four stage programs of pipeline ``p``, traced on its device,
+    saved to ``out_dir``."""
     dev = p.device
     fb, img = int(p.frame_batch), int(p.img_size)
     in_dtype = torch.uint8 if p.u8_io else torch.float32
@@ -128,24 +149,63 @@ def export_pipeline(pipeline: ReenactmentPipeline, out_dir: str) -> None:
         ep.example_inputs = None
         torch.export.save(ep, os.path.join(out_dir, f"{name}.pt2"))
 
+
+def export_pipeline(pipeline: ReenactmentPipeline, out_dir: str,
+                    platforms: Optional[Sequence[str]] = None) -> None:
+    """Export ``pipeline``'s stages and weights to ``out_dir``, for each
+    device of ``platforms`` ("cpu", "cuda"; by default the pipeline's
+    own device alone).
+
+    Its options (relative motion, scale adaptation, ``w``, the frame
+    batch, the frame types) are baked into the programs as its live
+    stages run them; the manifest records them for the host side. Each
+    stage is traced at its static shapes: ``kp1`` at batch 1 and ``kpN``
+    at ``frame_batch`` (both at the keypoint resolution in bfloat16 with
+    ``host_kp_downsample``), ``enc`` at batch 1, and ``gen`` on ``kp1``'s
+    keypoints for the source and ``kpN``'s for the driving frames. For a
+    device other than the pipeline's, a copy of the pipeline on it is
+    traced; with two devices the CPU's programs trace the plain attention
+    (see the module docstring). Raises, before writing anything, for an
+    unknown device or for "cuda" where no card is visible."""
+    p = pipeline
+    platforms = list(platforms or [p.device.type])
+    for dev in platforms:
+        if dev not in ("cpu", "cuda") or platforms.count(dev) > 1:
+            raise ValueError(f"platforms {platforms}: want cpu and/or cuda, "
+                             f"each once")
+    if "cuda" in platforms and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"platforms {platforms}: exporting the cuda programs needs a "
+            f"CUDA device, and there is none here (torch.export traces a "
+            f"card's program only on a card)")
+    two = len(platforms) > 1
+    for dev in platforms:
+        on_dev = p if p.device.type == dev else _pipeline_on(p, dev)
+        with (fused_attention.plain_cpu_attention() if two and dev == "cpu"
+              else contextlib.nullcontext()):
+            _export_programs(on_dev, os.path.join(out_dir, dev) if two
+                             else out_dir)
+
+    g, m = p.g_weights, p.m_weights
+    in_dtype = torch.uint8 if p.u8_io else torch.float32
     flat = {**{f"g/{k}": v for k, v in g.items()},
             **{f"m/{k}": v for k, v in m.items()}}
     torch.save({k: v.detach().cpu() for k, v in flat.items()},
                os.path.join(out_dir, PARAMS_FILE))
     manifest = {
         "format_version": FORMAT_VERSION,
-        "img_size": img,
-        "frame_batch": fb,
+        "img_size": int(p.img_size),
+        "frame_batch": int(p.frame_batch),
         "relative": bool(p.relative),
         "adapt_scale": bool(p.adapt_scale),
         "w": float(p.w),
         "compute_dtype": _dtype_name(p.compute_dtype),
         "u8_io": bool(p.u8_io),
         "yuv420_io": bool(p.yuv420_io),
-        "host_kp_downsample": pre_ds,
+        "host_kp_downsample": bool(p.host_kp_downsample),
         "kp_scale": float(p.kp_scale),
         "input_dtype": _dtype_name(in_dtype),
-        "platforms": [dev.type],
+        "platforms": platforms,
         "param_dtypes": {k: _dtype_name(v.dtype) for k, v in flat.items()},
     }
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
@@ -160,7 +220,8 @@ class ServingPipeline:
     loaded program, called with the weights as arguments."""
 
     def __init__(self, manifest: Dict[str, Any],
-                 programs: Dict[str, Any], g_weights, m_weights):
+                 programs: Dict[str, Any], g_weights, m_weights,
+                 device: Optional[str] = None):
         self.manifest = manifest
         self.frame_batch = int(manifest["frame_batch"])
         self.relative = bool(manifest["relative"])
@@ -172,7 +233,7 @@ class ServingPipeline:
         self.kp_scale = float(manifest["kp_scale"])
         self.img_size = int(manifest["img_size"])
         self.compute_dtype = getattr(torch, manifest["compute_dtype"])
-        self.device = torch.device(manifest["platforms"][0])
+        self.device = torch.device(device or manifest["platforms"][0])
         if self.compute_dtype == torch.float32:
             strict_float32(self.device)
         self._stages = {k: ep.module() for k, ep in programs.items()}
@@ -241,26 +302,36 @@ class ServingPipeline:
 
 
 def load_serving_pipeline(art_dir: str, device=None) -> ServingPipeline:
-    """The pipeline of the artifact in ``art_dir``. Raises on another
-    format version, when the artifact's device is absent, or when
-    ``device`` is given and is not the artifact's."""
+    """The pipeline of the artifact in ``art_dir`` on ``device``, one of
+    the manifest's platforms: by default the card when the artifact has
+    programs for it, else its one device. Raises on another format
+    version, on a device the artifact has no programs for, and for the
+    card where there is none (it does not fall back to the CPU's
+    programs)."""
     with open(os.path.join(art_dir, "manifest.json")) as f:
         manifest = json.load(f)
     if manifest.get("format_version") != FORMAT_VERSION:
         raise ValueError(
             f"artifact format {manifest.get('format_version')} != "
             f"supported {FORMAT_VERSION}")
-    dev = manifest["platforms"][0]
-    if device is not None and torch.device(device).type != dev:
+    platforms = manifest["platforms"]
+    if device is not None:
+        dev = torch.device(device).type
+    else:
+        dev = "cuda" if "cuda" in platforms else platforms[0]
+    if dev not in platforms:
         raise ValueError(f"the artifact in {art_dir} was exported for "
-                         f"{dev}, not {torch.device(device).type}")
+                         f"{', '.join(platforms)}, not {dev}")
     if dev == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"the artifact in {art_dir} was exported for "
-                           f"cuda, and there is no CUDA device here")
-    programs = {name: torch.export.load(os.path.join(art_dir, f"{name}.pt2"))
+        raise RuntimeError(f"the artifact in {art_dir} is loaded for cuda, "
+                           f"and there is no CUDA device here")
+    stage_dir = art_dir if len(platforms) == 1 else os.path.join(art_dir,
+                                                                 dev)
+    programs = {name: torch.export.load(os.path.join(stage_dir,
+                                                     f"{name}.pt2"))
                 for name in _STAGES}
     flat = torch.load(os.path.join(art_dir, PARAMS_FILE), map_location=dev,
                       weights_only=True)
     g = {k[2:]: v for k, v in flat.items() if k.startswith("g/")}
     m = {k[2:]: v for k, v in flat.items() if k.startswith("m/")}
-    return ServingPipeline(manifest, programs, g, m)
+    return ServingPipeline(manifest, programs, g, m, device=dev)

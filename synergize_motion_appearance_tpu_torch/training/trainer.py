@@ -183,15 +183,20 @@ class AdamState:
 
 
 class Adam:
-    """``optax.scale_by_adam(b1, b2, eps=1e-8)``, then ``p -= lr * u``, in
-    the JAX package's order of float32 operations. Multi-tensor
-    (``torch._foreach_*``) kernels, in place. Every config sets
-    ``weight_decay: 0``; ``Trainer`` raises for another value."""
+    """``optax.scale_by_adam(b1, b2, eps=1e-8)``, chained with
+    ``optax.add_decayed_weights(weight_decay)`` when the option dict's
+    ``weight_decay`` is above 0, then ``p -= lr * u``, in the JAX
+    package's order of float32 operations (training/trainer.py:144,
+    167-169): the decay ``weight_decay * p`` is added to the
+    bias-corrected Adam direction and scaled by the lr with it, not added
+    to the gradient. Multi-tensor (``torch._foreach_*``) kernels, in
+    place."""
 
     def __init__(self, opt_cfg: Dict[str, Any], eps: float = 1e-8):
         self.b1, self.b2 = (float(b) for b in opt_cfg.get("betas",
                                                           [0.9, 0.99]))
         self.eps = eps
+        self.weight_decay = float(opt_cfg.get("weight_decay", 0.0))
 
     @torch.no_grad()
     def step(self, state: AdamState, params: Dict[str, torch.Tensor],
@@ -216,6 +221,8 @@ class Adam:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu, float(bc1))
         torch._foreach_div_(upd, denom)
+        if self.weight_decay > 0:  # u + wd * p
+            torch._foreach_add_(upd, torch._foreach_mul(p, self.weight_decay))
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(p, upd)
 
@@ -227,17 +234,6 @@ class TrainState:
     opt_g: AdamState
     opt_m: AdamState
     opt_d: AdamState
-
-
-def _check_train_options(t: Dict[str, Any]) -> None:
-    """Raises for what no config of the train block sets: a fixed GAN
-    weight (``use_adaptive_weight: false``) or Adam with weight decay."""
-    if t.get("use_adaptive_weight", True) is not True:
-        raise NotImplementedError("only use_adaptive_weight=true is ported")
-    for name in ("optim_g", "optim_motion", "optim_d"):
-        if float(t.get(name, {}).get("weight_decay", 0.0)) != 0.0:
-            raise NotImplementedError(
-                f"only {name}.weight_decay=0 is ported")
 
 
 def _strip(cfg: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -329,7 +325,6 @@ class Trainer:
         self.opt = opt
         self.device = torch.device(device)
         t = opt["train"]
-        _check_train_options(t)
         self.cri_pix = (L1Loss(**_strip(t["pixel_opt"]))
                         if t.get("pixel_opt") else None)
         self.cri_perceptual = None
@@ -369,6 +364,7 @@ class Trainer:
         self.net_d_start_iter = int(t.get("net_d_start_iter", 0))
         self.net_g_start_iter = int(t.get("net_g_start_iter", 0))
         self.ema_decay = float(t.get("ema_decay", 0))
+        self.use_adaptive_weight = bool(t.get("use_adaptive_weight", True))
         sched = t.get("scheduler", {})
         warmup = int(t.get("warmup_iter", -1))
         opt_m = t.get("optim_motion", t["optim_g"])
@@ -463,7 +459,10 @@ class Trainer:
         out = functional_call(
             self.net_g, cast, (_cast(source, cdt), _cast(dense_motion, cdt)),
             {"w": 1.0, "gt": _cast(gt, cdt)})
-        return _cast(out, torch.float32)
+        # the step reads no telemetry list: none is cast
+        return _cast({k: v for k, v in out.items()
+                      if k not in ("app_comp_list", "app_before_comp_list")},
+                     torch.float32)
 
     def _percep(self, x, gt_feats):
         dt = self.compute_dtype or torch.float32
@@ -571,9 +570,12 @@ class Trainer:
         if self.cri_gan is not None:
             fake_pred = self.net_d(out["out"])   # updates D's statistics
             l_g_gan = self.cri_gan(fake_pred, True, is_disc=False)
-            if d_on:
+            if d_on and self.use_adaptive_weight:
                 d_weight = self.scale_adaptive_gan_weight * \
                     self._probe_d_weight(out["pre_final"], gt, gt_feats)
+            elif d_on:  # a fixed weight: no probe gradients (:543-553)
+                d_weight = torch.full((), self.scale_adaptive_gan_weight,
+                                      device=self.device)
             else:
                 d_weight = torch.zeros((), device=self.device)
             total = total + d_weight * l_g_gan

@@ -20,7 +20,12 @@ torchvision's, the reverse of tools/convert_vgg_weights.py's
 ``AutoEncoder``, ``AutoEncoder_MSDecoder``, and ``GumbelQuantizer`` and
 ``FuseFeatBlock``) and ``VGGFeatureExtractor`` map through
 ``network_state_dict``; ``MSGenerator``'s torch names are its JAX module
-names. ``load_train_state`` carries a whole JAX
+names. The blocks of ``models.arch_util`` and ``models.extended_blocks``
+map through ``block_state_dict``, which walks the port module: conv
+kernels HWIO -> OIHW (a 3-D conv's DHWIO -> OIDHW), a DCN's own weight
+likewise, weight norm's ``v``/``g`` into ``weight_v``/``weight_g``, and
+the towers' ``conv{i}`` / ``block{i}`` into ``nn.Sequential`` indices.
+``load_train_state`` carries a whole JAX
 ``TrainState`` (weights, BatchNorm statistics, EMA, Adam moments and
 counts) into a ``training.Trainer``.
 """
@@ -33,6 +38,8 @@ import numpy as np
 import torch
 
 from .models import VGG19Features, build_network
+from .models import arch_util, extended_blocks, motion_blocks
+from .models.layers import BatchNorm2d
 from .models.vgg import CONV_INDICES
 from .models.vqgan import (AttnBlock, Upsample, VQGANResBlock,
                            encoder_block_defs, generator_block_defs)
@@ -382,17 +389,89 @@ def network_state_dict(variables, net_cfg) -> Dict[str, torch.Tensor]:
     return e.state_dict()
 
 
+def _map_block(e: "_Exporter", module, t: str, f: str) -> None:
+    """Map port ``module`` (torch key prefix ``t``, "" at the top) from
+    the flax params at path ``f``: a leaf by its kind, anything else
+    child by child, under the JAX name of each child."""
+    def key(name):
+        return f"{t}.{name}" if t else name
+
+    def path(name):
+        return f"{f}/{name}" if f else name
+
+    if isinstance(module, torch.nn.Conv3d):
+        e.sd[key("weight")] = e._get(e.params, path("kernel")).transpose(
+            4, 3, 0, 1, 2)
+        e.sd[key("bias")] = e._get(e.params, path("bias"))
+        return
+    if isinstance(module, torch.nn.Conv2d):
+        e.conv2d(t, f)
+        return
+    if isinstance(module, BatchNorm2d):
+        e.bn(t, f)
+        return
+    if isinstance(module, extended_blocks.WNConv2d):
+        e.sd[key("weight_v")] = e._get(e.params, path("v")).transpose(
+            3, 2, 0, 1)
+        e.sd[key("weight_g")] = e._get(e.params, path("g")).reshape(
+            -1, 1, 1, 1)
+        e.sd[key("bias")] = e._get(e.params, path("bias"))
+        return
+    if isinstance(module, arch_util.ModulatedDeformConvPack):
+        e.sd[key("weight")] = e._get(e.params, path("weight")).transpose(
+            3, 2, 0, 1)
+        e.direct(key("bias"), path("bias"))
+    for name, child in module.named_children():
+        if isinstance(module, (motion_blocks.HourglassEncoder,
+                               motion_blocks.HourglassDecoder)):
+            stem = ("down" if isinstance(module,
+                                         motion_blocks.HourglassEncoder)
+                    else "up")
+            for i, block in enumerate(child):  # down_blocks / up_blocks
+                _map_block(e, block, f"{key(name)}.{i}", path(f"{stem}_{i}"))
+            continue
+        if isinstance(module, arch_util.Upsample):
+            jax_name = f"conv{int(name) // 2}"
+        elif isinstance(module, torch.nn.Sequential):  # make_layer's
+            jax_name = f"block{name}"
+        elif isinstance(module, extended_blocks.UpBlock3d) and \
+                name == "conv":  # an unnamed flax nn.Conv
+            jax_name = "Conv_0"
+        else:
+            jax_name = name
+        _map_block(e, child, key(name), path(jax_name))
+
+
+def block_state_dict(variables, module) -> Dict[str, torch.Tensor]:
+    """The flax variables (``params`` and, for BatchNorm,
+    ``batch_stats``) of a JAX module of models/arch_util.py or
+    models/extended_blocks.py -> the state_dict of ``module``, its port
+    counterpart built with the same sizes."""
+    e = _Exporter(variables)
+    _map_block(e, module, "", "")
+    return e.state_dict()
+
+
 def _param_part(sd, module) -> Dict[str, torch.Tensor]:
     """The entries of ``sd`` that are parameters of ``module``."""
     names = dict(module.named_parameters())
     return {k: v for k, v in sd.items() if k in names}
 
 
+def _scale_by_adam_state(opt_state):
+    """The ``scale_by_adam`` state of an optimizer state: the state itself,
+    or the first part of the chain with ``add_decayed_weights`` that a
+    nonzero ``weight_decay`` builds (whose own state is empty)."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    return next(s for s in opt_state if hasattr(s, "mu"))
+
+
 def load_train_state(trainer, jax_state, vgg_params=None) -> None:
     """Load a JAX ``TrainState`` (training/trainer.py:51: step, params and
     BatchNorm statistics of the three networks, the generator's EMA, and
     the ``optax.scale_by_adam`` states ``opt_g/m/d`` with count, mu and
-    nu), and optionally the VGG19Features params, into ``trainer``: its
+    nu, alone or chained with ``add_decayed_weights``), and optionally the VGG19Features params, into ``trainer``: its
     modules' weights and statistics, and its ``state``. Leaves may be JAX
     or numpy arrays."""
     from .training import AdamState, TrainState
@@ -426,8 +505,10 @@ def load_train_state(trainer, jax_state, vgg_params=None) -> None:
             return {k: v.to(dev, copy=True) for k, v in
                     _param_part(to_sd(tree), module).items()}
 
-        adam[name] = AdamState(int(np.asarray(opt_state.count)),
-                               moments(opt_state.mu), moments(opt_state.nu))
+        adam_state = _scale_by_adam_state(opt_state)
+        adam[name] = AdamState(int(np.asarray(adam_state.count)),
+                               moments(adam_state.mu),
+                               moments(adam_state.nu))
     if vgg_params is not None:
         trainer.vgg.load_state_dict(vgg_state_dict(vgg_params), strict=True)
     trainer.reset_optimizers(int(np.asarray(st.step)))

@@ -227,3 +227,54 @@ def train_cli_rank(rank, world, ports, opt_path, out):
         result["states"].append(train_state(trainers[-1]))
     result.update(sampler_epoch0=seen[0], saved=saved, restored=restored)
     torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+
+
+MODEL_API_STEPS = 2
+
+
+def model_api_rank(rank, world, port, out):
+    """``model_api.AppMotionCompModel`` fed the global batch (NHWC numpy,
+    as a loader gives it) beside a ``Trainer`` of the same seed stepped on
+    this rank's slice, ``MODEL_API_STEPS`` steps each; then ``test()``,
+    the visuals, the trainer's own EMA forward on the slice, and the error
+    of an uneven global batch."""
+    from synergize_motion_appearance_tpu_torch.model_api import (
+        AppMotionCompModel,
+    )
+    from synergize_motion_appearance_tpu_torch.parallel import (
+        init_distributed, shard_batch,
+    )
+    from synergize_motion_appearance_tpu_torch.training import (
+        Trainer, batch_to_device, step_generator,
+    )
+
+    init_distributed("pytorch", device="cpu",
+                     environ=rank_env(rank, world, port))
+    opt = tiny_train_cfg()
+    model = AppMotionCompModel(opt, device="cpu")
+    tr = Trainer(opt, device="cpu", seed=model.seed)
+    global_batch = {k: v.permute(0, 2, 3, 1).numpy()
+                    for k, v in image_batch().items()}
+    shard = shard_batch(batch_to_device(global_batch, "cpu"))
+    result = {"steps": []}
+    for i in range(MODEL_API_STEPS):
+        model.feed_data(global_batch)
+        model.optimize_parameters(i)
+        logs = tr.train_step(shard, generator=step_generator(model.seed, i,
+                                                             "cpu"))
+        result["steps"].append({
+            "model_logs": dict(model.get_current_log()),
+            "trainer_logs": {k: float(v) for k, v in logs.items()},
+            "model": train_state(model.trainer), "trainer": train_state(tr)})
+    result["fed"] = {k: v.clone() for k, v in model.batch.items()}
+    result["test"] = model.test().clone()
+    result["visuals"] = model.get_current_visuals()
+    result["local_ema"] = tr.ema_forward(shard["source"], shard["driving"])
+    try:
+        model.feed_data({k: v[:3] for k, v in global_batch.items()})
+    except ValueError as e:
+        result["uneven"] = str(e)
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()

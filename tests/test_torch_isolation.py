@@ -46,7 +46,9 @@ def test_port_has_sources():
                      "metrics/inception.py", "metrics/lpips.py",
                      "metrics/openface.py", "metrics/external.py",
                      "metrics/pose_util.py", "serving.py",
-                     "export_serving.py"):
+                     "export_serving.py", "ops/dcn.py",
+                     "ops/stylegan_ops.py", "models/arch_util.py",
+                     "models/extended_blocks.py"):
         assert expected in names
     for source in ("fused_attention_packed.cu", "conv3x3.cu"):
         assert (PORT / "csrc" / source).exists()

@@ -78,10 +78,13 @@ def test_demo_from_export_matches_config_run(exported, tmp_path, anchor):
 
 
 def test_export_refuses_several_platforms(tmp_path):
-    with pytest.raises(ValueError, match="one device"):
+    """Without a card, --platforms cpu,cuda raises, names the device
+    whose programs it cannot trace, and writes nothing."""
+    with pytest.raises(RuntimeError, match="cuda programs needs a CUDA"):
         export_serving.main(["--config", TINY_YML, "--out",
                              str(tmp_path / "art"), "--platforms",
                              "cpu,cuda"])
+    assert not (tmp_path / "art").exists()
 
 
 def test_from_export_refuses_another_device(exported):

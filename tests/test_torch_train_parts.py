@@ -554,23 +554,26 @@ def test_lr_schedules(sched, warmup):
     "tiny_train.yml", "train.yml", "train_onset.yml", "train_soak.yml",
     "train_synth_disk.yml", "train_v5e2.yml", "train_v5e8.yml"])
 def test_trainer_takes_jax_train_options(yml):
-    """Every train block of the JAX package's option files passes the
-    trainer's check; a fixed GAN weight and Adam's weight decay, which no
-    file sets, raise before any network is built."""
+    """Every train block of the JAX package's option files is taken by the
+    trainer, and so are a fixed GAN weight and Adam's weight decay on top
+    of it, which no file sets: each optimizer reads its own
+    ``weight_decay``, as the JAX ``_make_optimizer`` does."""
     yaml = pytest.importorskip("yaml")
     root = osp.dirname(osp.dirname(osp.abspath(__file__)))
     with open(osp.join(root, "options", yml)) as f:
         train = yaml.safe_load(f)["train"]
-    ttr._check_train_options(train)
-    with pytest.raises(NotImplementedError, match="use_adaptive_weight"):
-        ttr._check_train_options(dict(train, use_adaptive_weight=False))
-    with pytest.raises(NotImplementedError, match="optim_d.weight_decay"):
-        ttr._check_train_options(
-            dict(train, optim_d=dict(train["optim_d"], weight_decay=1e-4)))
+    for name in ("optim_g", "optim_motion", "optim_d"):
+        cfg = train.get(name, train["optim_g"])
+        assert ttr.Adam(cfg).weight_decay == float(
+            cfg.get("weight_decay", 0.0))
+        assert ttr.Adam(dict(cfg, weight_decay=1e-4)).weight_decay == 1e-4
     opt = configs.get("tiny_train")
     opt["train"]["use_adaptive_weight"] = False
-    with pytest.raises(NotImplementedError, match="use_adaptive_weight"):
-        Trainer(opt, device="cpu")
+    opt["train"]["optim_d"] = dict(opt["train"]["optim_d"],
+                                   weight_decay=1e-4)
+    tr = Trainer(opt, device="cpu")
+    assert not tr.use_adaptive_weight
+    assert (tr.adam_g.weight_decay, tr.adam_d.weight_decay) == (0.0, 1e-4)
 
 
 def test_net_d_and_vgg_exports_match_tools(disc):
