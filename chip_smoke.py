@@ -74,9 +74,17 @@ at the flagship 256x256 width with seeded random weights:
   programs against the live card pipeline (K1 from gen), the CPU's
   (plain attention, no samt op) at the tiny config against the live CPU
   pipeline;
-- blocks (last): DCNv2Pack, ModulatedDeformConvPack, upfirdn2d,
+- blocks: DCNv2Pack, ModulatedDeformConvPack, upfirdn2d,
   fused_leaky_relu, SPADEResnetBlock, KPHourglass and flow_warp at real
   widths, each on the card against the CPU, with ms and peak memory.
+- data_utils (last): every module of the data/ and utils/ slice imported
+  on this machine (printing which of OpenCV, PIL, imageio, PyYAML and
+  lmdb it lacks); one flagship frame batch profiled with
+  utils.profiler.trace and annotate (the Chrome trace holds K1's 32
+  launches inside the annotated range, as the launch counter does) and
+  timed by StepTimer; duf_downsample and grad_layer on the card against
+  the CPU; TiledRestorer over grad_layer at 512x512, its tiles against
+  the whole pass bit for bit.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -3962,6 +3970,180 @@ def blocks(torch, fa, k3, seed, card):
     return report
 
 
+# ---------------------------------------------------------------------------
+# data and utils: the modules of the JAX package's data/ and utils/
+# ---------------------------------------------------------------------------
+
+DATA_MODULES = ("utils.env", "utils.misc", "utils.file_client",
+                "utils.matlab_functions", "data.data_util",
+                "data.augmentation", "utils.img_util",
+                "utils.tiled_inference", "utils.video_util",
+                "utils.profiler", "utils.lmdb_util")
+OPTIONAL_PACKAGES = ("cv2", "PIL", "imageio", "yaml", "lmdb")
+DUF_SHAPE = (2, 7, 256, 256, 3)   # (B, T, H, W, C) of duf_downsample, x4
+GRAD_SHAPE = (FRAME_BATCH, 256, 256, 3)  # grad_layer's frame batch
+TILED_SIZE, TILE, TILE_PAD = 512, 128, 10  # TiledRestorer over grad_layer
+DATA_REL = 1e-5  # card vs CPU, f32 without TF32: relative max error
+TRACE_RANGE = "frame_batch"  # the annotated range of the profiled batch
+
+
+def traced_k1(trace_path):
+    """From a Chrome trace of torch.profiler: the K1 kernels launched inside
+    the CPU range TRACE_RANGE (the runtime or driver call with the kernel's
+    correlation id lies inside it), the number of device events, and the
+    device time (kernels, copies and memsets) in ms."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name") == TRACE_RANGE
+              and e.get("cat") == "user_annotation"]
+    assert len(ranges) == 1, f"{len(ranges)} {TRACE_RANGE} ranges"
+    (start, end), = ranges
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    k1 = [e for e in device if e["cat"] == "kernel"
+          and "attn_packed_kernel" in e["name"]
+          and start <= launched.get(e["args"].get("correlation"), -1) <= end]
+    return len(k1), len(device), sum(e["dur"] for e in device) / 1e3
+
+
+def data_utils(torch, configs, ReenactmentPipeline, seeded_nets, fa, k3,
+               seed, card):
+    """The slice of the JAX package's data/ and utils/: every module
+    imported on this machine (OPTIONAL_PACKAGES that it lacks are
+    reported); one flagship frame batch of the main path profiled with
+    utils.profiler.trace and annotate (K1's 32 launches inside the
+    annotated range of the Chrome trace, equal to the launch counter) and
+    timed by StepTimer; duf_downsample and grad_layer on the card against
+    the CPU; TiledRestorer over grad_layer on the card, tiles against the
+    whole pass bit for bit."""
+    import importlib
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    for name in DATA_MODULES:
+        importlib.import_module(f"synergize_motion_appearance_tpu_torch."
+                                f"{name}")
+    absent = [p for p in OPTIONAL_PACKAGES
+              if importlib.util.find_spec(p) is None]
+    print(f"data_utils: imported {len(DATA_MODULES)} modules; absent on "
+          f"this machine: {absent}", flush=True)
+    from synergize_motion_appearance_tpu_torch.data.data_util import (
+        duf_downsample,
+    )
+    from synergize_motion_appearance_tpu_torch.utils import profiler
+    from synergize_motion_appearance_tpu_torch.utils.img_util import (
+        grad_layer,
+    )
+    from synergize_motion_appearance_tpu_torch.utils.tiled_inference import (
+        TiledRestorer,
+    )
+    report = {"modules": list(DATA_MODULES), "absent_packages": absent}
+
+    # one frame batch of the main path under the profiler
+    g, me = seeded_nets(configs.get("flagship_256"), seed)
+    pipe = ReenactmentPipeline(g, me, relative=True, adapt_scale=True,
+                               frame_batch=FRAME_BATCH,
+                               compute_dtype=torch.bfloat16, u8_io=True,
+                               device="cuda")
+    src = frames(1, 256, seed + 20)
+    drv = frames(FRAME_BATCH, 256, seed + 21)
+    pipe.animate(src, drv)  # warm-up: first-call setup stays out
+    logdir = os.path.join(ROOT, "build", "chip_smoke_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    timer = profiler.StepTimer()
+    try:
+        for _ in range(3):  # a session that records no device activity reruns
+            fa.reset_launches()
+            k3.reset_launches()
+            timer.mark_data()
+            with profiler.trace(logdir):
+                with profiler.annotate(TRACE_RANGE):
+                    out = pipe.animate(src, drv)
+                timer.mark_step(block_on=next(pipe.net_g.parameters()))
+            launches = samt_launches(fa, k3)
+            trace_path = max(
+                (os.path.join(logdir, n) for n in os.listdir(logdir)),
+                key=os.path.getmtime)
+            k1_traced, n_device, device_ms = traced_k1(trace_path)
+            if n_device:
+                break
+        trace_bytes = os.path.getsize(trace_path)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    assert n_device, "the profiler saw no device activity in 3 sessions"
+    assert out.shape == (FRAME_BATCH, 256, 256, 3) and out.std() > 0
+    assert launches == {"k1": 32, "k2": 0, "k3": 0, "k4": 0}, launches
+    assert k1_traced == launches["k1"], (k1_traced, launches)
+    step_ms = 1e3 * timer.step_time
+    report.update(k1_launches=launches["k1"], k3_launches=launches["k3"],
+                  k1_in_trace=k1_traced, trace_device_events=n_device,
+                  trace_device_ms=device_ms, step_timer_ms=step_ms,
+                  trace_bytes=trace_bytes)
+    print(f"data_utils: profiler.trace of one frame batch of {FRAME_BATCH}: "
+          f"{k1_traced} K1 kernels launched inside annotate("
+          f"{TRACE_RANGE!r}) (launch counter {launches['k1']}), "
+          f"{n_device} device events, device {device_ms:.2f} ms; StepTimer "
+          f"step {step_ms:.2f} ms (under the profiler); Chrome trace "
+          f"{trace_bytes / 2 ** 20:.1f} MiB", flush=True)
+    del pipe, g, me
+    torch.cuda.empty_cache()
+
+    # duf_downsample and grad_layer, card against CPU
+    gen = torch.Generator().manual_seed(seed + 70)
+    for name, fn, shape in (
+            ("duf_downsample", lambda x: duf_downsample(x, scale=4),
+             DUF_SHAPE),
+            ("grad_layer", grad_layer, GRAD_SHAPE)):
+        x = torch.rand(shape, generator=gen)
+        want = fn(x)
+        x_card = x.cuda()
+        got = fn(x_card)
+        err = max_rel(torch, got, want)
+        ms = time_ms(torch, lambda: fn(x_card), BLOCK_ITERS)
+        assert tuple(got.shape) == tuple(want.shape), (name, got.shape)
+        assert got.device.type == "cuda", name
+        assert err <= DATA_REL, (name, err)
+        report[name] = {"shape": list(shape), "out_shape": list(got.shape),
+                        "max_rel_err": err, "ms": ms}
+        print(f"data_utils: {name} {list(shape)} -> {list(got.shape)}: card "
+              f"vs CPU max rel err {err:.3e}, {ms:.3f} ms (median of "
+              f"{BLOCK_ITERS}, CUDA events)", flush=True)
+
+    # TiledRestorer over grad_layer on the card: tiles equal the whole pass
+    img = np.random.RandomState(seed + 71).rand(
+        1, TILED_SIZE, TILED_SIZE, 3).astype(np.float32)
+    t0 = time.perf_counter()
+    whole = TiledRestorer(grad_layer, device="cuda").enhance(img)
+    whole_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiled = TiledRestorer(grad_layer, tile_size=TILE, tile_pad=TILE_PAD,
+                          device="cuda").enhance(img)
+    tiled_s = time.perf_counter() - t0
+    cpu = TiledRestorer(grad_layer, device="cpu").enhance(img)
+    assert tiled.shape == whole.shape == (1, TILED_SIZE, TILED_SIZE, 1)
+    assert np.array_equal(tiled, whole), float(np.abs(tiled - whole).max())
+    cpu_err = float(np.abs(whole - cpu).max() / np.abs(cpu).max())
+    assert cpu_err <= DATA_REL, cpu_err
+    report["tiled"] = {"size": TILED_SIZE, "tile": TILE, "pad": TILE_PAD,
+                       "tiles": (TILED_SIZE // TILE) ** 2,
+                       "equal_to_whole": True, "max_rel_err_cpu": cpu_err,
+                       "whole_s": whole_s, "tiled_s": tiled_s}
+    print(f"data_utils: TiledRestorer(grad_layer) {TILED_SIZE}^2, tile "
+          f"{TILE} pad {TILE_PAD}: {(TILED_SIZE // TILE) ** 2} tiles equal "
+          f"the whole pass bit for bit ({tiled_s:.3f} s against "
+          f"{whole_s:.3f} s, host stitching included); whole vs CPU max rel "
+          f"err {cpu_err:.3e}", flush=True)
+    report["wall_s"] = time.perf_counter() - t_phase
+    print(f"data_utils: phase {report['wall_s']:.1f} s on {card}",
+          flush=True)
+    return report
+
+
 def dir_bytes(path):
     return sum(os.path.getsize(os.path.join(d, f))
                for d, _, files in os.walk(path) for f in files)
@@ -4174,6 +4356,10 @@ def main():
     sr_launches = report["sr_model"]["train"]["launches"]
     torch.cuda.empty_cache()
     report["blocks"] = blocks(torch, fa, k3, args.seed, card)
+    torch.cuda.empty_cache()
+    report["data_utils"] = data_utils(
+        torch, configs, ReenactmentPipeline, seeded_nets, fa, k3, args.seed,
+        card)
     opts = report["train_options"]
     two_device = report["serving"]["two_device"]
 
@@ -4222,7 +4408,8 @@ def main():
                 "k1_launches_per_step"],
             launches_served_two_device_cuda=two_device["k1_launches_card"],
             launches_served_two_device_cpu=two_device["k1_launches_cpu"],
-            launches_blocks=report["blocks"]["launches"]["k1"]),
+            launches_blocks=report["blocks"]["launches"]["k1"],
+            launches_data_utils=report["data_utils"]["k1_launches"]),
         kernel_entry(
             "fused_attention (head-split)", "fused_attention_packed.cu",
             "fused_attention.py:56", report["k2_cases"],
@@ -4256,6 +4443,7 @@ def main():
             launches_model_api_mesh=report["model_api_mesh"][
                 "k3_launches_per_step"],
             launches_blocks=report["blocks"]["launches"]["k3"],
+            launches_data_utils=report["data_utils"]["k3_launches"],
             launches_note="launches_dp_train is per rank per step of the "
                           "two-rank data-parallel step; launches_sr_model "
                           f"over the {SR_STEPS} steps of VQGAN stage-1 "
@@ -4266,8 +4454,10 @@ def main():
                           "launches_train_telemetry over one step with "
                           "telemetry=True, launches_model_api_mesh per rank "
                           "per step of the tiny two-rank model API, "
-                          "launches_blocks over the blocks phase; K3 is the "
-                          "op samt::conv3x3"),
+                          "launches_blocks over the blocks phase, "
+                          "launches_data_utils over the data_utils phase's "
+                          "profiled frame batch; K3 is the op "
+                          "samt::conv3x3"),
         kernel_entry(
             "conv3x3_nhwc", "conv3x3.cu", "pallas_conv.py:39",
             report["k4_cases"], "k3_launches_per_step",

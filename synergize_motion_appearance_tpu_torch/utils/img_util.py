@@ -3,6 +3,8 @@ utils/img_util.py:13-172; the port's copy of the JAX package's
 utils/img_util.py). Frames are NHWC / HWC numpy arrays here: the data
 pipeline runs on the host, and the trainer moves batches to the device.
 
+``grad_layer`` runs in torch on its input's device.
+
 OpenCV and imageio are imported when present; a call that needs one that
 is not raises an ImportError that names it. Videos are read and written
 with imageio first and OpenCV when imageio has no backend for the file.
@@ -13,6 +15,8 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 try:
     import cv2
@@ -170,3 +174,41 @@ def read_video_frames(path: str, size: Optional[Tuple[int, int]] = None
         frames = [cv2_.resize(f, size, interpolation=cv2_.INTER_LINEAR)
                   for f in frames]
     return frames, fps
+
+
+def grad_layer(x: torch.Tensor) -> torch.Tensor:
+    """Sobel gradient magnitude |sobel_x| + |sobel_y| of the channel mean,
+    zero-padded (the reference's GradLayer, utils/img_util.py:254-294):
+    (B, H, W, C) -> (B, H, W, 1) on the input's device. The nine taps are
+    shifted windows summed in a fixed order, so each output pixel's value
+    does not depend on the image around it beyond its 3x3 reach (a tile
+    gives the same bits as the whole image)."""
+    C = x.shape[-1]
+    gray = x[..., 0]
+    for c in range(1, C):
+        gray = gray + x[..., c]
+    gray = gray / C
+    H, W = gray.shape[1:]
+    p = F.pad(gray, (1, 1, 1, 1))
+
+    def win(i, j):
+        return p[:, i:i + H, j:j + W]
+
+    gx = (win(0, 2) - win(0, 0)) + 2 * (win(1, 2) - win(1, 0)) + (
+        win(2, 2) - win(2, 0))
+    gy = (win(2, 0) - win(0, 0)) + 2 * (win(2, 1) - win(0, 1)) + (
+        win(2, 2) - win(0, 2))
+    return (gx.abs() + gy.abs())[..., None]
+
+
+def show_feature_map(feat) -> np.ndarray:
+    """A feature map's channel mean, min-max scaled to an (H, W) uint8
+    image; (B, H, W, C) shows its first item (the reference's feature-map
+    visualiser)."""
+    f = (feat.detach().float().cpu().numpy() if torch.is_tensor(feat)
+         else np.asarray(feat))
+    if f.ndim == 4:
+        f = f[0]
+    m = f.mean(axis=-1)
+    m = (m - m.min()) / (m.max() - m.min() + 1e-8)
+    return (m * 255).astype(np.uint8)

@@ -27,6 +27,7 @@ from synergize_motion_appearance_tpu.ops.fused_attention import (  # noqa: E402
 from synergize_motion_appearance_tpu_torch.ops import (  # noqa: E402
     fused_attention,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 B, L, K, E, H = 2, 8, 6, 16, 4
 

@@ -22,6 +22,7 @@ from synergize_motion_appearance_tpu.ops.fused_attention import (  # noqa: E402
 from synergize_motion_appearance_tpu_torch.ops import (  # noqa: E402
     fused_attention as port,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 ATOL = RTOL = 2e-5
 

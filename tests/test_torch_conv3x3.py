@@ -23,6 +23,7 @@ from synergize_motion_appearance_tpu.ops.pallas_conv_wl import (  # noqa: E402
 )
 from synergize_motion_appearance_tpu_torch.models import layers  # noqa: E402
 from synergize_motion_appearance_tpu_torch.ops import conv3x3 as k3  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 B, H, W, CI, CO = 2, 8, 16, 8, 12
 TOL = 3e-5

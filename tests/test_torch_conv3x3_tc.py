@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 import torch.nn.functional as F  # noqa: E402
 
 from synergize_motion_appearance_tpu_torch.ops import conv3x3 as k3  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 # (B, C, Cout, H, W): C not a multiple of 8 or 16, Cout above one tile
 SHAPES = [(1, 3, 5, 7, 9), (2, 20, 40, 6, 11), (1, 17, 130, 5, 4)]

@@ -28,6 +28,7 @@ from synergize_motion_appearance_tpu.ops.pallas_conv import (  # noqa: E402
     _conv_kernel,
 )
 from synergize_motion_appearance_tpu_torch.ops import conv3x3 as k3  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 
 def _pallas_interpret(x, w, b, block_rows):

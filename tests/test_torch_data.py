@@ -48,6 +48,7 @@ from synergize_motion_appearance_tpu_torch.utils import (  # noqa: E402
     img_util,
     options,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -66,24 +66,13 @@ from convert_reference_checkpoint import (  # noqa: E402
     convert_net_g,
 )
 from convert_vgg_weights import save_npz  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY_YML = osp.join(ROOT, "options", "tiny.yml")
 N_FRAMES, FRAME_BATCH, ANCHOR = 7, 4, 3
 KW = dict(relative=True, adapt_scale=True, frame_batch=FRAME_BATCH,
           u8_io=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs. The suite runs in
-    several worker processes at once; with torch's default of one thread
-    per core the workers oversubscribe the machine, and small CPU ops then
-    wait on each other (a demo run took over 100 s instead of 1 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def converted_tiny_nets(seed):

@@ -50,20 +50,9 @@ from synergize_motion_appearance_tpu_torch.utils.img_util import (  # noqa: E402
     mimsave,
 )
 from test_torch_demo_cli import converted_tiny_nets, save_npz  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs. The suite runs in
-    several worker processes at once; with torch's default of one thread
-    per core the workers oversubscribe the machine, and small CPU ops then
-    wait on each other (a demo run took over 100 s instead of 1 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

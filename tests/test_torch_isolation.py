@@ -1,7 +1,11 @@
 """The port stands alone: no module of synergize_motion_appearance_tpu_torch,
 and not chip_smoke.py, imports JAX, flax, the JAX package or tools/.
-Checked on the source with ``ast``, without importing anything."""
+Checked on the source with ``ast``, without importing anything. And the
+port imports as on the card's machine, which has none of JAX, OpenCV, PIL,
+imageio, PyYAML and lmdb: checked in a Python that hides them."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -48,7 +52,11 @@ def test_port_has_sources():
                      "metrics/pose_util.py", "serving.py",
                      "export_serving.py", "ops/dcn.py",
                      "ops/stylegan_ops.py", "models/arch_util.py",
-                     "models/extended_blocks.py"):
+                     "models/extended_blocks.py", "utils/env.py",
+                     "utils/file_client.py", "utils/matlab_functions.py",
+                     "data/data_util.py", "data/augmentation.py",
+                     "utils/tiled_inference.py", "utils/video_util.py",
+                     "utils/profiler.py", "utils/lmdb_util.py"):
         assert expected in names
     for source in ("fused_attention_packed.cu", "conv3x3.cu"):
         assert (PORT / "csrc" / source).exists()
@@ -62,3 +70,51 @@ def test_no_jax_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = sorted(set(_imported_roots(tree)) & FORBIDDEN)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# absent on the card's machine; importing one there raises ImportError
+CARD_ABSENT = ("cv2", "PIL", "imageio", "yaml", "lmdb", "jax", "jaxlib",
+               "flax")
+
+
+def _chip_smoke_imports():
+    """Every module chip_smoke.py imports, at any depth of the script."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    return sorted(names)
+
+
+def test_port_imports_without_optional_packages():
+    """In a fresh Python where the card machine's absent packages raise
+    ImportError, every module of the port, chip_smoke.py and every module
+    chip_smoke.py imports import; random_ff_mask raises a RuntimeError
+    that names cv2."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts[:-1]
+                 if p.name == "__init__.py"
+                 else p.relative_to(ROOT).with_suffix("").parts)
+        for p in PORT.rglob("*.py"))
+    script = f"""
+import importlib, sys
+for name in {CARD_ABSENT!r}:
+    sys.modules[name] = None
+sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / "tools")!r}]
+for name in {modules!r} + ["chip_smoke"] + {_chip_smoke_imports()!r}:
+    importlib.import_module(name)
+from synergize_motion_appearance_tpu_torch.data.data_util import (
+    random_ff_mask)
+try:
+    random_ff_mask((8, 8))
+except RuntimeError as e:
+    assert "cv2" in str(e), e
+    print("IMPORTED", len(sys.modules))
+"""
+    run = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert "IMPORTED" in run.stdout, (run.stdout, run.stderr[-3000:])

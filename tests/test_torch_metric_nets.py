@@ -48,20 +48,9 @@ from synergize_motion_appearance_tpu_torch.metrics import (  # noqa: E402
     openface,
     pose_util,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 REL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs. The suite runs in
-    several worker processes at once; with torch's default of one thread
-    per core the workers oversubscribe the machine, and small CPU ops then
-    wait on each other (a demo run took over 100 s instead of 1 s)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _randomize(net, seed):

@@ -23,16 +23,9 @@ from synergize_motion_appearance_tpu_torch.model_api import (  # noqa: E402
 from synergize_motion_appearance_tpu_torch.parallel import (  # noqa: E402
     gather_batch,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 RANK_TIMEOUT = 240  # seconds for a spawned rank
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from synergize_motion_appearance_tpu_torch.models import vqgan as tvq  # noqa: E
 from synergize_motion_appearance_tpu_torch.models.transformer import (  # noqa: E402
     TransformerLayer,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 IMG = 64
 

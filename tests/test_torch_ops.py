@@ -17,6 +17,7 @@ from synergize_motion_appearance_tpu.ops import coords as jc  # noqa: E402
 from synergize_motion_appearance_tpu.ops import interp as ji  # noqa: E402
 from synergize_motion_appearance_tpu_torch.ops import coords as tc  # noqa: E402
 from synergize_motion_appearance_tpu_torch.ops import interp as ti  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

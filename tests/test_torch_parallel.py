@@ -38,6 +38,7 @@ from synergize_motion_appearance_tpu_torch.training import (  # noqa: E402
     save_checkpoint,
     step_generator,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 RANK_TIMEOUT = 240  # seconds for a spawned rank
 
@@ -53,16 +54,6 @@ SLURM_ENVS = [
     ({"SLURM_PROCID": "1", "SLURM_NTASKS": "2", "SLURM_NODELIST": "a[1-2]",
       "MASTER_PORT": "12345"}, 777),
 ]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two torch threads while this module runs (the ranks it spawns take
-    two each too): the suite's workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from synergize_motion_appearance_tpu_torch.ops import (  # noqa: E402
     fused_attention,
 )
 from test_torch_models import frames, port_nets, tiny_jax_nets  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 N_FRAMES, FRAME_BATCH = 6, 4
 

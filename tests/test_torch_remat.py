@@ -38,20 +38,11 @@ from synergize_motion_appearance_tpu_torch.training import (  # noqa: E402
 from synergize_motion_appearance_tpu_torch.training import (  # noqa: E402
     trainer as trainer_mod,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = (False, True, "selective")
 STEPS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two torch threads while this module runs (the ranks it spawns take
-    two each too): the suite's workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def v5e2_cfg(remat):

@@ -37,22 +37,12 @@ from synergize_motion_appearance_tpu_torch.weights import (  # noqa: E402
 )
 from test_torch_demo_cli import converted_tiny_nets  # noqa: E402
 from test_torch_models import frames  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 N_FRAMES, FRAME_BATCH, ANCHOR, SEED = 7, 4, 3, 1
 KW = dict(relative=True, adapt_scale=True, frame_batch=FRAME_BATCH)
 FAST = dict(compute_dtype=torch.bfloat16, u8_io=True, yuv420_io=True,
             host_kp_downsample=True)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs, as in
-    tests/test_torch_demo_cli.py: the suite's worker processes would
-    otherwise oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _live(seed=SEED, **kw):

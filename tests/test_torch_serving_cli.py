@@ -24,21 +24,12 @@ from synergize_motion_appearance_tpu_torch.utils.img_util import (  # noqa: E402
     mimsave,
     read_video_frames,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 TINY_YML = osp.join(ROOT, "options", "tiny.yml")
 N_FRAMES = 7
 FLAGS = ["--relative", "--adapt_scale", "--frame_batch", "4"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs, as in
-    tests/test_torch_demo_cli.py."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -75,6 +75,7 @@ from test_torch_models import (  # noqa: E402
     _perturb,
     port_nets,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 # The paper's ablations: each a dict of overrides of network_g
 # ("g"), the keypoint detector ("kp") or the dense-motion network ("dm").
@@ -110,17 +111,6 @@ def variant_cfg(name, base="tiny"):
     me["kp_detector_params"].update(ov.get("kp", {}))
     me["dense_motion_params"].update(ov.get("dm", {}))
     return cfg
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs, as the CLI tests do:
-    the suite's worker processes would otherwise oversubscribe the
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _shapes(tree):

@@ -34,18 +34,9 @@ from test_torch_switches import (  # noqa: E402
     port_dense_motion,
     variant_cfg,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 OTHER_VARIANTS = [v for v in VARIANTS if v not in CODEBOOK_VARIANTS]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs (see
-    test_torch_switches)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name", OTHER_VARIANTS)

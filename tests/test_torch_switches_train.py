@@ -56,16 +56,7 @@ from test_torch_switches import (  # noqa: E402
     variant_cfg,
 )
 from test_torch_train_step import _batch  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_torch_threads():
-    """Two intra-op threads while this file runs (see
-    test_torch_switches)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 
 def _scalar(out, w):

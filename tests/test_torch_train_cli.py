@@ -39,6 +39,7 @@ from synergize_motion_appearance_tpu_torch.utils.options import (  # noqa: E402
 )
 
 from test_train_entry import _opt_file  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 SEED = 0  # options/tiny_train.yml's manual_seed
 

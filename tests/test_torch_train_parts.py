@@ -90,6 +90,7 @@ from test_torch_models import (  # noqa: E402
     port_nets,
     tiny_jax_nets,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 FWD = 1e-5
 REL = 1e-4

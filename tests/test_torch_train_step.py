@@ -67,6 +67,7 @@ from synergize_motion_appearance_tpu_torch.ops import (  # noqa: E402
 from synergize_motion_appearance_tpu_torch.training import Trainer  # noqa: E402
 
 from test_train_step import tiny_opt  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 STEPS = 3
 LR = 8e-5

@@ -60,8 +60,16 @@ from test_torch_train_step import (  # noqa: E402
     _port_named,
 )
 from test_train_step import tiny_opt  # noqa: E402
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 STEPS = 2
+# every log of the tiny train step with D on, in sorted order
+LOG_KEYS = sorted([
+    "d_weight", "l_d_fake", "l_d_real", "l_equivariance_jacobian",
+    "l_equivariance_value", "l_g_app_codebook_code", "l_g_gan",
+    "l_g_motion_codebook_code", "l_g_motion_codebook_recon", "l_g_percep",
+    "l_g_percep_lr_0", "l_g_pix", "l_g_pix_lr_0", "l_g_total", "l_kpd",
+    "out_d_fake", "out_d_real", "step_skipped_nonfinite"])
 LOG_REL = 5e-2     # the JAX package's own bf16-vs-f32 bound on a loss
 LOG_ABS = 5e-3     # for the means of discriminator logits near 0
 DRIFT_FACTOR = 2.0
@@ -122,16 +130,28 @@ def test_master_weights_stay_float32(runs):
 
 @pytest.mark.parametrize("i", range(STEPS), ids=STEP_IDS)
 def test_logs_within_bf16_drift(runs, i):
+    """The logs' keys, finiteness and D's gating; each log's drift is held
+    by test_each_log_within_bf16_drift."""
     want = runs["f32_logs"][i]
     jax_bf, port_bf = runs["jax_logs"][i], runs["port_logs"][i]
-    assert sorted(port_bf) == sorted(jax_bf) == sorted(want)
+    assert sorted(port_bf) == sorted(jax_bf) == sorted(want) == LOG_KEYS
     assert port_bf["step_skipped_nonfinite"] == 0.0
     assert all(np.isfinite(v) for v in port_bf.values())
     assert (port_bf["d_weight"] > 0.0) == (jax_bf["d_weight"] > 0.0) == \
         (i > 0)
-    for k, v in want.items():
-        assert abs(port_bf[k] - jax_bf[k]) <= LOG_REL * abs(v) + LOG_ABS, (
-            k, port_bf[k], jax_bf[k], v)
+
+
+# One case per step and log, so that a failure names its log. The file has
+# one slow fixture and, with a case per step only, few tests: pytest-xdist
+# hands out files in order of their test count, most first, so it would
+# start last and run alone at the end of the suite.
+@pytest.mark.parametrize("key", LOG_KEYS)
+@pytest.mark.parametrize("i", range(STEPS), ids=STEP_IDS)
+def test_each_log_within_bf16_drift(runs, i, key):
+    v = runs["f32_logs"][i][key]
+    jax_bf, port_bf = runs["jax_logs"][i][key], runs["port_logs"][i][key]
+    assert abs(port_bf - jax_bf) <= LOG_REL * abs(v) + LOG_ABS, (
+        port_bf, jax_bf, v)
 
 
 @pytest.mark.parametrize("group", ["g", "m", "d"])

@@ -30,20 +30,11 @@ from synergize_motion_appearance_tpu_torch import models, weights  # noqa: E402
 from synergize_motion_appearance_tpu_torch.models import (  # noqa: E402
     vqgan_extras,
 )
+from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 TOL = 1e-4
 LOSS_REL = 1e-5
 
-
-@pytest.fixture(scope="module", autouse=True)
-def two_torch_threads():
-    """Two intra-op threads while a file runs (imported by the other new
-    files): the suite runs in several worker processes at once, and with
-    one thread per core each they oversubscribe the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 VQ_CFG = dict(type="VQAutoEncoder", img_size=32, nf=8, ch_mult=[1, 2],
               res_blocks=1, attn_resolutions=[16], codebook_size=32,
