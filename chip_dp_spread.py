@@ -129,7 +129,8 @@ def main():
         from synergize_motion_appearance_tpu_torch.ops import cuda_build
 
         print(cs.card_line(), flush=True)
-        cuda_build.build("fused_attention_packed", "conv3x3")
+        cuda_build.build("fused_attention_packed", "fused_attention_wgmma",
+                         "conv3x3")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     seed, betas = 0, (0.9, 0.99)

@@ -131,17 +131,18 @@ CLI_STEPS = 4                  # steps of the training entry point's run
 CACHE_VIDEOS, CACHE_FRAMES = 8, 8  # its native frame cache: 12.6 MB
 CACHE_SIZE = 256                   # frames of the flagship's img_size
 
-# kernel -> (key of its kernels-line entry, earlier time in ms), bf16, on
-# an NVIDIA H100 80GB HBM3 at 700.00 W, by the profiler's device time, as
-# measured when each was redesigned for the tensor cores: K1 per frame
-# batch with its 32 launches in bf16 (device_ms_bf16; the pipeline now
-# gives the motion transformer's 16 float32), K3 per train step and K4
-# over K3's forward shapes (their calls are
-# short enough that per-call event times measure the host). On a card at
-# that power limit none may be more than 10% slower now.
-PREVIOUS_MS = {"fused_attention_packed": ("device_ms_bf16", 3.35),
-               "conv3x3": ("device_ms", 5.54),
-               "conv3x3_nhwc": ("device_ms", 2.49)}
+# (kernel, key of its kernels-line entry, earlier time in ms) on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, by the profiler's device time, as measured
+# when each was last redesigned: K1 per frame batch with its 32 launches
+# all in bf16 (device_ms_bf16) and its motion transformer's 16 launches in
+# float32 as the pipeline gives them (device_ms_motion), K3 per train step
+# and K4 over K3's forward shapes, both bf16 (their calls are short enough
+# that per-call event times measure the host). On a card at that power
+# limit none may be more than 10% slower now.
+PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
+               ("fused_attention_packed", "device_ms_motion", 1.17),
+               ("conv3x3", "device_ms", 5.54),
+               ("conv3x3_nhwc", "device_ms", 2.49)]
 
 # profiled kernel-name substrings -> kind, first match wins
 KINDS = [
@@ -251,9 +252,11 @@ def attention_cases(B, L=1024):
 
 
 # (name, B, L, E, H, K, shared context, bias, 0) on no path, checked and
-# not timed, each with a bias that masks every key of batch row 0: L and K
-# off the query and key tiles at d = 4 and 32, the train step's B = 2
-# (64-row query tiles), and the tiny config's d = 2 and 8
+# not timed (but for the train step's), each with a bias that masks every
+# key of batch row 0: L and K off the query and key tiles at d = 4 and 32,
+# the train step's B = 2 (timed; the wgmma kernel's 64-row query tiles),
+# the tiny config's d = 2 and 8, and the wgmma kernel's other widths, d =
+# 16 and 64
 RAGGED_ATTENTION = [
     ("ragged_L1000_K1000_d4", FRAME_BATCH, 1000, 32, 8, 1000, False, True,
      0),
@@ -264,6 +267,8 @@ RAGGED_ATTENTION = [
      0),
     ("tiny_self_d2", 4, 64, 8, 4, 64, False, True, 0),
     ("tiny_cross_K48_d8", 4, 64, 32, 4, 48, True, True, 0),
+    ("ragged_L700_K300_d16", 3, 700, 128, 8, 300, False, True, 0),
+    ("ragged_L1000_K200_d64", 2, 1000, 512, 8, 200, True, True, 0),
 ]
 
 
@@ -327,6 +332,57 @@ def attention_bound(q, k, v, bias, scores, d, rate):
             "bound_parts_ms": {k: 1e3 * t for k, t in parts.items()}}
 
 
+def f32_issue_slots(d, rows):
+    """Issue slots that one score of the float32 kernel takes
+    (attn_packed_kernel<DMAX, R>, DMAX = d rounded up to a power of two,
+    R = rows per thread): per score and row 2 DMAX FMAs (q.k and p.v), the
+    max, the exponent's subtraction, the exponential's issue and the row
+    sum; per key 2 ceil(DMAX / 4) 16-byte shared loads of k and v and 1 of
+    the bias, shared by the R rows; per 16 keys and row the rescale (max,
+    subtraction, exponential, and the multiplies of the sum and the DMAX
+    accumulators)."""
+    dmax = 1 << (d - 1).bit_length()
+    return (2 * dmax + 4 + (2 * -(-dmax // 4) + 1) / rows
+            + (4 + dmax) / 16)
+
+
+def attention_issue_ms(scores, d, rows, rate):
+    """The float32 kernel's issue-slot estimate in ms: its issue slots
+    over the 4 schedulers x 32 lanes of each SM at the top clock. Not a
+    bound of the function (the bound counts 4d FLOP and one exponential a
+    score): what the f32 half's instruction stream needs at the least."""
+    per_s = 128 * rate["sms"] * rate["sm_clock_max_mhz"] * 1e6
+    return 1e3 * scores * f32_issue_slots(d, rows) / per_s
+
+
+def attention_halves(rows):
+    """On-path device sums of K1's two halves per frame batch of
+    FRAME_BATCH (the appearance transformer's bf16 d = 32 launches, the
+    motion transformer's float32 d = 4 ones), SDPA's beside each, the
+    bound and its share (and the f32 half's issue-slot estimate); and the
+    train step's timed B = 2 shapes."""
+    halves = {}
+    for half, dtype in (("appearance", "bfloat16"), ("motion", "float32")):
+        timed = [r for r in rows if r["on_path"] and r["dtype"] == dtype]
+        h = {key: sum(r[key] * r["launches_per_frame_batch"] for r in timed)
+             for key in ("device_ms", "library_device_ms", "bound_ms")
+             + (("issue_slot_ms",) if dtype == "float32" else ())}
+        h["launches_per_frame_batch"] = sum(r["launches_per_frame_batch"]
+                                            for r in timed)
+        h["bound_share"] = h["bound_ms"] / h["device_ms"]
+        halves[half] = h
+        print(f"K1 {half} half on the path ({dtype}, "
+              f"{h['launches_per_frame_batch']} "
+              f"launches a frame batch): {h['device_ms']:.4f} ms device, "
+              f"SDPA {h['library_device_ms']:.4f}, bound "
+              f"{h['bound_ms']:.4f} (share {h['bound_share']:.3f})"
+              + (f", issue-slot estimate {h['issue_slot_ms']:.4f}"
+                 if "issue_slot_ms" in h else ""), flush=True)
+    halves["train_B2"] = {r["case"] + "_" + r["dtype"]: r["device_ms"]
+                          for r in rows if r["case"].startswith("train_B2")}
+    return halves
+
+
 def attention_note(row):
     if "ms" not in row:
         return "  (checked, not timed)"
@@ -343,8 +399,11 @@ def check_attention(torch, fa, B, rate, L=1024):
     shapes time kernel, plain version and F.scaled_dot_product_attention
     at bfloat16 and, for the motion transformer's calls, also at float32,
     the dtype the bf16 pipeline gives them (the JAX graph's type promotion
-    of the float32 flow residual runs the motion pass in float32). Rows
-    in the pipeline's dtype are marked on_path."""
+    of the float32 flow residual runs the motion pass in float32); time
+    the train step's B = 2 shapes of RAGGED_ATTENTION in both dtypes. Rows
+    in the pipeline's dtype are marked on_path. bfloat16 at d = 16, 32 and
+    64 runs the wgmma kernel, at d = 2, 4 and 8 the mma.sync one, float32
+    the CUDA-core one (ops/fused_attention.py::plan)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -375,7 +434,10 @@ def check_attention(torch, fa, B, rate, L=1024):
                    "launches_per_frame_batch": per_batch,
                    "on_path": bool(per_batch) and str(dtype).split(".")[1]
                    == path_dtype, "max_abs_err": err}
-            if per_batch and (dtype == torch.bfloat16 or row["on_path"]):
+            # the main path's shapes, and the train step's B = 2 shapes
+            timed = per_batch or name.startswith("train_B2")
+            if timed and (dtype == torch.bfloat16 or row["on_path"]
+                          or not per_batch):
                 # the library yardstick, timed only: SDPA on head-split
                 # views
                 qh = q.view(bb, ll, H, d).transpose(1, 2)
@@ -396,6 +458,10 @@ def check_attention(torch, fa, B, rate, L=1024):
                 row.update(attention_bound(q, k, v, bias, bb * H * ll * K,
                                            d, rate))
                 row["bound_share"] = row["bound_ms"] / row["device_ms"]
+                if dtype == torch.float32:
+                    row["issue_slot_ms"] = attention_issue_ms(
+                        bb * H * ll * K, d,
+                        fa.f32_rows(bb, H, ll, d, rate["sms"]), rate)
                 del qh, kh, vh, mask
             rows.append(row)
             print(f"  K1 {name:23s} {row['dtype']:8s} max_abs_err {err:.3e}"
@@ -766,13 +832,17 @@ def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
     return rows
 
 
-def build_report(cuda_build, library, kernel, tc_kernel, no_spill=()):
+def build_report(cuda_build, library, kernel, tc_kernel, no_spill=(),
+                 tc_op="HMMA"):
     """ptxas's registers, shared memory and spills for each kernel of
-    csrc/<library>.cu, and the tensor-core (HMMA) and ldmatrix (LDSM)
+    csrc/<library>.cu, ptxas's notes on it (such as a serialized wgmma),
+    and the tensor-core (HMMA: mma.sync; HGMMA: wgmma) and ldmatrix (LDSM)
     instructions in each kernel's SASS; names are printed from ``kernel``
     on. Every instantiation of the bfloat16 kernel ``tc_kernel`` must hold
-    HMMA instructions, and every kernel whose (mangled) name holds one of
-    ``no_spill`` must spill nothing."""
+    ``tc_op`` instructions, and every kernel whose (mangled) name holds one
+    of ``no_spill`` must spill nothing and keep no stack frame (an array
+    that ptxas could not keep in registers); with HGMMA, no wgmma of it may
+    be serialized (ptxas's C7512 and C7520)."""
     import re
 
     kernels, name = {}, None
@@ -780,33 +850,45 @@ def build_report(cuda_build, library, kernel, tc_kernel, no_spill=()):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            kernels[name] = {}
+            kernels.setdefault(name, {})
         elif name and "spill" in line:
             kernels[name]["stack_spill"] = line.strip()
         elif name and "Used" in line:
             kernels[name]["ptxas"] = line.split(":", 1)[1].strip()
+        m = re.search(r"\((C7\d+)\).*function '(\S+)'", line)
+        if m:
+            kernels.setdefault(m.group(2), {}).setdefault(
+                "notes", []).append(line.split(":", 1)[1].strip()[:160])
     name = None
     for line in cuda_build.sass(library).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            kernels.setdefault(name, {}).update(hmma=0, ldsm=0)
+            kernels.setdefault(name, {}).update(hmma=0, hgmma=0, ldsm=0)
         elif name:
             kernels[name]["hmma"] += "HMMA" in line
+            kernels[name]["hgmma"] += "HGMMA" in line
             kernels[name]["ldsm"] += "LDSM" in line
             if "HMMA" in line and "hmma_example" not in kernels[name]:
                 kernels[name]["hmma_example"] = line.strip()[:160]
     for name, k in kernels.items():
         short = name[name.find(kernel):]
         print(f"  {short[:100]}: {k.get('ptxas')}; {k.get('stack_spill')}; "
-              f"HMMA {k.get('hmma')}, LDSM {k.get('ldsm')}", flush=True)
+              f"HMMA {k.get('hmma')}, HGMMA {k.get('hgmma')}, LDSM "
+              f"{k.get('ldsm')}" + "".join(f"\n    ptxas: {n}"
+                                          for n in k.get("notes", ())),
+              flush=True)
         if tc_kernel in name:
-            assert k.get("hmma", 0) > 0, f"no HMMA in {name}"
+            assert k.get(tc_op.lower(), 0) > 0, f"no {tc_op} in {name}"
         if any(s in name for s in no_spill):
-            spills = re.findall(r"(\d+) bytes spill",
+            spills = re.findall(r"(\d+) bytes (?:stack frame|spill)",
                                 k.get("stack_spill", ""))
             assert spills and not any(int(n) for n in spills), (
                 f"spills in {name}: {k.get('stack_spill')}")
+            if tc_op == "HGMMA":
+                assert not any(c in n for n in k.get("notes", ())
+                               for c in ("C7512", "C7520")), (
+                    f"serialized wgmma in {name}: {k['notes']}")
     return kernels
 
 
@@ -4292,25 +4374,33 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
-    build_s = cuda_build.build("fused_attention_packed", "conv3x3")
-    print(f"built fused_attention_packed and conv3x3 (one nvcc each, in "
-          f"parallel) in {build_s:.2f} s", flush=True)
+    build_s = cuda_build.build("fused_attention_packed",
+                               "fused_attention_wgmma", "conv3x3")
+    print(f"built fused_attention_packed, fused_attention_wgmma and conv3x3 "
+          f"(one nvcc each, in parallel) in {build_s:.2f} s", flush=True)
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s}
     report["conv3x3_build"] = build_report(cuda_build, "conv3x3",
                                            "conv3x3_kernel",
                                            "conv3x3_kernel_tc")
-    # <1, true> and <4, false>: the d = 4 and d = 32 instantiations
+    # mma.sync <1, true> and <4, false>: its d = 4 and d = 32
+    # instantiations; float32 <4, 4>: the motion transformer's
     report["attention_build"] = build_report(
         cuda_build, "fused_attention_packed", "attn_packed_kernel",
-        "attn_packed_kernel_tc", no_spill=("ILi1ELb1E", "ILi4ELb0E"))
+        "attn_packed_kernel_tc", no_spill=("ILi1ELb1E", "ILi4ELb0E",
+                                           "kernelILi4ELi4E"))
+    report["attention_wgmma_build"] = build_report(
+        cuda_build, "fused_attention_wgmma", "attn_packed_kernel",
+        "attn_packed_kernel_wgmma", no_spill=("attn_packed_kernel_wgmma",),
+        tc_op="HGMMA")
     rate = exp_rate(torch)
     report["exp_rate"] = rate
     print(f"exponentials: {EXP_PER_SM_CLOCK} per SM per clock x "
           f"{rate['sms']} SMs x {rate['sm_clock_max_mhz']} MHz = "
           f"{rate['exp_per_s']:.4g}/s", flush=True)
     report["k1_cases"] = check_attention(torch, fa, FRAME_BATCH, rate)
+    report["k1_halves"] = attention_halves(report["k1_cases"])
     report["k2_cases"] = check_attention_split(torch, fa, FRAME_BATCH, rate)
     train_cfg = configs.get("flagship_train")
     fwd_convs = k3_forward_convs(train_cfg["network_g"])
@@ -4380,9 +4470,21 @@ def main():
             f"summed); device_ms is the profiler's device time of the same "
             f"calls, without the host's share of each call that ms holds, "
             f"library_device_ms SDPA's; device_ms_bf16 the 32 launches all "
-            f"in bfloat16, as measured before; the bound is the largest of "
-            f"bytes, FLOP and exponentials",
+            f"in bfloat16, as measured before; device_ms_appearance and "
+            f"device_ms_motion the two halves on the path (bf16 d = 32 on "
+            f"the wgmma kernel of fused_attention_wgmma.cu, float32 d = 4 "
+            f"on the CUDA-core kernel of fused_attention_packed.cu), each "
+            f"with SDPA's, its bound and, for float32, the issue-slot "
+            f"estimate; train_B2_device_ms the train step's B = 2 shapes; "
+            f"the bound is the largest of bytes, FLOP and exponentials",
             summed=lambda r: r["on_path"],
+            sources=[f"synergize_motion_appearance_tpu_torch/csrc/{s}" for s
+                     in ("fused_attention_wgmma.cu",
+                         "fused_attention_packed.cu")],
+            **{f"{key}_{half}": h[key]
+               for half, h in report["k1_halves"].items()
+               if half != "train_B2" for key in h},
+            train_B2_device_ms=report["k1_halves"]["train_B2"],
             device_ms_bf16=sum(
                 r["device_ms"] * r["launches_per_frame_batch"]
                 for r in report["k1_cases"]
@@ -4418,6 +4520,9 @@ def main():
             "sum over K1's 32 launches of one frame batch, relaid to "
             "(B, H, L, d), bf16; the ragged-K case is checked, not summed; "
             "device_ms, library_device_ms and the bound as for K1",
+            sources=[f"synergize_motion_appearance_tpu_torch/csrc/{s}" for s
+                     in ("fused_attention_wgmma.cu",
+                         "fused_attention_packed.cu")],
             launches_note="no path calls it, in the port or the JAX "
                           "package: 0 launches on the inference path, the "
                           "train step and the train CLI",
@@ -4474,12 +4579,11 @@ def main():
     ]
     watts = float(card.rsplit(",", 1)[-1].split()[0])
     report["speed_check"] = {}
-    for k in kernels:
-        if k["name"] not in PREVIOUS_MS:
-            continue
-        key, prev = PREVIOUS_MS[k["name"]]
+    by_name = {k["name"]: k for k in kernels}
+    for name, key, prev in PREVIOUS_MS:
+        k = by_name[name]
         checked = watts >= 700.0
-        report["speed_check"][k["name"]] = {
+        report["speed_check"][f"{name}:{key}"] = {
             "key": key, "ms": k[key], "previous_ms": prev, "watts": watts,
             "checked": checked}
         print(f"{k['name']}: {key} {k[key]:.2f} against {prev} before "

@@ -28,14 +28,21 @@
 // these pipes is full in practice: per key tile a warp runs a chain of
 // dependent steps (q.k products, max, exponentials, split, p.v products),
 // so the kernel is bound by how much independent work each SM has to
-// interleave, which is what the two m16 tiles per warp below add.
+// interleave, which is what the two m16 tiles per warp of the mma.sync
+// kernel below add, and what the wgmma kernel's warp specialisation and
+// the f32 kernel's rows per thread address.
 //
-// bfloat16 (the paths' type): `attn_packed_kernel_tc`, on the tensor cores.
-// A block is one (tile of 64 or 128 query rows, head, batch row); each warp
-// owns 32 query rows as kMTiles = 2 m16 tiles, whose q fragments it loads
-// once into registers, zero beyond d up to the mma depth of 16; every k and
-// v fragment it loads serves both tiles, as in FlashAttention-2. Keys
-// arrive in tiles of 64 through a 3-stage `cp.async` ring in shared memory,
+// bfloat16 at d = 16, 32 and 64 (the appearance transformer's d = 32 among
+// them) runs `attn_packed_kernel_wgmma` of fused_attention_wgmma.cu, on
+// Hopper's warpgroup tensor cores. The other bfloat16 widths (d <= 8, d not
+// a multiple of 16; no path runs them in bf16) run `attn_packed_kernel_tc`
+// here, on `mma.sync`; ops/fused_attention.py::plan picks by shape. In
+// `attn_packed_kernel_tc` a block is one (tile of 64 or 128 query rows,
+// head, batch row); each warp owns 32 query rows as kMTiles = 2 m16
+// tiles, whose q fragments it loads once into registers, zero beyond d up
+// to the mma depth of 16; every k and v fragment it loads serves both
+// tiles, as in FlashAttention-2. Keys arrive in tiles of 64 through a
+// 3-stage `cp.async` ring in shared memory,
 // k and v kept as bf16, with copies of 16, 8 or 4 bytes per key row (d =
 // 32, 4 and 2 take one copy a row each; the wrapper picks the widest that
 // the head width and the pointers allow, ops/fused_attention.py::
@@ -76,10 +83,26 @@
 // 64 x 16 exponentials per row of a key tile; one 8-byte `cp.async` per key
 // row keeps the copy simple.
 //
-// float32: `attn_packed_kernel` on the CUDA cores, one query row per
-// thread, so that f32 stays exact f32 (no TF32): keys in tiles of 64 staged
-// in shared memory as f32, scores taken 8 keys at a time so the running max
-// rescales the accumulator once per 8 keys.
+// float32 (the motion transformer's d = 4 on every path: the JAX graph
+// promotes it): `attn_packed_kernel<DMAX, R>` on the CUDA cores, exact f32
+// (no TF32). Keys in tiles of 64 staged in shared memory as f32 with the
+// tile's bias; each thread owns R query rows (4 at d <= 8, 2 at d = 16, 1
+// above, for registers: ops/fused_attention.py::f32_rows), so every staged
+// k and v value serves R rows and each thread has R independent chains;
+// scores are taken 16 keys at a time so the running max rescales the
+// accumulator once per 16 keys. Scores are in log2 units: q taken times
+// scale * log2(e) once, each score a chain of d FMAs from the staged bias
+// times log2(e), the exponent's argument one subtraction of the running
+// max; the row sum stays an f32 add.
+// What bounds it: per score and row, d FMAs for q.k, a max, the
+// exponent's subtraction, the exponential (on the special-function
+// units), the row sum and d FMAs for p.v: at d = 4, 11 f32 instructions and one exponential issue,
+// plus 3 shared loads per key shared by the R rows and a rescale per 16
+// keys (~13 issue slots a score at R = 4). A sub-partition issues one
+// instruction a clock, so an SM issues 128 thread-instructions a clock and
+// the issue slots take ~0.10 clocks a score where the exponentials take
+// 1/16: the issue slots, not the special-function units, bound the f32
+// half, at ~1.6 times the exponential bound.
 // Neither kernel allocates anything; both run on the caller's stream, and
 // only q, k, v and the bias are read and only the output written: the
 // (L, K) score tile never leaves the SM, and the token-major layout is
@@ -102,45 +125,65 @@ struct Strides {
   long long kv_batch, kv_row, kv_head;
 };
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 128;  // query rows per block: one per thread
-constexpr int kKeys = 64;   // keys per shared-memory tile
-constexpr int kChunk = 8;   // keys per running-max update
+constexpr int kThreads = 128;  // threads per block
+constexpr int kKeys = 64;      // keys per shared-memory tile
+constexpr int kChunk = 16;     // keys per running-max update
 
 // DMAX is the head width rounded up to a power of two; d is the real one.
 // Shared-memory columns d..DMAX-1 hold zeros, so the unrolled loops over
-// DMAX add nothing for them.
-template <int DMAX>
-__global__ void __launch_bounds__(kRows)
+// DMAX add nothing for them. Each thread owns R query rows, rows
+// blockIdx.x * R * kThreads + i * kThreads + threadIdx.x for i < R: every
+// staged key and value serves R rows, and the R rows' scores are R
+// independent chains. scale_log2 = log2(e) / sqrt(d). Scores are in log2
+// units from the start: q is taken times scale_log2 once, and each score's
+// dot product starts from the staged bias times log2(e) (-inf past K), so
+// the exponent's argument is one subtraction of the running max. (Folding
+// the scale into an FMA with the max instead would leave that FMA's exact
+// product of a -1e30-biased score minus its rounding, up to 2^76, in the
+// exponent of an all-masked row.)
+template <int DMAX, int R>
+__global__ void __launch_bounds__(kThreads)
 attn_packed_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ bias,
                    float* __restrict__ out, int L, int K, int d, Strides st,
-                   float scale) {
+                   float scale_log2) {
   __shared__ __align__(16) float ks[kKeys][DMAX];
   __shared__ __align__(16) float vs[kKeys][DMAX];
   __shared__ float bs[kKeys];
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool active = row < L;
-  const long long q_off =
-      b * st.q_batch + static_cast<long long>(row) * st.q_row +
-      h * st.q_head;
+  const int row0 = blockIdx.x * R * kThreads + threadIdx.x;
+  const float* qb = q + b * st.q_batch + h * st.q_head;
 
-  float qr[DMAX];
-  float acc[DMAX];
-  const float* qp = q + q_off;
+  float qr[R][DMAX];
+  float acc[R][DMAX];
+  float m[R];  // running max, scaled to log2 units
+  float l[R];  // running sum of exp2(score - m)
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    qr[i] = (active && i < d) ? qp[i] : 0.f;
-    acc[i] = 0.f;
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * kThreads;
+    const float* qp = qb + static_cast<long long>(row) * st.q_row;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      qr[r][i] = (row < L && i < d) ? qp[i] * scale_log2 : 0.f;
+      acc[r][i] = 0.f;
+    }
+    m[r] = -FLT_MAX;
+    l[r] = 0.f;
   }
-  float m = -FLT_MAX;  // running max of the scores
-  float l = 0.f;       // running sum of exp(score - m)
 
   const long long kv_off = b * st.kv_batch + h * st.kv_head;
   const float* kb = k + kv_off;
@@ -150,11 +193,11 @@ attn_packed_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < K; k0 += kKeys) {
     const int nk = min(kKeys, K - k0);
-    // rows nk..nk_pad-1 are zero-filled so the last chunk reads no stale
-    // shared memory (0 * NaN would poison the accumulator)
+    // rows nk..nk_pad-1 hold zeros and a -inf bias, so the last chunk needs
+    // no test and reads no stale shared memory
     const int nk_pad = (nk + kChunk - 1) / kChunk * kChunk;
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < nk_pad * DMAX; idx += kRows) {
+    for (int idx = threadIdx.x; idx < nk_pad * DMAX; idx += kThreads) {
       const int j = idx / DMAX;
       const int i = idx % DMAX;
       float kx = 0.f, vx = 0.f;
@@ -167,75 +210,117 @@ attn_packed_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ks[j][i] = kx;
       vs[j][i] = vx;
     }
-    if (threadIdx.x < kKeys) {
-      bs[threadIdx.x] =
-          (biasb && threadIdx.x < nk) ? biasb[k0 + threadIdx.x] : 0.f;
+    if (threadIdx.x < nk_pad) {
+      const int j = threadIdx.x;
+      bs[j] = j >= nk ? -INFINITY
+                      : (biasb ? biasb[k0 + j] * kLog2e : 0.f);
     }
     __syncthreads();
-    if (!active) continue;
 
     for (int j0 = 0; j0 < nk_pad; j0 += kChunk) {
-      float sc[kChunk];
-      float mc = m;
+      float sc[R][kChunk];
+      float mc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) mc[r] = -FLT_MAX;
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
         const int j = j0 + u;
-        float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < DMAX; ++i) s = fmaf(qr[i], ks[j][i], s);
-        s = s * scale + bs[j];
-        sc[u] = (j < nk) ? s : -INFINITY;
-        mc = fmaxf(mc, sc[u]);
+        for (int r = 0; r < R; ++r) {
+          float s = bs[j];
+#pragma unroll
+          for (int i = 0; i < DMAX; ++i) s = fmaf(qr[r][i], ks[j][i], s);
+          sc[r][u] = s;
+          mc[r] = fmaxf(mc[r], s);
+        }
       }
-      const float c = __expf(m - mc);  // 1 when the max did not move
-      l *= c;
 #pragma unroll
-      for (int i = 0; i < DMAX; ++i) acc[i] *= c;
-      m = mc;
+      for (int r = 0; r < R; ++r) {
+        const float mn = fmaxf(m[r], mc[r]);
+        const float c = ex2(m[r] - mn);  // 1 when the max did not move
+        m[r] = mn;
+        l[r] *= c;
+#pragma unroll
+        for (int i = 0; i < DMAX; ++i) acc[r][i] *= c;
+      }
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
-        const float p = __expf(sc[u] - m);
-        l += p;
 #pragma unroll
-        for (int i = 0; i < DMAX; ++i) acc[i] = fmaf(p, vs[j0 + u][i], acc[i]);
+        for (int r = 0; r < R; ++r) {
+          const float p = ex2(sc[r][u] - m[r]);
+          l[r] += p;
+#pragma unroll
+          for (int i = 0; i < DMAX; ++i)
+            acc[r][i] = fmaf(p, vs[j0 + u][i], acc[r][i]);
+        }
       }
     }
   }
 
-  if (!active) return;
-  // all keys masked: 0, as the TPU kernel's (m > -1e29) factor gives
-  const bool keep = (biasb == nullptr) || (m > -1e29f);
-  const float inv = keep ? 1.f / l : 0.f;
-  float* op = out + q_off;
+  float* ob = out + b * st.q_batch + h * st.q_head;
 #pragma unroll
-  for (int i = 0; i < DMAX; ++i) {
-    if (i < d) op[i] = keep ? acc[i] * inv : 0.f;
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r * kThreads;
+    if (row >= L) continue;
+    // all keys masked: 0, as the TPU kernel's (m > -1e29) factor gives
+    // (here in log2 units)
+    const bool keep =
+        (biasb == nullptr) || (m[r] > -1e29f * kLog2e);
+    const float inv = keep ? 1.f / l[r] : 0.f;
+    float* op = ob + static_cast<long long>(row) * st.q_row;
+#pragma unroll
+    for (int i = 0; i < DMAX; ++i) {
+      if (i < d) op[i] = acc[r][i] * inv;
+    }
   }
 }
 
+// rows_per_thread: R, ops/fused_attention.py::f32_rows (4 at d <= 8, 2 at
+// d <= 16, 1 above; 1, 2 and 4 are built for d <= 8)
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const float* bias, void* out, int B, int L, int K,
                        int H, int d, const Strides& st, float scale,
-                       cudaStream_t stream) {
-  const dim3 grid((L + kRows - 1) / kRows, H, B);
+                       int rows_per_thread, cudaStream_t stream) {
+  const int R = rows_per_thread;
+  const dim3 grid((L + R * kThreads - 1) / (R * kThreads), H, B);
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(out);
-#define SAMT_LAUNCH(DM)                                                    \
-  attn_packed_kernel<DM><<<grid, kRows, 0, stream>>>(qt, kt, vt, bias, ot, \
-                                                     L, K, d, st, scale)
-  if (d <= 4) {
-    SAMT_LAUNCH(4);
-  } else if (d <= 8) {
-    SAMT_LAUNCH(8);
-  } else if (d <= 16) {
-    SAMT_LAUNCH(16);
-  } else if (d <= 32) {
-    SAMT_LAUNCH(32);
-  } else {
-    SAMT_LAUNCH(64);
+  const float sl2 = scale * kLog2e;
+#define SAMT_LAUNCH(DM, RR)                                                \
+  attn_packed_kernel<DM, RR><<<grid, kThreads, 0, stream>>>(               \
+      qt, kt, vt, bias, ot, L, K, d, st, sl2)
+#define SAMT_ROWS(DM)              \
+  if (R == 1) {                    \
+    SAMT_LAUNCH(DM, 1);            \
+  } else if (R == 2) {             \
+    SAMT_LAUNCH(DM, 2);            \
+  } else if (R == 4) {             \
+    SAMT_LAUNCH(DM, 4);            \
+  } else {                         \
+    return cudaErrorInvalidValue;  \
   }
+  if (d <= 4) {
+    SAMT_ROWS(4)
+  } else if (d <= 8) {
+    SAMT_ROWS(8)
+  } else if (d <= 16) {
+    if (R == 1) {
+      SAMT_LAUNCH(16, 1);
+    } else if (R == 2) {
+      SAMT_LAUNCH(16, 2);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  } else if (R != 1) {
+    return cudaErrorInvalidValue;
+  } else if (d <= 32) {
+    SAMT_LAUNCH(32, 1);
+  } else {
+    SAMT_LAUNCH(64, 1);
+  }
+#undef SAMT_ROWS
 #undef SAMT_LAUNCH
   return cudaGetLastError();
 }
@@ -250,7 +335,6 @@ constexpr int kStages = 3;    // cp.async ring depth
 // the largest block: 128 query rows (ops/fused_attention.py::tc_plan
 // takes 64 or 128)
 constexpr int kMaxThreads = 32 * 128 / (16 * kMTiles);
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry of the variant whose P.V width is NV n8 tiles.
 // A stage holds the key tile (64 rows of KD bf16: d zero-padded to the mma
@@ -335,12 +419,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
@@ -771,7 +849,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   const float* b = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_f32(q, k, v, b, out, B, L, K, H, d, st, scale, s);
+    return launch_f32(q, k, v, b, out, B, L, K, H, d, st, scale, rows, s);
   }
   if (dtype == 1) {
     return launch_tc(q, k, v, b, out, B, L, K, H, d, st, scale, nv, rows,
@@ -786,9 +864,10 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // and out share it; bias is float32 or null). nv, rows and copy_bytes pick
 // the bfloat16 kernel's variant (ops/fused_attention.py::tc_plan): P.V
 // width 8*nv >= d, query rows per block (64 or 128), bytes per cp.async of
-// a key row (16, 8, 4, or 0 for copies through registers); float32 ignores
-// them. Each returns the CUDA error of the launch (0 on success); the
-// caller checks shapes before calling.
+// a key row (16, 8, 4, or 0 for copies through registers); float32 takes
+// rows as its query rows per thread (1, 2 or 4) and ignores the others.
+// Each returns the CUDA error of the launch (0 on success); the caller
+// checks shapes before calling.
 
 // Token-major (kernel K1): q, out (B, L, E); k, v (B, K, E) with
 // kv_batch_stride K*E, or a shared (K, E) with kv_batch_stride 0.

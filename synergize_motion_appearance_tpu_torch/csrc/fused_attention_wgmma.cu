@@ -1,0 +1,715 @@
+// Softmax attention on Hopper's warpgroup tensor cores (sm_90a): bfloat16
+// at head widths d = 16, 32 and 64, in both layouts of
+// csrc/fused_attention_packed.cu.
+//
+// Replaces, for those widths, the same two TPU kernels as
+// fused_attention_packed.cu (synergize_motion_appearance_tpu/ops/
+// fused_attention.py: `_attn_kernel_packed` at :227, kernel K1 of the port,
+// token-major; `_attn_kernel` at :56, kernel K2, head-split), and computes
+// their function as that file's bf16 kernel does: scores as a bf16 x bf16
+// product accumulated in f32, times 1/sqrt(d), plus the optional (B, K) f32
+// bias where -1e30 masks a key; an f32 max-subtracted softmax; p.v with f32
+// weights (p as bf16 hi + lo, the TPU kernel's note at :31-35 records that a
+// bf16 p was rejected there); 0 for a row whose every key is masked; the
+// output in q's dtype and layout, rounded once. The layouts differ only in
+// the tensor maps and coordinates the entry builds (`Coords`). The mma.sync
+// kernel of fused_attention_packed.cu keeps the widths this one does not take
+// (d <= 8, or d not 16, 32 or 64): a TMA box row must hold at least 16 bytes
+// and wgmma's depth is 16. ops/fused_attention.py::plan picks between them
+// by shape.
+//
+// What bounds it: per score one exponential on the special-function units
+// (16 per SM per clock, the floor), about seven f32-pipe instructions (the
+// running max, the exponent's FMA, the row sum, the split of p into hi and
+// lo; with a bias one more, its FMA with the scale) and, at d = 32, 64
+// tensor-core multiply-adds for q.k and 128 for p.v (hi and lo). Per SM
+// sub-partition an exponential takes 1/4 clock a lane and an instruction
+// issue 1/32, so the exponentials and the issue slots bound it about
+// equally, and the tensor cores sit near 3/4 of that: the design's work is
+// to keep the three busy at once, which the number of warpgroups resident
+// on an SM decides.
+//
+// The design:
+// - A block is one (tile of 64 query rows, head, batch row): one consumer
+//   warpgroup and one producer warp (160 threads), split on a warp-uniform
+//   index. Three blocks share an SM (106-128 registers a thread), so three
+//   warpgroups' softmaxes and products interleave.
+// - Copies by TMA (`cp.async.bulk.tensor.3d`), issued by one lane of the
+//   producer warp: the query tile once, then key and value tiles of 64 keys
+//   into a ring of 3 stages, each with a full and an empty `mbarrier`. The
+//   tensor maps (`cuTensorMapEncodeTiled`, reached through
+//   `cudaGetDriverEntryPoint`, so no -lcuda) are kernel parameters
+//   (`__grid_constant__`). A shared (K, E) codebook is a map whose batch
+//   extent is 1, read at coordinate 0: never broadcast in memory. A row of
+//   a head is 2d bytes (32, 64, 128), and the maps swizzle it by that width,
+//   the wgmma descriptors' layout type. TMA zero-fills rows past L and K.
+// - The producer warp also stages each tile's bias times log2(e), -inf for
+//   keys past K (a zero key would score 0 and enter the softmax); without a
+//   bias the consumers set keys past K to -inf themselves, on the last tile.
+// - S = q.k^T: `wgmma.mma_async` m64n64k16, q and k both read from shared
+//   memory (K-major). Softmax in registers: the scale times log2(e) folded
+//   into one FMA with the bias (with no bias, into the exponent's FMA with
+//   the running max), `ex2.approx`, a running max per row from -FLT_MAX
+//   (the first tile's rescale is exp2(-FLT_MAX - m) = 0, never exp2(nan))
+//   reduced over the quad of threads that holds the row, the row sum in f32.
+// - O += p.v: wgmma m64n{d}k16 with A = p from registers, split as hi =
+//   bf16(p) and lo = bf16(p - hi) into one f32 accumulator. The S
+//   accumulator's layout is the A fragment's (FlashAttention-2's identity),
+//   so p never passes through shared memory. v is the B operand in MN-major
+//   with the transpose bit.
+// - Overlap: within the warpgroup, tile j + 1's q.k is issued with tile j's
+//   p.v, and its softmax runs while that p.v is on the tensor cores; across
+//   the SM, the other blocks' warpgroups fill the gaps.
+// Measured on an H100 SXM (700 W) at the appearance transformer's 16
+// calls of a frame batch, against this layout's 1.15 ms: 128-key tiles
+// made ptxas serialize every wgmma (the S, p and O registers of two tiles
+// do not fit), 1.69 ms; two consumer warpgroups a block taking turns by
+// named barriers, with `setmaxnreg` moving a producer warpgroup's registers
+// to them, 1.37-1.48 ms (ptxas allocated the consumers within the launch
+// bound's 168 or 128 registers, and the turns added waits without adding
+// warpgroups to an SM); four blocks an SM, 1.47 ms (too few registers:
+// serialized).
+// The kernel allocates nothing and runs on the caller's stream; the (L, K)
+// scores never leave the SM. A wait on an mbarrier that outlasts ~2^26
+// polls traps, so a fault in the pipeline fails the launch instead of
+// hanging the card.
+
+#include <cfloat>
+#include <cmath>
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kKeys = 64;     // keys per stage: the n of q.k's wgmma
+constexpr int kStages = 3;    // depth of the k/v ring
+constexpr int kRows = 64;     // query rows per block: one warpgroup's m
+constexpr int kThreads = 160;  // the consumer warpgroup, the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr uint32_t kSpinLimit = 1u << 26;
+
+// Shared memory of a block, from a base aligned to 1024 bytes (the largest
+// swizzle's period): the query tile, the stages (k tile, then v tile), the
+// stages' bias, the barriers.
+template <int D>
+struct Geometry {
+  static constexpr int kRowBytes = 2 * D;
+  static constexpr int kQBytes = kRows * kRowBytes;
+  static constexpr int kTileBytes = kKeys * kRowBytes;
+  static constexpr int kStage0 = kQBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBias = kStage0 + kStages * kStageBytes;
+  static constexpr int kBars = kBias + kStages * kKeys * 4;
+  static constexpr int kSmem = kBars + (2 * kStages + 1) * 8 + 1024;
+  // wgmma descriptor: swizzle of 32, 64 or 128 bytes (the row) is layout
+  // type 3, 2 or 1; 8 rows of one core-matrix group lie kRowBytes apart
+  static constexpr int kLayout = D == 16 ? 3 : D == 32 ? 2 : 1;
+  static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
+};
+
+// Element strides of the output and tensor-map coordinates of the inputs:
+// q's tile of head h, batch row b is at column h * q_col_h, plane
+// b * q_z_b + h * q_z_h of its map; k's and v's likewise with kv_*.
+struct Coords {
+  int q_col_h, q_z_b, q_z_h;
+  int kv_col_h, kv_z_b, kv_z_h;
+  long long o_batch, o_row, o_head;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers, TMA
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// arrive, and expect `bytes` more of TMA transactions in this phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t n = 0; !done; ++n) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (n == kSpinLimit) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor: start address, leading byte offset 16
+// (unused: a k16 step of K-major rows, and d columns of MN-major rows, stay
+// within one swizzle atom), stride byte offset between 8-row groups,
+// layout (swizzle) type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t group,
+                                              int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(group >> 4) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// The compiler must treat r as read and written here: keeps it in its
+// registers, unread and unmoved, across an asynchronous wgmma's flight.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 64) = a (64 x 16) * b (16 x 64) [+ d], a and b in shared memory,
+// both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 16) += a (64 x 16, registers) * b (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32) += a (64 x 16, registers) * b (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += a (64 x 16, registers) * b (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 16) {
+    wgmma_rs_n16(o, a, b);
+  } else if constexpr (D == 32) {
+    wgmma_rs_n32(o, a, b);
+  } else {
+    wgmma_rs_n64(o, a, b);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi), both
+// rounded to nearest even; x in the low half, as an A fragment wants
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+// D: head width (16, 32, 64); BIAS: a (B, K) bias is given.
+// scale_log2 = log2(e) / sqrt(d).
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(kThreads, 3)
+attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const float* __restrict__ bias,
+                         __nv_bfloat16* __restrict__ out, int L, int K,
+                         Coords co, float scale_log2) {
+  using G = Geometry<D>;
+  constexpr int KS = D / 16;      // k16 steps of q.k
+  constexpr int NS = kKeys / 16;  // k16 steps of p.v
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - raw);
+  const uint32_t full0 = base + G::kBars;  // full barrier of stage s: +8s
+  const uint32_t empty0 = full0 + 8 * kStages;
+  const uint32_t qbar = empty0 + 8 * kStages;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  const int ntiles = (K + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 32);  // the producer warp's lanes
+      mbar_init(empty0 + 8 * s, 1);  // one consumer thread
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The roles split by warp, on a warp index read from lane 0 so that
+  // ptxas sees the branch warp-uniform: on threadIdx.x itself it
+  // serialized the bias instantiations' wgmmas (its note C7520, "WG.AR in
+  // divergent path").
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 32, 0) >= 4) {
+    // ---- producer warp: lane 0 issues the copies, all lanes the bias ----
+    const int lane = threadIdx.x % 32;
+    const int kv_col = h * co.kv_col_h;
+    const int kv_z = b * co.kv_z_b + h * co.kv_z_h;
+    if (lane == 0) {
+      mbar_expect(qbar, G::kQBytes);
+      tma_load(base, &qmap, qbar, h * co.q_col_h, q0,
+               b * co.q_z_b + h * co.q_z_h);
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % kStages;
+      if (t >= kStages) mbar_wait(empty0 + 8 * s, (t / kStages - 1) & 1);
+      if constexpr (BIAS) {
+        float* bs =
+            reinterpret_cast<float*>(smem + G::kBias + s * kKeys * 4);
+        const float* bb = bias + static_cast<long long>(b) * K;
+#pragma unroll
+        for (int c = lane; c < kKeys; c += 32) {
+          const int key = t * kKeys + c;
+          const float x = __ldg(bb + min(key, K - 1));  // no branch
+          bs[c] = key < K ? x * kLog2e : -INFINITY;
+        }
+      }
+      if (lane == 0) {
+        mbar_expect(full0 + 8 * s, 2 * G::kTileBytes);
+        const uint32_t ks = base + G::kStage0 + s * G::kStageBytes;
+        tma_load(ks, &kmap, full0 + 8 * s, kv_col, t * kKeys, kv_z);
+        tma_load(ks + G::kTileBytes, &vmap, full0 + 8 * s, kv_col,
+                 t * kKeys, kv_z);
+      } else {
+        mbar_arrive(full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: query rows q0 .. q0 + 63 ----
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;   // fragment row (and row + 8) within the warp
+  const int t4 = lane % 4;  // fragment column pair
+  const uint64_t dq = make_desc(base, G::kGroupBytes, G::kLayout);
+
+  float s[kKeys / 2];             // S (then p) of this thread: rows g, g + 8
+  float o[D / 2];                 // O, f32
+  uint32_t ph[NS][4], pl[NS][4];  // p's A fragments, bf16 hi and lo
+  float m[2] = {-FLT_MAX, -FLT_MAX};  // running max (log2 units) per row
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+  float c[2] = {1.f, 1.f};  // rescale of O owed by the last softmax
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;  // (q.k overwrites it)
+
+  auto issue_s = [&](int st) {
+    const uint64_t dk = make_desc(base + G::kStage0 + st * G::kStageBytes,
+                                  G::kGroupBytes, G::kLayout);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      // the next 16 of d: 32 bytes further along each swizzled row
+      wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    }
+  };
+  auto issue_pv = [&](int st) {
+    const uint64_t dv = make_desc(
+        base + G::kStage0 + st * G::kStageBytes + G::kTileBytes,
+        G::kGroupBytes, G::kLayout);
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      // keys 16 kk .. 16 kk + 15: 16 rows further
+      const uint64_t dvk = dv + kk * (16 * G::kRowBytes >> 4);
+      wgmma_pv<D>(o, ph[kk], dvk);
+      wgmma_pv<D>(o, pl[kk], dvk);
+    }
+  };
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= c[(i >> 1) & 1];
+  };
+  // scores of key tile `tile` (in stage st) -> p, in place; running max,
+  // row sums and the rescale c owed by O
+  auto softmax = [&](int tile, int st) {
+    float mx[2] = {-FLT_MAX, -FLT_MAX};
+    if constexpr (BIAS) {
+      const float* bs =
+          reinterpret_cast<const float*>(smem + G::kBias + st * kKeys * 4);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const float2 bl =
+            *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] =
+              fmaf(s[4 * j + e], scale_log2, (e & 1) ? bl.y : bl.x);
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+        }
+      }
+    } else {
+      const int past = K - tile * kKeys;  // this key on is masked
+      if (past < kKeys) {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (8 * j + 2 * t4 + (e & 1) >= past) s[4 * j + e] = -INFINITY;
+      }
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      mx[0] *= scale_log2;
+      mx[1] *= scale_log2;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = mx[r];
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float mn = fmaxf(m[r], x);
+      c[r] = ex2(m[r] - mn);  // 1 when the max held
+      m[r] = mn;
+      l[r] *= c[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = BIAS ? ex2(s[i] - m[r])
+                           : ex2(fmaf(s[i], scale_log2, -m[r]));
+      l[r] += p;
+      s[i] = p;
+    }
+  };
+  // p -> A fragments: keys 16 kk .. 16 kk + 15 are S's n8 tiles 2 kk and
+  // 2 kk + 1, rows g and g + 8
+  auto split = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], ph[kk][e],
+                   pl[kk][e]);
+  };
+
+  mbar_wait(qbar, 0);
+  // tile 0: q.k, softmax
+  mbar_wait(full0, 0);
+  wg_fence();
+  issue_s(0);
+  wg_commit();
+  wg_wait<0>();
+  hold(s);
+  softmax(0, 0);
+  split();
+  // tile t: q.k of t with p.v of t - 1, then t's softmax under that p.v
+  for (int t = 1; t < ntiles; ++t) {
+    const int st = t % kStages;
+    const int prev = (t - 1) % kStages;
+    mbar_wait(full0 + 8 * st, (t / kStages) & 1);
+    rescale_o();
+    wg_fence();
+    issue_s(st);
+    wg_commit();
+    issue_pv(prev);
+    wg_commit();
+    wg_wait<1>();
+    hold(s);
+    softmax(t, st);
+    wg_wait<0>();
+    hold(o);
+    hold(ph);
+    hold(pl);
+    // stage prev is read: its q.k and p.v are done, and so are all four
+    // warps' softmax reads of its bias (each issued that p.v after them)
+    if (tid == 0) mbar_arrive(empty0 + 8 * prev);
+    split();
+  }
+  // the last tile's p.v
+  rescale_o();
+  wg_fence();
+  issue_pv((ntiles - 1) % kStages);
+  wg_commit();
+  wg_wait<0>();
+  hold(o);
+  hold(ph);
+  hold(pl);
+
+  // out: O / row sum, rounded once to bf16; a row whose every key is masked
+  // gives 0, as the TPU kernel's (m > -1e29) factor (here in log2 units);
+  // rows past L are not stored
+  __nv_bfloat16* ob = out + b * co.o_batch + h * co.o_head;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float den = l[r];
+    den += __shfl_xor_sync(0xffffffffu, den, 1);
+    den += __shfl_xor_sync(0xffffffffu, den, 2);
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= L) continue;
+    const bool keep = !BIAS || m[r] > -1e29f * kLog2e;
+    const float inv = keep ? 1.f / den : 0.f;
+    __nv_bfloat16* op = ob + static_cast<long long>(row) * co.o_row;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                o[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-d bf16 map (d columns of `cols`, `rows` rows, `planes` planes; byte
+// strides of a row and of a plane) read in boxes of d x box_rows, each row
+// of 2d bytes swizzled by its own width.
+bool encode(CUtensorMap* map, const void* ptr, int d, long long cols,
+            long long rows, long long planes, long long row_bytes,
+            long long plane_bytes, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(plane_bytes)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(d),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = d == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                     : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_128B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool BIAS>
+cudaError_t launch_variant(const CUtensorMap& qm, const CUtensorMap& km,
+                           const CUtensorMap& vm, const float* bias,
+                           void* out, int B, int H, int L, int K,
+                           const Coords& co, float scale_log2,
+                           cudaStream_t stream) {
+  auto kernel = attn_packed_kernel_wgmma<D, BIAS>;
+  constexpr int smem = Geometry<D>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((L + kRows - 1) / kRows, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, bias, static_cast<__nv_bfloat16*>(out), L, K, co,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_width(const CUtensorMap& qm, const CUtensorMap& km,
+                         const CUtensorMap& vm, const float* bias, void* out,
+                         int B, int H, int L, int K, const Coords& co,
+                         float scale_log2, cudaStream_t stream) {
+  return bias ? launch_variant<D, true>(qm, km, vm, bias, out, B, H, L, K,
+                                        co, scale_log2, stream)
+              : launch_variant<D, false>(qm, km, vm, bias, out, B, H, L, K,
+                                         co, scale_log2, stream);
+}
+
+}  // namespace
+
+// C entry, bound with ctypes: bfloat16 q, k, v and out, optional float32
+// (B, K) bias (null for none), d in {16, 32, 64}, q, k, v and out 16-byte
+// aligned. layout 0, token-major (kernel K1): q, out (B, L, H*d);
+// k, v (B, K, H*d), or a shared (K, H*d) when kv_shared is 1. layout 1,
+// head-split (kernel K2): q, out (B, H, L, d); k, v (B, H, K, d), or a
+// shared (1, H, K, d). Returns the CUDA error of the launch (0 on success),
+// cudaErrorInvalidValue for what the kernel does not take or a tensor map
+// that cannot be encoded.
+extern "C" int samt_attention_wgmma(const void* q, const void* k,
+                                    const void* v, const void* bias,
+                                    void* out, int B, int H, int L, int K,
+                                    int d, int layout, int kv_shared,
+                                    float scale, void* stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if ((d != 16 && d != 32 && d != 64) || (layout != 0 && layout != 1) ||
+      B <= 0 || H <= 0 || L <= 0 || K <= 0 ||
+      B > 65535 || H > 65535 || !aligned(q) || !aligned(k) || !aligned(v) ||
+      !aligned(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long E = static_cast<long long>(H) * d;
+  CUtensorMap qm, km, vm;
+  Coords co;
+  bool ok;
+  if (layout == 0) {
+    co = Coords{d, 1, 0, d, kv_shared ? 0 : 1, 0, L * E, E, d};
+    ok = encode(&qm, q, d, E, L, B, 2 * E, 2 * E * L, kRows) &&
+         encode(&km, k, d, E, K, kv_shared ? 1 : B, 2 * E, 2 * E * K,
+                kKeys) &&
+         encode(&vm, v, d, E, K, kv_shared ? 1 : B, 2 * E, 2 * E * K, kKeys);
+  } else {
+    const long long planes = kv_shared ? H : static_cast<long long>(B) * H;
+    co = Coords{0, H, 1, 0, kv_shared ? 0 : H, 1, E * L,
+                static_cast<long long>(d), static_cast<long long>(L) * d};
+    ok = encode(&qm, q, d, d, L, static_cast<long long>(B) * H, 2 * d,
+                2LL * d * L, kRows) &&
+         encode(&km, k, d, d, K, planes, 2 * d, 2LL * d * K, kKeys) &&
+         encode(&vm, v, d, d, K, planes, 2 * d, 2LL * d * K, kKeys);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const float* bb = static_cast<const float*>(bias);
+  const float sl2 = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (d) {
+    case 16:
+      err = launch_width<16>(qm, km, vm, bb, out, B, H, L, K, co, sl2, s);
+      break;
+    case 32:
+      err = launch_width<32>(qm, km, vm, bb, out, B, H, L, K, co, sl2, s);
+      break;
+    default:
+      err = launch_width<64>(qm, km, vm, bb, out, B, H, L, K, co, sl2, s);
+  }
+  return static_cast<int>(err);
+}

@@ -14,10 +14,14 @@ Each layout is a ``torch.library`` custom op
 (``torch.ops.samt.fused_attention_packed``,
 ``torch.ops.samt.fused_attention``), so that ``torch.export`` keeps the
 call in an exported program. On a CUDA tensor the op launches a
-hand-written kernel of ``csrc/fused_attention_packed.cu`` (given each
-layout's strides) or raises: bfloat16 runs on the tensor cores
-(``attn_packed_kernel_tc``, in the variant ``tc_plan`` and ``copy_bytes``
-pick), float32 on the CUDA cores (``attn_packed_kernel``). On a CPU
+hand-written kernel (given each layout's strides or tensor maps) or
+raises; ``plan`` picks it by dtype and shape: bfloat16 at d = 16, 32 and
+64 runs on Hopper's warpgroup tensor cores (``attn_packed_kernel_wgmma``
+of ``csrc/fused_attention_wgmma.cu``: TMA, ``wgmma``, warp
+specialisation), the other bfloat16 widths on ``mma.sync``
+(``attn_packed_kernel_tc`` of ``csrc/fused_attention_packed.cu``, in the
+variant ``tc_plan`` and ``copy_bytes`` pick), float32 on the CUDA cores
+(``attn_packed_kernel``, ``f32_rows`` query rows a thread). On a CPU
 tensor it runs the plain PyTorch version
 (``fused_attention_packed_reference``, ``fused_attention_reference``),
 which the tests hold against the JAX package and the on-card check holds
@@ -38,7 +42,7 @@ import contextlib
 import contextvars
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -118,13 +122,66 @@ def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# P.V widths of the bfloat16 kernel's variants, in n8 tiles: 8, 16, 32 and
+# head widths of the bfloat16 wgmma kernel (attn_packed_kernel_wgmma<D, ..>):
+# a row of a head is one TMA box row of 32, 64 or 128 bytes, swizzled by
+# its own width, and a multiple of wgmma's depth of 16; its query rows per
+# block, at every grid (three blocks share an SM)
+WGMMA_WIDTHS = (16, 32, 64)
+WGMMA_ROWS = 64
+
+
+class Plan(NamedTuple):
+    """The kernel a call launches: ``kernel`` is "wgmma", "mma" or "f32";
+    ``rows`` its query rows per block (wgmma: always 64, one consumer
+    warpgroup; mma) or per thread (f32); ``nv`` and ``copy_bytes`` the
+    mma.sync variant's P.V width in n8 tiles and bytes per cp.async of a
+    key row (0 for the others)."""
+    kernel: str
+    rows: int
+    nv: int = 0
+    copy_bytes: int = 0
+
+
+def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
+         k_ptr: int, v_ptr: int, out_ptr: int) -> Plan:
+    """Which kernel runs a call, by dtype, shape and the tensors'
+    addresses (no fallback: the plan's kernel launches or the call
+    raises). float32: the CUDA-core kernel at ``f32_rows`` rows a
+    thread. bfloat16: the wgmma kernel where d is in WGMMA_WIDTHS and q, k,
+    v and out are 16-byte aligned (TMA's rule for a tensor map's base);
+    else the mma.sync kernel's ``tc_plan`` variant."""
+    if not 2 <= d <= 8 * TC_WIDTHS[-1]:
+        raise ValueError(f"head width d={d} is outside the kernel's 2..64")
+    if dtype == torch.float32:
+        return Plan("f32", f32_rows(B, H, L, d, sms))
+    if d in WGMMA_WIDTHS and all(
+            a % 16 == 0 for a in (q_ptr, k_ptr, v_ptr, out_ptr)):
+        return Plan("wgmma", WGMMA_ROWS)
+    nv, _, rows = tc_plan(B, H, L, d, sms)
+    return Plan("mma", rows, nv, copy_bytes(d, k_ptr, v_ptr))
+
+
+def f32_rows(B: int, H: int, L: int, d: int, sms: int) -> int:
+    """Query rows per thread of the float32 kernel (128 threads a block):
+    the most of 4, 2 and 1 that the head width allows (4 at d <= 8, 2 at
+    d <= 16, 1 above, where the rows' q and accumulators would crowd the
+    registers) and that still leaves two blocks an SM; 1 where even that
+    does not (the train step's B = 2), since each staged key then serves
+    fewer rows but more threads share the card."""
+    for rows in (4, 2):
+        if d <= 32 // rows and B * H * -(-L // (128 * rows)) >= 2 * sms:
+            return rows
+    return 1
+
+
+# P.V widths of the mma.sync kernel's variants, in n8 tiles: 8, 16, 32 and
 # 64 columns (attn_packed_kernel_tc<NV, ONES>)
 TC_WIDTHS = (1, 2, 4, 8)
 
 
 def tc_plan(B: int, H: int, L: int, d: int, sms: int):
-    """The bfloat16 kernel's variant for a call: (nv, ones, rows).
+    """The mma.sync kernel's variant for a bfloat16 call (``plan`` sends
+    it the widths the wgmma kernel does not take): (nv, ones, rows).
 
     nv: the narrowest P.V width of 8*nv columns that holds the d values;
     ones: whether column d is spare (d < 8*nv), in which case the staged v
@@ -207,40 +264,49 @@ def _check_cuda(q, k, v, bias, num_heads):
 
 
 def _launch_cuda(q, k, v, bias, num_heads):
-    """Launches the kernel in the token-major layout (num_heads given) or
-    the head-split one (num_heads None)."""
+    """Launches the kernel ``plan`` picks, in the token-major layout
+    (num_heads given) or the head-split one (num_heads None)."""
     global launches, split_launches
     B, H, L, K, d = _check_cuda(q, k, v, bias, num_heads)
-    variant = (0, 0, 0)  # float32 takes no variant
-    if q.dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        nv, _, rows = tc_plan(B, H, L, d, sms)
-        variant = (nv, rows, copy_bytes(d, k.data_ptr(), v.data_ptr()))
-    lib = cuda_build.load("fused_attention_packed")
-    if num_heads is None:
-        fn = lib.samt_fused_attention_split
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        shape_args = (B, H, L, K, d, int(k.shape[0] == 1 and B != 1))
-    else:
-        fn = lib.samt_fused_attention_packed
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-            ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        shape_args = (B, L, K, q.shape[2], H,
-                      K * q.shape[2] if k.dim() == 3 else 0)
-    fn.restype = ctypes.c_int
     out = torch.empty_like(q)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    p = plan(q.dtype, B, H, L, d, sms, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), out.data_ptr())
+    split = num_heads is None
+    kv_shared = int(k.shape[0] == 1 and B != 1) if split else int(
+        k.dim() == 2)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr() if bias is not None else None, out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if p.kernel == "wgmma":
+        fn = cuda_build.load("fused_attention_wgmma").samt_attention_wgmma
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        args = (*ptrs, B, H, L, K, d, int(split), kv_shared,
+                1.0 / math.sqrt(d), stream)
+    else:
+        lib = cuda_build.load("fused_attention_packed")
+        if split:
+            fn = lib.samt_fused_attention_split
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+                ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            shape_args = (B, H, L, K, d, kv_shared)
+        else:
+            fn = lib.samt_fused_attention_packed
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+                ctypes.c_longlong, ctypes.c_float] + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
+            shape_args = (B, L, K, q.shape[2], H,
+                          0 if kv_shared else K * q.shape[2])
+        args = (*ptrs, *shape_args, 1.0 / math.sqrt(d), _DTYPES[q.dtype],
+                p.nv, p.rows, p.copy_bytes, stream)
+    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 bias.data_ptr() if bias is not None else None,
-                 out.data_ptr(), *shape_args, 1.0 / math.sqrt(d),
-                 _DTYPES[q.dtype], *variant, stream)
+        err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"fused attention kernel launch failed with CUDA "
-                           f"error {err}")
-    if num_heads is None:
+        raise RuntimeError(f"fused attention kernel ({p.kernel}) launch "
+                           f"failed with CUDA error {err}")
+    if split:
         split_launches += 1
     else:
         launches += 1
