@@ -4,7 +4,9 @@
 instructions), holds each against its plain PyTorch version (K1 and K3 at
 the main paths' shapes, K1 also on the inputs the flagship pipeline gives
 it; K2 and K4, which no path calls, at those shapes relaid to their
-layouts; K1, K3 and K4 also at ragged shapes), checks the tiny config on
+layouts; K1, K3 and K4 also at ragged shapes; K3 and K4 on the kernel
+their plan picks, wgmma at every path shape, with the mma.sync kernel
+checked and timed beside it there), checks the tiny config on
 the card against the port on the CPU, and drives the port's three paths
 at the flagship 256x256 width with seeded random weights:
 - the reenactment path (ReenactmentPipeline.animate), uint8 frames in and
@@ -136,13 +138,13 @@ CACHE_SIZE = 256                   # frames of the flagship's img_size
 # when each was last redesigned: K1 per frame batch with its 32 launches
 # all in bf16 (device_ms_bf16) and its motion transformer's 16 launches in
 # float32 as the pipeline gives them (device_ms_motion), K3 per train step
-# and K4 over K3's forward shapes, both bf16 (their calls are short enough
-# that per-call event times measure the host). On a card at that power
-# limit none may be more than 10% slower now.
+# and K4 over K3's forward shapes, both bf16 on the wgmma kernel (their
+# calls are short enough that per-call event times measure the host). On
+# a card at that power limit none may be more than 10% slower now.
 PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
                ("fused_attention_packed", "device_ms_motion", 1.17),
-               ("conv3x3", "device_ms", 5.54),
-               ("conv3x3_nhwc", "device_ms", 2.49)]
+               ("conv3x3", "device_ms", 2.97),
+               ("conv3x3_nhwc", "device_ms", 1.16)]
 
 # profiled kernel-name substrings -> kind, first match wins
 KINDS = [
@@ -194,11 +196,11 @@ def time_ms(torch, fn, iters, warmup=2):
     return float(np.median(times))
 
 
-def device_ms(torch, fn, iters=10, attempts=3):
-    """Device time of one call of ``fn``: every kernel and memset it
-    launches, summed by torch.profiler over ``iters`` calls after one
-    warm-up call, per call; no host time, unlike time_ms. Now and then a
-    profiler session on the card's machine records no device activity at
+def device_times(torch, fn, iters=10, attempts=3):
+    """Device time of one call of ``fn`` by kernel name: every kernel and
+    memset it launches, summed by torch.profiler over ``iters`` calls after
+    one warm-up call, per call; no host time, unlike time_ms. Now and then
+    a profiler session on the card's machine records no device activity at
     all; such a session is run again, up to ``attempts`` sessions."""
     fn()
     torch.cuda.synchronize()
@@ -208,12 +210,19 @@ def device_ms(torch, fn, iters=10, attempts=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(evt.self_device_time_total for evt in prof.key_averages()
-                 if evt.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
+        times = {evt.key: evt.self_device_time_total / 1e3 / iters
+                 for evt in prof.key_averages()
+                 if evt.device_type == torch.autograd.DeviceType.CUDA
+                 and evt.self_device_time_total > 0}
+        if times:
+            return times
     raise AssertionError(f"the profiler saw no device time in {attempts} "
                          f"sessions")
+
+
+def device_ms(torch, fn, iters=10, attempts=3):
+    """Device time of one call of ``fn``: device_times summed."""
+    return sum(device_times(torch, fn, iters, attempts).values())
 
 
 # ---------------------------------------------------------------------------
@@ -643,8 +652,13 @@ def k1_per_train_step(net_cfg):
 
 # (B, C, Cout, H, W) on no path, checked and not timed: no tile multiple
 # anywhere, H != W, C not a multiple of 8 (NHWC's narrow loads) or of 16
-# (a part-filled channel chunk), Cout above one 128-channel tile
-RAGGED_CONVS = [(1, 3, 5, 7, 9), (3, 20, 40, 17, 33), (2, 72, 130, 31, 64)]
+# (a part-filled channel chunk), Cout above one 128-channel tile. The
+# first two keep the mma.sync kernel in bf16 (W and C not multiples of 8);
+# the others run the wgmma kernel in both layouts: a ragged last chunk of
+# 64 channels, a partial row and column tile, W below one tile and above
+# two, Cout not a multiple of its 64 or 128 channels.
+RAGGED_CONVS = [(1, 3, 5, 7, 9), (3, 20, 40, 17, 33), (2, 72, 130, 31, 64),
+                (1, 24, 72, 9, 40), (3, 200, 40, 11, 136)]
 
 
 def assert_conv_close(torch, out, ref, dtype):
@@ -668,17 +682,50 @@ def conv_bound(B, cin, cout, h, w, nbytes, dtype):
 
 
 def device_note(row):
-    return (f"  device {row['device_ms']:.4f} ms, library "
+    return (f"  device {row['device_ms']:.4f} ms (wpack "
+            f"{row['wpack_device_ms']:.4f}), mma.sync "
+            f"{row['mma_device_ms']:.4f} ms, library "
             f"{row['library_device_ms']:.4f} ms" if "device_ms" in row
             else "")
+
+
+def planned_kernel(f32, row):
+    """The kernel ops/conv3x3.py::plan gives a conv on fresh (aligned)
+    tensors: float32 the CUDA-core one; bf16 wgmma when an NCHW row (W) or
+    an NHWC pixel (C), ``row``, is a whole number of 16-byte units, else
+    mma.sync. Every path shape is wgmma's."""
+    return "f32" if f32 else "wgmma" if row % 8 == 0 else "mma"
+
+
+def launched(counter, fn):
+    """fn's result and the kernel (a key of ``counter``) it launched."""
+    before = Counter(counter)
+    out = fn()
+    (name,) = (Counter(counter) - before).keys()
+    return out, name
+
+
+def conv_device_times(torch, row, kernel, mma, library):
+    """The bf16 device times of a K3 or K4 row at a path shape: the
+    planned kernel's (with its weight-packing launch apart), the mma.sync
+    kernel's at the same inputs (the kernel before the wgmma one), the
+    library call's."""
+    times = device_times(torch, kernel)
+    row["device_ms"] = sum(times.values())
+    row["wpack_device_ms"] = sum(v for k, v in times.items()
+                                 if "wpack" in k)
+    row["mma_device_ms"] = device_ms(torch, mma)
+    row["library_device_ms"] = device_ms(torch, library)
 
 
 def check_conv3x3(torch, k3, fwd_convs, B):
     """Hold K3 against its plain version at every forward and input-
     gradient shape of one training step, and at RAGGED_CONVS, in float32
-    and bfloat16; time kernel, plain version and the PyTorch call for the
-    same function (F.conv2d forward, torch.nn.grad.conv2d_input for the
-    input gradient) at the training step's shapes."""
+    and bfloat16, on the kernel ``plan`` picks (the row's "kernel"); time
+    kernel, plain version and the PyTorch call for the same function
+    (F.conv2d forward, torch.nn.grad.conv2d_input for the input gradient)
+    at the training step's shapes, and in bf16 there the mma.sync kernel
+    too, held against the plain version as well."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -705,6 +752,9 @@ def check_conv3x3(torch, k3, fwd_convs, B):
                 def kernel():
                     return k3.conv3x3(x, w, b)
 
+                def mma():
+                    return k3.conv3x3_by("mma", x, w, b)
+
                 def plain():
                     return k3.conv3x3_reference(x, w, b)
 
@@ -717,6 +767,9 @@ def check_conv3x3(torch, k3, fwd_convs, B):
                 def kernel():
                     return k3.conv3x3_input_grad(x, w)
 
+                def mma():
+                    return k3.conv3x3_by("mma", x, w, flip=True)
+
                 def plain():
                     return k3.conv3x3_reference(x, k3.flipped_weights(w))
 
@@ -725,31 +778,41 @@ def check_conv3x3(torch, k3, fwd_convs, B):
                         (bb, cout, h, w_), w, x, padding=1)
 
             with torch.no_grad():
-                out, ref, lib = kernel(), plain(), library()
+                (out, launched_kernel), ref, lib = launched(
+                    k3.launch_kernels, kernel), plain(), library()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             assert_conv_close(torch, out, ref, dtype)
             torch.testing.assert_close(out.float(), lib.float(),
                                        atol=5e-2, rtol=5e-2)
             name = str(dtype).split(".")[1]
+            assert launched_kernel == planned_kernel(
+                dtype == torch.float32, w_), (kind, launched_kernel)
             row = {"case": kind, "dtype": name, "B": bb, "C": cin,
-                   "Cout": cout, "H": h, "W": w_,
+                   "Cout": cout, "H": h, "W": w_, "kernel": launched_kernel,
                    "launches_per_step": per_step, "max_abs_err": err}
+            if per_step and dtype == torch.bfloat16:
+                with torch.no_grad():
+                    out_mma = mma()
+                assert_conv_close(torch, out_mma, ref, dtype)
+                row["mma_max_abs_err"] = (
+                    out_mma.float() - ref.float()).abs().max().item()
+                del out_mma
             if per_step:
                 with torch.no_grad():
                     row["ms"] = time_ms(torch, kernel, iters=20)
                     row["plain_ms"] = time_ms(torch, plain, iters=5)
                     row["library_ms"] = time_ms(torch, library, iters=20)
                     if dtype == torch.bfloat16:
-                        row["device_ms"] = device_ms(torch, kernel)
-                        row["library_device_ms"] = device_ms(torch, library)
+                        conv_device_times(torch, row, kernel, mma, library)
                 nbytes = (x.numel() + w.numel() + out.numel()
                           + (b.numel() if b is not None else 0)) * \
                     x.element_size()
                 row.update(conv_bound(bb, cin, cout, h, w_, nbytes, name))
             rows.append(row)
             print(f"  K3 {kind:7s} {cin:3d}->{cout:3d} @{h:3d}x{w_:<3d} "
-                  f"{name:8s} x{per_step:2d} max_abs_err {err:.3e}"
+                  f"{name:8s} {launched_kernel:5s} x{per_step:2d} "
+                  f"max_abs_err {err:.3e}"
                   + (f"  kernel {row['ms']:.4f} ms  plain "
                      f"{row['plain_ms']:.4f} ms  library "
                      f"{row['library_ms']:.4f} ms  bound "
@@ -764,9 +827,11 @@ def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
     """Hold K4 against its plain version at the training step's forward
     3x3 shapes (K3's forward rows) in NHWC with HWIO weights and a float32
     bias, and at RAGGED_CONVS, in float32 and bfloat16, with K3's
-    tolerances; time kernel, plain version and F.conv2d on channels_last
-    tensors (the same function in PyTorch's NHWC layout) at the training
-    step's shapes. No path calls K4."""
+    tolerances, on the kernel ``plan`` picks; time kernel, plain version
+    and F.conv2d on channels_last tensors (the same function in PyTorch's
+    NHWC layout) at the training step's shapes, and in bf16 there the
+    mma.sync kernel too, held against the plain version as well. No path
+    calls K4."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5432)
@@ -787,10 +852,21 @@ def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
             w_cl = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             b_lib = b.to(dtype)
+
+            def kernel():
+                return k3.conv3x3_nhwc(x, w, b)
+
+            def mma():
+                return k3.conv3x3_nhwc_by("mma", x, w, b)
+
+            def library():
+                return F.conv2d(x_cl, w_cl, b_lib, padding=1)
+
             with torch.no_grad():
-                out = k3.conv3x3_nhwc(x, w, b)
+                out, launched_kernel = launched(k3.nhwc_launch_kernels,
+                                                kernel)
                 ref = k3.conv3x3_nhwc_reference(x, w, b)
-                lib = F.conv2d(x_cl, w_cl, b_lib, padding=1)
+                lib = library()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             assert_conv_close(torch, out, ref, dtype)  # K3's bounds
@@ -798,30 +874,33 @@ def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
                                        lib.permute(0, 2, 3, 1).float(),
                                        atol=5e-2, rtol=5e-2)
             name = str(dtype).split(".")[1]
+            assert launched_kernel == planned_kernel(
+                dtype == torch.float32, cin), launched_kernel
             row = {"case": "forward", "dtype": name, "B": bb, "H": h,
-                   "W": w_, "C": cin, "Cout": cout,
+                   "W": w_, "C": cin, "Cout": cout, "kernel": launched_kernel,
                    "k3_launches_per_step": per_step, "max_abs_err": err}
+            if per_step and dtype == torch.bfloat16:
+                with torch.no_grad():
+                    out_mma = mma()
+                assert_conv_close(torch, out_mma, ref, dtype)
+                row["mma_max_abs_err"] = (
+                    out_mma.float() - ref.float()).abs().max().item()
+                del out_mma
             if per_step:
                 with torch.no_grad():
-                    row["ms"] = time_ms(torch, lambda: k3.conv3x3_nhwc(
-                        x, w, b), iters=20)
+                    row["ms"] = time_ms(torch, kernel, iters=20)
                     row["plain_ms"] = time_ms(
                         torch, lambda: k3.conv3x3_nhwc_reference(x, w, b),
                         iters=5)
-                    row["library_ms"] = time_ms(torch, lambda: F.conv2d(
-                        x_cl, w_cl, b_lib, padding=1), iters=20)
+                    row["library_ms"] = time_ms(torch, library, iters=20)
                     if dtype == torch.bfloat16:
-                        row["device_ms"] = device_ms(
-                            torch, lambda: k3.conv3x3_nhwc(x, w, b))
-                        row["library_device_ms"] = device_ms(
-                            torch, lambda: F.conv2d(x_cl, w_cl, b_lib,
-                                                    padding=1))
+                        conv_device_times(torch, row, kernel, mma, library)
                 nbytes = (x.numel() + w.numel() + out.numel()) * \
                     x.element_size() + b.numel() * 4
                 row.update(conv_bound(bb, cin, cout, h, w_, nbytes, name))
             rows.append(row)
             print(f"  K4 {cin:3d}->{cout:3d} @{h:3d}x{w_:<3d} {name:8s} "
-                  f"max_abs_err {err:.3e}"
+                  f"{launched_kernel:5s} max_abs_err {err:.3e}"
                   + (f"  kernel {row['ms']:.4f} ms  plain "
                      f"{row['plain_ms']:.4f} ms  channels_last conv2d "
                      f"{row['library_ms']:.4f} ms  bound "
@@ -1415,6 +1494,7 @@ def train_path(torch, configs, Trainer, fa, k3, seed, card):
                       "k3_launches": k3.launches,
                       "k4_launches": k3.nhwc_launches,
                       "k3_shapes": dict(k3.launch_shapes),
+                      "k3_kernels": dict(k3.launch_kernels),
                       "logs": {k: float(v) for k, v in logs.items()}})
     peak = torch.cuda.max_memory_allocated()
 
@@ -1430,6 +1510,7 @@ def train_path(torch, configs, Trainer, fa, k3, seed, card):
                                                   k1_per_step)
         assert st["k3_launches"] == k3_per_step, (st["k3_launches"],
                                                   k3_per_step)
+        assert st["k3_kernels"] == {"wgmma": k3_per_step}, st["k3_kernels"]
         assert st["k2_launches"] == st["k4_launches"] == 0, st
     assert Counter(timed[-1]["k3_shapes"]) == k3_launch_shapes(
         g_cfg, TRAIN_BATCH, "bfloat16"), (
@@ -1451,6 +1532,7 @@ def train_path(torch, configs, Trainer, fa, k3, seed, card):
         "max_memory_allocated_bytes": peak,
         "k1_launches_per_step": k1_per_step,
         "k3_launches_per_step": k3_per_step,
+        "k3_kernels_per_step": timed[-1]["k3_kernels"],
         "k1_launches": sum(st["k1_launches"] for st in timed),
         "k3_launches": sum(st["k3_launches"] for st in timed),
         "k2_launches": sum(st["k2_launches"] for st in timed),
@@ -1464,7 +1546,8 @@ def train_path(torch, configs, Trainer, fa, k3, seed, card):
           f"(min {min(ms):.2f}, max {max(ms):.2f}) = "
           f"{report['samples_per_s']:.3f} samples/s; peak memory "
           f"{peak / 2 ** 30:.2f} GiB; K1 {k1_per_step} and K3 "
-          f"{k3_per_step} launches per step; set-up {setup_s:.1f} s; "
+          f"{k3_per_step} launches per step (K3 by kernel "
+          f"{timed[-1]['k3_kernels']}); set-up {setup_s:.1f} s; "
           f"params {n_params}", flush=True)
     print(f"  last step logs: "
           f"{ {k: round(v, 5) for k, v in timed[-1]['logs'].items()} }",
@@ -4331,6 +4414,9 @@ def kernel_entry(name, source, replaces, rows, weight, launches,
     if timed and all("device_ms" in r for r in timed):
         extra.update(device_ms=total("device_ms"),
                      library_device_ms=total("library_device_ms"))
+    for key in ("mma_device_ms", "wpack_device_ms"):
+        if timed and all(key in r for r in timed):
+            extra[key] = total(key)
     bound = total("bound_ms")
     by_bytes = sum(r["bound_ms"] * r[weight] for r in timed
                    if r["bound_by"] == "bytes")
@@ -4375,15 +4461,21 @@ def main():
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
     build_s = cuda_build.build("fused_attention_packed",
-                               "fused_attention_wgmma", "conv3x3")
-    print(f"built fused_attention_packed, fused_attention_wgmma and conv3x3 "
-          f"(one nvcc each, in parallel) in {build_s:.2f} s", flush=True)
+                               "fused_attention_wgmma", "conv3x3",
+                               "conv3x3_wgmma")
+    print(f"built fused_attention_packed, fused_attention_wgmma, conv3x3 "
+          f"and conv3x3_wgmma (one nvcc each, in parallel) in {build_s:.2f} "
+          f"s", flush=True)
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s}
     report["conv3x3_build"] = build_report(cuda_build, "conv3x3",
                                            "conv3x3_kernel",
                                            "conv3x3_kernel_tc")
+    report["conv3x3_wgmma_build"] = build_report(
+        cuda_build, "conv3x3_wgmma", "conv3x3_kernel",
+        "conv3x3_kernel_wgmma", no_spill=("conv3x3_kernel_wgmma",),
+        tc_op="HGMMA")
     # mma.sync <1, true> and <4, false>: its d = 4 and d = 32
     # instantiations; float32 <4, 4>: the motion transformer's
     report["attention_build"] = build_report(
@@ -4529,15 +4621,21 @@ def main():
             launches_train_path=report["train_path"]["k2_launches"],
             launches_train_cli=cli["k2"]),
         kernel_entry(
-            "conv3x3", "conv3x3.cu", "pallas_conv_wl.py:39",
+            "conv3x3", "conv3x3_wgmma.cu", "pallas_conv_wl.py:39",
             report["k3_cases"], "launches_per_step",
             report["train_path"]["k3_launches"],
             f"sum over the {k3_per_step} bf16 launches (forward and input "
             f"gradient) of one flagship train step at batch {TRAIN_BATCH} "
             f"(chiprun_out/chip_smoke.json has each shape; the ragged "
-            f"shapes are checked, not summed); device_ms is the profiler's "
-            f"device time of the same calls, without the host's share of "
-            f"each call that ms holds, library_device_ms the library's",
+            f"shapes are checked, not summed), all on the wgmma kernel of "
+            f"conv3x3_wgmma.cu; device_ms is the profiler's device time of "
+            f"the same calls, without the host's share of each call that "
+            f"ms holds, wpack_device_ms the weight-packing launches' part "
+            f"of it, mma_device_ms the mma.sync kernel of conv3x3.cu (the "
+            f"ragged bf16 shapes' kernel) on the same inputs, "
+            f"library_device_ms the library's",
+            sources=[f"synergize_motion_appearance_tpu_torch/csrc/{s}" for s
+                     in ("conv3x3_wgmma.cu", "conv3x3.cu")],
             launches_train_cli=cli["k3"],
             launches_dp_train=dp["two_ranks"]["k3_launches"],
             launches_ablations={name: row["train"]["k3_launches"]
@@ -4564,14 +4662,17 @@ def main():
                           "profiled frame batch; K3 is the op "
                           "samt::conv3x3"),
         kernel_entry(
-            "conv3x3_nhwc", "conv3x3.cu", "pallas_conv.py:39",
+            "conv3x3_nhwc", "conv3x3_wgmma.cu", "pallas_conv.py:39",
             report["k4_cases"], "k3_launches_per_step",
             report["train_path"]["k4_launches"],
             f"sum over the {k3_per_step // 2} forward 3x3 convs of one "
-            f"flagship train step at batch {TRAIN_BATCH}, in NHWC, bf16; "
-            f"library_ms is F.conv2d on channels_last tensors; the ragged "
-            f"shapes are checked, not summed; device_ms and "
+            f"flagship train step at batch {TRAIN_BATCH}, in NHWC, bf16, on "
+            f"the wgmma kernel; library_ms is F.conv2d on channels_last "
+            f"tensors; the ragged shapes are checked, not summed; "
+            f"device_ms, wpack_device_ms, mma_device_ms and "
             f"library_device_ms as for conv3x3",
+            sources=[f"synergize_motion_appearance_tpu_torch/csrc/{s}" for s
+                     in ("conv3x3_wgmma.cu", "conv3x3.cu")],
             launches_note="no path calls it, in the port or the JAX "
                           "package: 0 launches on the inference path, the "
                           "train step and the train CLI",

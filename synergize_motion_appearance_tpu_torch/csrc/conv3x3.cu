@@ -43,15 +43,16 @@
 // every `ldmatrix` phase fall in 8 distinct bank groups, for any shift.
 // Each warp owns one output row (TW pixels = TW/16 m16 tiles) and BN/WN
 // output channels, and runs `mma.sync.m16n8k16` bf16 -> f32 with its
-// accumulators in registers. `mma.sync` and not `wgmma`: a shifted window
-// starts at any pixel, which breaks the 8-row core-matrix alignment that
-// a `wgmma` A descriptor in shared memory needs, and `wgmma` with A from
-// registers is left for a later step.
+// accumulators in registers. The bf16 shapes whose input TMA can read (an
+// NCHW row or an NHWC pixel of whole 16-byte units, aligned bases) run on
+// `wgmma` instead, in conv3x3_wgmma.cu, whose A descriptors start at any
+// pixel row of a swizzled tile (ops/conv3x3.py::plan picks); this kernel
+// keeps the other bf16 shapes.
 // Copies are asynchronous in a ring of 3 stages, so that chunk k+2 loads
 // while chunk k is multiplied. The weights come from a packed copy
 // (tap, Cout padded to 128, C padded to 16), written by
-// `conv3x3_kernel_wpack` just before (layout, rotation and padding folded
-// in), with 16-byte `cp.async.cg` copies. NHWC input with C a multiple of
+// `conv3x3_kernel_wpack` (conv3x3_pack.cuh) just before (layout, rotation
+// and padding folded in), with 16-byte `cp.async.cg` copies. NHWC input with C a multiple of
 // 8 takes 16-byte `cp.async` copies too, zero-filled outside the image.
 // NCHW input with W a multiple of 8 is copied as it lies, 16-byte runs of
 // 8 pixels along W, by `cp.async` into a channel-major area of the stage;
@@ -81,6 +82,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "conv3x3_pack.cuh"
 
 namespace {
 
@@ -250,10 +253,9 @@ cudaError_t launch_f32(const void* x, const void* wt, const void* bias,
 // ---------------------------------------------------------------------------
 
 constexpr int kKc = 16;        // input channels per pipeline stage
+static_assert(kPackCi % kKc == 0, "packed C is whole chunks");
 constexpr int kRow = 32;       // bytes of one staged row: kKc bf16
 constexpr int kStages = 3;     // cp.async ring depth
-constexpr int kPackCo = 128;   // packed weights: Cout padded to this
-constexpr int kPackCi = kKc;   // packed weights: C padded to this
 
 // Byte offset of 16-byte half `half` of staged row `row`: the half is XORed
 // with bit 2 of the row, so 8 consecutive rows hit 8 distinct bank groups.
@@ -665,38 +667,6 @@ conv3x3_kernel_tc(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Packs bf16 weights as wp[tap][o][c] (9, Coutp, Cp), zero where o >= Cout
-// or c >= C. mode 0: w (Cout, C, 3, 3); mode 1: w (C, Cout, 3, 3), the
-// weights of the conv whose input gradient this is, rotated 180 degrees and
-// channel-swapped here; mode 2: w (3, 3, C, Cout), HWIO.
-__global__ void conv3x3_kernel_wpack(const __nv_bfloat16* __restrict__ w,
-                                     __nv_bfloat16* __restrict__ wp, int C,
-                                     int Cout, int Cp, int Coutp, int mode) {
-  const long long total = 9LL * Coutp * Cp;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int c = static_cast<int>(i % Cp);
-    const int o = static_cast<int>((i / Cp) % Coutp);
-    const int tap = static_cast<int>(i / (static_cast<long long>(Cp) * Coutp));
-    __nv_bfloat16 v = __float2bfloat16(0.f);
-    if (o < Cout && c < C) {
-      long long src;
-      if (mode == 0) {
-        src = (static_cast<long long>(o) * C + c) * 9 + tap;
-      } else if (mode == 1) {
-        src = (static_cast<long long>(c) * Cout + o) * 9 + 8 - tap;
-      } else {
-        src = (static_cast<long long>(tap) * C + c) * Cout + o;
-      }
-      v = w[src];
-    }
-    wp[i] = v;
-  }
-}
-
-int round_up(int a, int m) { return (a + m - 1) / m * m; }
-
 template <int TH, int TW, int BN, int WN, bool NHWC, typename TB>
 cudaError_t launch_tc_tile(const void* x, const void* wp, const void* bias,
                            void* y, int B, int C, int H, int W, int Cout,
@@ -723,14 +693,8 @@ template <bool NHWC, typename TB>
 cudaError_t launch_tc(const void* x, const void* wt, const void* bias,
                       void* y, void* wpack, int B, int C, int H, int W,
                       int Cout, int mode, int tile, cudaStream_t stream) {
-  const int Cp = round_up(C, kPackCi);
-  const int Coutp = round_up(Cout, kPackCo);
-  const long long total = 9LL * Coutp * Cp;
-  const int blocks = static_cast<int>((total + 255) / 256);
-  conv3x3_kernel_wpack<<<blocks < 1024 ? blocks : 1024, 256, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(wt),
-      static_cast<__nv_bfloat16*>(wpack), C, Cout, Cp, Coutp, mode);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_wpack(wt, wpack, C, Cout, round_up(C, kPackCi),
+                                 round_up(Cout, kPackCo), mode, stream);
   if (err != cudaSuccess) return err;
   switch (tile) {
     case 0:

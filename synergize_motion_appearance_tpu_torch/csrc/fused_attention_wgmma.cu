@@ -82,6 +82,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_async.cuh"
+
 namespace {
 
 constexpr int kKeys = 64;     // keys per stage: the n of q.k's wgmma
@@ -89,7 +91,6 @@ constexpr int kStages = 3;    // depth of the k/v ring
 constexpr int kRows = 64;     // query rows per block: one warpgroup's m
 constexpr int kThreads = 160;  // the consumer warpgroup, the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr uint32_t kSpinLimit = 1u << 26;
 
 // Shared memory of a block, from a base aligned to 1024 bytes (the largest
 // swizzle's period): the query tile, the stages (k tile, then v tile), the
@@ -119,117 +120,9 @@ struct Coords {
   long long o_batch, o_row, o_head;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // ---------------------------------------------------------------------------
-// mbarriers, TMA
+// wgmma with A from registers (p.v)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// arrive, and expect `bytes` more of TMA transactions in this phase
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t n = 0; !done; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (n == kSpinLimit) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-// ---------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor: start address, leading byte offset 16
-// (unused: a k16 step of K-major rows, and d columns of MN-major rows, stay
-// within one swizzle atom), stride byte offset between 8-row groups,
-// layout (swizzle) type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t group,
-                                              int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(group >> 4) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// The compiler must treat r as read and written here: keeps it in its
-// registers, unread and unmoved, across an asynchronous wgmma's flight.
-template <int N>
-__device__ __forceinline__ void hold(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void hold(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (64 x 64) = a (64 x 16) * b (16 x 64) [+ d], a and b in shared memory,
-// both K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
 
 // d (64 x 16) += a (64 x 16, registers) * b (16 x 16, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
@@ -572,32 +465,6 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A 3-d bf16 map (d columns of `cols`, `rows` rows, `planes` planes; byte
 // strides of a row and of a plane) read in boxes of d x box_rows, each row

@@ -8,7 +8,7 @@ holds it, optional bias (Cout,). Returns (B, Cout, H, W) in x's dtype,
 accumulated in float32 (float64 for float64 inputs, as the JAX package).
 
 ``conv3x3`` is the ``torch.library`` custom op ``samt::conv3x3``. On a CUDA
-tensor it launches the hand-written kernel ``csrc/conv3x3.cu`` or raises;
+tensor it launches a hand-written kernel (below) or raises;
 on a CPU tensor it runs ``conv3x3_reference``, the plain PyTorch version,
 which the tests hold against the JAX package and the on-card check holds
 the kernel against. Its fake implementation gives the output's shape to
@@ -20,14 +20,22 @@ their channels swapped, the weight gradient 9 shifted float32 contractions,
 the bias gradient a sum. On the card the kernel reads w as it is and
 does the rotation in its weight packing (``conv3x3_input_grad``).
 
-A bfloat16 call runs on the tensor cores: the wrapper allocates the
-kernel's packed-weight scratch (``pack_weights_reference`` is its plain
-version) and picks its tile shape from the problem's shape
-(``choose_tile``). A float32 call runs on the CUDA cores, in full float32.
+Which kernel a CUDA call launches is ``plan``'s choice, with no fallback
+(a failed build or launch raises RuntimeError): bfloat16 runs on the
+tensor cores, by ``wgmma`` (``csrc/conv3x3_wgmma.cu``: TMA-loaded halo
+tiles, one producer warp, one consumer warpgroup) wherever TMA's tensor
+maps can read the input, else by ``mma.sync`` (``csrc/conv3x3.cu``'s
+``conv3x3_kernel_tc``); float32 runs on the CUDA cores, in full float32.
+Both bfloat16 kernels take the weights from a packed copy that their
+library writes just before (``pack_weights_reference`` is its plain
+version) into scratch the wrapper allocates; each kernel's tile shape
+comes from the problem's shape (``choose_wgmma_tile``, ``choose_tile``).
+``launch_kernels`` counts the launches by kernel. ``conv3x3_by`` and
+``conv3x3_nhwc_by`` launch a named kernel, to compare two at one shape.
 
 ``conv3x3_nhwc`` (K4) is the counterpart of ``ops/pallas_conv.py``'s
-``conv3x3_pallas``: NHWC x, HWIO w, the same kernel in its NHWC
-instantiation, with ``conv3x3_nhwc_reference`` as its plain version. It
+``conv3x3_pallas``: NHWC x, HWIO w, the same kernels in their NHWC
+instantiations, with ``conv3x3_nhwc_reference`` as its plain version. It
 keeps that function's own rules (w rounded to x's dtype, float32
 accumulation for every input type, the bias added in float32) and, like
 it, has no gradient.
@@ -36,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import Counter
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,12 +52,15 @@ import torch.nn.functional as F
 from . import cuda_build
 
 # Kernel launches made by `conv3x3` (forward and input gradient) since the
-# last reset, how many of them were input gradients, and how many ran at
-# each (B, C, Cout, H, W, dtype name); and those made by `conv3x3_nhwc`.
+# last reset, how many of them were input gradients, how many ran at each
+# (B, C, Cout, H, W, dtype name) and by each kernel ("wgmma", "mma",
+# "f32"); and those made by `conv3x3_nhwc`, in all and by kernel.
 launches = 0
 input_grad_launches = 0
 launch_shapes: Counter = Counter()
+launch_kernels: Counter = Counter()
 nhwc_launches = 0
+nhwc_launch_kernels: Counter = Counter()
 
 
 def reset_launches() -> None:
@@ -58,6 +69,8 @@ def reset_launches() -> None:
     input_grad_launches = 0
     nhwc_launches = 0
     launch_shapes.clear()
+    launch_kernels.clear()
+    nhwc_launch_kernels.clear()
 
 
 def _acc_dtype(x):
@@ -84,10 +97,21 @@ def conv3x3_reference(x, w, b=None):
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The bfloat16 kernel's tile shapes, (output rows, output columns, output
+# The mma.sync kernel's tile shapes, (output rows, output columns, output
 # channels) per block, in the order of csrc/conv3x3.cu's `tile` argument.
 TILES = ((2, 64, 128), (4, 64, 64), (2, 32, 64))
-# its packed weights: (9, Cout padded to PACK_CO, C padded to PACK_CI)
+# The wgmma kernel's, in the order of csrc/conv3x3_wgmma.cu's `tile`
+# argument; its input channels per staged chunk; and by layout, the pixels
+# of a staged halo row and how many of them lie left of the tile's 64
+# columns (NHWC: one neighbour each side, rounded up to 8 pixels; NCHW:
+# from the 8-pixel run before the tile, as a box's start must be 16-byte
+# aligned there).
+WGMMA_TILES = ((2, 64, 128), (2, 64, 64), (1, 64, 128), (1, 64, 64))
+WGMMA_CHUNK = 64
+NCHW, NHWC = 0, 1  # layouts of x and y
+WGMMA_HALO = {NHWC: (72, 1), NCHW: (80, 8)}
+# both bfloat16 kernels' packed weights: (9, Cout padded to PACK_CO, C
+# padded to PACK_CI)
 PACK_CO, PACK_CI = 128, 16
 # packing modes: w (Cout, C, 3, 3); w (C, Cout, 3, 3) of the conv being
 # differentiated, rotated and channel-swapped; w (3, 3, C, Cout)
@@ -97,12 +121,12 @@ _sm_counts: dict = {}
 _entries: dict = {}
 
 
-def _entry(name, n_ints):
-    """csrc/conv3x3.cu's C entry ``name``, typed once: five pointers,
+def _entry(library, name, n_ints):
+    """csrc/<library>.cu's C entry ``name``, typed once: five pointers,
     ``n_ints`` ints, the stream."""
     fn = _entries.get(name)
     if fn is None:
-        fn = getattr(cuda_build.load("conv3x3"), name)
+        fn = getattr(cuda_build.load(library), name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -110,18 +134,72 @@ def _entry(name, n_ints):
     return fn
 
 
-def _blocks(tile, B, H, W, Cout):
-    th, tw, bn = TILES[tile]
+def _blocks(tile, B, H, W, Cout, tiles=TILES):
+    th, tw, bn = tiles[tile]
     return B * -(-H // th) * -(-W // tw) * -(-Cout // bn)
 
 
 def choose_tile(B, H, W, Cout, n_sms):
-    """The bfloat16 kernel's tile shape for an output of (B, Cout, H, W):
+    """The mma.sync kernel's tile shape for an output of (B, Cout, H, W):
     128 output channels per block above 64 channels, else 64 channels over
     4 rows; the small 2 x 32 x 64 tile when that grid has fewer blocks than
     the card has SMs."""
     tile = 0 if Cout > 64 else 1
     return tile if _blocks(tile, B, H, W, Cout) >= n_sms else 2
+
+
+def choose_wgmma_tile(B, H, W, Cout, n_sms):
+    """The wgmma kernel's tile shape for an output of (B, Cout, H, W). One
+    block runs on an SM at a time, so a grid takes ceil(blocks / SMs)
+    waves, each as long as one block's work (rows x channels of its tile):
+    the tile with the fewest waves times that work, the first of
+    WGMMA_TILES on a tie; the 128-channel tiles only above 64 output
+    channels, where they compute no padding."""
+    def cost(tile):
+        th, _, bn = WGMMA_TILES[tile]
+        blocks = _blocks(tile, B, H, W, Cout, WGMMA_TILES)
+        return -(-blocks // n_sms) * th * bn
+
+    tiles = [i for i, (_, _, bn) in enumerate(WGMMA_TILES)
+             if Cout > 64 or bn <= 64]
+    return min(tiles, key=cost)
+
+
+class Plan(NamedTuple):
+    """The kernel a call launches: ``kernel`` is "wgmma", "mma" or "f32";
+    ``tile`` its tile shape (an index of WGMMA_TILES or TILES; 0 for f32);
+    ``pair``: the wgmma kernel's NCHW 64-channel tile in its geometry of
+    two blocks an SM (one input stage and one pixel tile a block)."""
+    kernel: str
+    tile: int
+    pair: bool = False
+
+
+def plan(dtype, layout, B, C, H, W, Cout, sms, pointers) -> Plan:
+    """Which kernel runs a call, by dtype, layout (NCHW or NHWC), shape and
+    the addresses of x and y (no fallback: the plan's kernel launches or
+    the call raises). float32: the CUDA-core kernel. bfloat16: the wgmma
+    kernel where TMA's tensor maps can read x and write nothing amiss: every
+    pointer 16-byte aligned, and the stride of an NCHW row (W) or of an NHWC
+    pixel (C) a multiple of 16 bytes, that is of 8 values; else the
+    mma.sync kernel. Both take any B, C, H, W and Cout. The wgmma kernel's
+    NCHW 64-channel tiles pair two blocks an SM where the grid has at
+    least two blocks an SM: their copies, transposition and epilogue then
+    run under the other block's wgmmas, which gains more than running a
+    block's chunks one after another costs (with fewer blocks, the paired
+    geometry ran the train step's 64^2 shapes slower than one block an
+    SM)."""
+    if dtype == torch.float32:
+        return Plan("f32", 0)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no conv3x3 kernel for {dtype}")
+    if (W if layout == NCHW else C) % 8 == 0 and all(
+            p % 16 == 0 for p in pointers):
+        tile = choose_wgmma_tile(B, H, W, Cout, sms)
+        pair = layout == NCHW and WGMMA_TILES[tile][2] == 64 and _blocks(
+            tile, B, H, W, Cout, WGMMA_TILES) >= 2 * sms
+        return Plan("wgmma", tile, pair)
+    return Plan("mma", choose_tile(B, H, W, Cout, sms))
 
 
 def pack_weights_reference(w, mode):
@@ -144,21 +222,56 @@ def pack_weights_reference(w, mode):
     return out
 
 
-def _wpack(x, B, C, H, W, Cout):
-    """The bfloat16 kernel's packed-weight scratch and tile shape (None and
-    0 for float32, whose kernel takes the weights as they are). The
-    scratch may be freed as soon as the launch returns: it is allocated on
-    the stream the kernel runs on, and the caching allocator gives it out
-    again only to work queued after the kernel on that stream."""
-    if x.dtype != torch.bfloat16:
-        return None, 0
-    n = 9 * -(-Cout // PACK_CO) * PACK_CO * -(-C // PACK_CI) * PACK_CI
-    dev = x.device.index
-    if dev not in _sm_counts:
-        _sm_counts[dev] = torch.cuda.get_device_properties(
-            x.device).multi_processor_count
-    return (torch.empty(n, dtype=torch.bfloat16, device=x.device),
-            choose_tile(B, H, W, Cout, _sm_counts[dev]))
+def _sms(device):
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device.index]
+
+
+def _launch(layout, x, w, b, y, mode, kernel=None):
+    """Runs the conv of x into y on the card by the kernel ``plan`` picks,
+    or by ``kernel`` ("mma" runs the mma.sync kernel where the plan is
+    wgmma; another kernel than the plan's raises); returns the kernel's
+    name. A bfloat16 kernel's packed-weight scratch may be freed as soon as
+    the launch returns: it is allocated on the stream the kernel runs on,
+    and the caching allocator gives it out again only to work queued after
+    the kernel on that stream."""
+    if layout == NCHW:
+        B, C, H, W = x.shape
+        Cout = y.shape[1]
+    else:
+        B, H, W, C = x.shape
+        Cout = y.shape[3]
+    p = plan(x.dtype, layout, B, C, H, W, Cout, _sms(x.device),
+             (x.data_ptr(), y.data_ptr()))
+    if kernel == "mma" and p.kernel == "wgmma":
+        p = Plan("mma", choose_tile(B, H, W, Cout, _sms(x.device)))
+    elif kernel not in (None, p.kernel):
+        raise ValueError(f"the {kernel} kernel does not take this call; its "
+                         f"plan is {p}")
+    wpack = None if p.kernel == "f32" else torch.empty(
+        9 * -(-Cout // PACK_CO) * PACK_CO * -(-C // PACK_CI) * PACK_CI,
+        dtype=torch.bfloat16, device=x.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), None if wpack is None else wpack.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if p.kernel == "wgmma":
+        fn = _entry("conv3x3_wgmma", "samt_conv3x3_wgmma", 9)
+        args = (B, C, H, W, Cout, layout, mode, p.tile, int(p.pair))
+    elif layout == NCHW:
+        fn = _entry("conv3x3", "samt_conv3x3", 8)
+        args = (B, C, H, W, Cout, _DTYPES[x.dtype], int(mode == PACK_FLIP),
+                p.tile)
+    else:
+        fn = _entry("conv3x3", "samt_conv3x3_nhwc", 7)
+        args = (B, H, W, C, Cout, _DTYPES[x.dtype], p.tile)
+    with torch.cuda.device(x.device):
+        err = fn(*ptrs, *args, stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 {p.kernel} kernel launch failed with "
+                           f"CUDA error {err}")
+    return p.kernel
 
 
 def _check(x, w, b):
@@ -173,7 +286,7 @@ def _check(x, w, b):
                          f"{tuple(b.shape)}")
 
 
-def _launch_cuda(x, w, b, flip=False):
+def _launch_cuda(x, w, b, flip=False, kernel=None):
     """flip: w is (C, Cout, 3, 3), the weights of the conv whose input
     gradient this is; the kernel rotates and channel-swaps them."""
     global launches, input_grad_launches
@@ -187,22 +300,27 @@ def _launch_cuda(x, w, b, flip=False):
         raise ValueError("x, w and bias must be on one CUDA device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("x, w and bias must be contiguous")
-    fn = _entry("samt_conv3x3", 8)
     y = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
-    wpack, tile = _wpack(x, B, C, H, W, Cout)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 b.data_ptr() if b is not None else None, y.data_ptr(),
-                 wpack.data_ptr() if wpack is not None else None,
-                 B, C, H, W, Cout, _DTYPES[x.dtype], int(flip), tile, stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed with CUDA error "
-                           f"{err}")
+    name = _launch(NCHW, x, w, b, y, PACK_FLIP if flip else PACK_OIHW,
+                   kernel)
     launches += 1
     input_grad_launches += int(flip)
     launch_shapes[(B, C, Cout, H, W, str(x.dtype).split(".")[1])] += 1
+    launch_kernels[name] += 1
     return y
+
+
+def conv3x3_by(kernel, x, w, b=None, flip=False):
+    """The conv of a CUDA x, or with flip its input gradient (w then the
+    (Cout, C, 3, 3) weights of the conv differentiated), by the named
+    kernel ("wgmma", "mma" or "f32"; see ``_launch``), counted as
+    ``conv3x3``'s launches are: for comparing the kernels at one shape.
+    The op ``conv3x3`` launches the planned kernel."""
+    _check(x, w.transpose(0, 1) if flip else w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_by runs CUDA tensors, not {x.device}")
+    return _launch_cuda(x.contiguous(), w.contiguous(),
+                        None if b is None else b.contiguous(), flip, kernel)
 
 
 def flipped_weights(w):
@@ -328,10 +446,9 @@ def _check_nhwc(x, w, b):
                          f"{tuple(b.shape)}")
 
 
-def _launch_cuda_nhwc(x, w, b):
+def _launch_cuda_nhwc(x, w, b, kernel=None):
     global nhwc_launches
     B, H, W, C = x.shape
-    Cout = w.shape[3]
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     tensors = [x, w] + ([b] if b is not None else [])
@@ -342,20 +459,21 @@ def _launch_cuda_nhwc(x, w, b):
     x = x.contiguous()
     w = w.to(x.dtype).contiguous()
     b = None if b is None else b.float().contiguous()
-    fn = _entry("samt_conv3x3_nhwc", 7)
-    y = torch.empty(B, H, W, Cout, dtype=x.dtype, device=x.device)
-    wpack, tile = _wpack(x, B, C, H, W, Cout)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(),
-                 b.data_ptr() if b is not None else None, y.data_ptr(),
-                 wpack.data_ptr() if wpack is not None else None,
-                 B, H, W, C, Cout, _DTYPES[x.dtype], tile, stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3_nhwc kernel launch failed with CUDA "
-                           f"error {err}")
+    y = torch.empty(B, H, W, w.shape[3], dtype=x.dtype, device=x.device)
+    name = _launch(NHWC, x, w, b, y, PACK_HWIO, kernel)
     nhwc_launches += 1
+    nhwc_launch_kernels[name] += 1
     return y
+
+
+def conv3x3_nhwc_by(kernel, x, w, b=None):
+    """``conv3x3_nhwc`` of a CUDA x by the named kernel, as
+    ``conv3x3_by``."""
+    _check_nhwc(x, w, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_nhwc_by runs CUDA tensors, not "
+                         f"{x.device}")
+    return _launch_cuda_nhwc(x, w, b, kernel)
 
 
 class _Conv3x3NHWC(torch.autograd.Function):
