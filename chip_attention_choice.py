@@ -1,0 +1,105 @@
+"""Which kernel should serve two small head widths: times, on the card,
+both kernels that can take each at the attention shapes of the flagship
+generator at n_head 32 (chip_smoke.attention_cases, one frame batch of
+FRAME_BATCH), each launch held against the plain version first:
+
+- float32 d = 1 (the motion transformer's 16 launches): the d-chunked
+  kernel's attn_packed_kernel_chunked_f32<1, 1> (what plan picks) and the
+  CUDA-core attn_packed_kernel<4, R> of fused_attention_packed.cu, which
+  zero-pads d to 4 (R = f32_rows);
+- bfloat16 d = 8 (the appearance transformer's 16 launches): the
+  mma.sync kernel (what plan picks) and the d-chunked
+  attn_packed_kernel_chunked_tc.
+
+Each kernel is forced through fused_attention_packed by replacing plan
+for the call. Times are the profiler's device time per call
+(chip_smoke.device_ms), summed over the frame batch's launches of each
+half; the two kernels of a width are timed in turn, twice (a, b, b, a),
+within one process. Prints the card's name and power limit, one line per
+shape, and as its last line one JSON object of the sums.
+
+    python3 chip_attention_choice.py
+"""
+import json
+import os
+import sys
+from collections import Counter
+from unittest import mock
+
+import torch
+
+import chip_smoke as cs
+
+H = 32  # n_head: motion d = 32 / H = 1, appearance d = 256 / H = 8
+
+
+def forced(fa, p):
+    """fused_attention_packed on kernel plan ``p`` whatever plan picks."""
+    def call(q, k, v, bias):
+        with mock.patch.object(fa, "plan", return_value=p):
+            return fa.fused_attention_packed(q, k, v, bias, num_heads=H)
+    return call
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_attention_choice: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, cs.ROOT)
+    from synergize_motion_appearance_tpu_torch.ops import cuda_build
+    from synergize_motion_appearance_tpu_torch.ops import fused_attention as fa
+
+    card = cs.card_line()
+    print(card, flush=True)
+    cuda_build.build("fused_attention_packed", "fused_attention_chunked")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    sums, rows = {}, []
+    for name, B, L, E, hh, K, shared, with_bias, per in cs.attention_cases(
+            cs.FRAME_BATCH, H=H):
+        d = E // hh
+        motion = name.startswith("motion")
+        dtype = torch.float32 if motion else torch.bfloat16
+        picked = fa.plan(dtype, B, hh, L, d, sms, 0, 0, 0, 0)
+        other = (fa.Plan("f32", fa.f32_rows(B, hh, L, d, sms)) if motion
+                 else fa.Plan("chunked", fa.CHUNKED_ROWS[dtype]))
+        q = torch.randn(B, L, E, generator=gen, device="cuda").to(dtype)
+        kv_shape = (K, E) if shared else (B, K, E)
+        k = torch.randn(*kv_shape, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(*kv_shape, generator=gen, device="cuda").to(dtype)
+        bias = cs.random_bias(torch, gen, B, K) if with_bias else None
+        with torch.no_grad():
+            ref = fa.fused_attention_packed_reference(q, k, v, bias,
+                                                      num_heads=H)
+            calls = {}
+            for p in (picked, other):
+                call = forced(fa, p)
+                cs.assert_attention_close(torch, call(q, k, v, bias), ref,
+                                          with_bias)
+                calls[p.kernel] = lambda call=call: call(q, k, v, bias)
+            ms = {kern: [] for kern in calls}
+            for kern in list(calls) + list(calls)[::-1]:
+                ms[kern].append(cs.device_ms(torch, calls[kern]))
+        row = {"case": name, "dtype": str(dtype).split(".")[1], "d": d,
+               "launches_per_frame_batch": per, "picked": picked.kernel,
+               "ms": {kern: min(t) for kern, t in ms.items()},
+               "ms_runs": ms}
+        rows.append(row)
+        half = sums.setdefault(row["dtype"] + f"_d{d}", Counter())
+        for kern, t in row["ms"].items():
+            half[kern] += t * per
+        print(f"{name:17s} {row['dtype']:8s} d {d}  "
+              + "  ".join(f"{kern} {t:.4f} ms" for kern, t in
+                          row["ms"].items())
+              + f"  (plan: {picked.kernel})", flush=True)
+        del q, k, v, bias, ref
+    out_dir = os.path.join(cs.ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_attention_choice.json"), "w") as f:
+        json.dump({"card": card, "rows": rows}, f)
+    print(json.dumps({"card": card, "sums_ms": sums}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

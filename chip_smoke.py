@@ -64,6 +64,14 @@ at the flagship 256x256 width with seeded random weights:
   gradient_penalty_loss over the flagship discriminator with their double
   backward, each against the CPU; one tiny SRModel step against the CPU;
   and train.vgg_weights read by the flagship Trainer.
+- attention_widths (after the ablations): K1 and K2 at every attention
+  shape of a flagship frame batch at n_head 1, 2 and 32 (head widths 1 to
+  256: the wgmma kernel at d = 128, the d-chunked kernel at d = 1 and
+  256) and at ragged d = 96 and 160, against their plain versions in both
+  dtypes, timed against the bound and SDPA; one flagship frame batch at
+  each n_head with its 32 K1 launches counted by the kernel plan names;
+  the tiny config with motion d = 1 and appearance d = 128 on the card
+  against the CPU;
 - train_options (after the train profile): the flagship Trainer with a
   fixed GAN weight (use_adaptive_weight false) and weight decay on its
   three optimizers, 3 timed steps (K1 and K3 as the train path, no
@@ -196,28 +204,50 @@ def time_ms(torch, fn, iters, warmup=2):
     return float(np.median(times))
 
 
+def activity_lost(device_ms, pending_ms):
+    """Whether a profiler session lost device activity: the card still had
+    ``pending_ms`` of queued work when the host had launched all of it
+    (the device was busy for about that long), and the session recorded
+    under half of that (less 0.05 ms for the first launch's latency and
+    the gaps between kernels). Late in a long process the card machine's
+    profiler has recorded a fifth of a call's device time, then none."""
+    return device_ms < 0.5 * pending_ms - 0.05
+
+
 def device_times(torch, fn, iters=10, attempts=3):
     """Device time of one call of ``fn`` by kernel name: every kernel and
     memset it launches, summed by torch.profiler over ``iters`` calls after
     one warm-up call, per call; no host time, unlike time_ms. Now and then
-    a profiler session on the card's machine records no device activity at
-    all; such a session is run again, up to ``attempts`` sessions."""
+    a profiler session on the card's machine records no device activity,
+    or only part of it (activity_lost, against CUDA events around the
+    session); such a session is run again, up to ``attempts`` sessions."""
     fn()
     torch.cuda.synchronize()
     for _ in range(attempts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            start.record()
+            t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            end.record()
+            end.synchronize()
         times = {evt.key: evt.self_device_time_total / 1e3 / iters
                  for evt in prof.key_averages()
                  if evt.device_type == torch.autograd.DeviceType.CUDA
                  and evt.self_device_time_total > 0}
-        if times:
+        pending_ms = start.elapsed_time(end) - host_ms
+        if times and not activity_lost(iters * sum(times.values()),
+                                       pending_ms):
             return times
-    raise AssertionError(f"the profiler saw no device time in {attempts} "
-                         f"sessions")
+    raise AssertionError(
+        f"the profiler lost device activity in {attempts} sessions: the "
+        f"last recorded {iters * sum(times.values()):.4f} ms of device time "
+        f"where {pending_ms:.4f} ms of queued work was left when the host "
+        f"had launched it")
 
 
 def device_ms(torch, fn, iters=10, attempts=3):
@@ -242,19 +272,19 @@ def exp_rate(torch):
             "exp_per_s": EXP_PER_SM_CLOCK * sms * mhz * 1e6}
 
 
-def attention_cases(B, L=1024):
+def attention_cases(B, L=1024, H=8):
     """(name, B, L, E, H, K, shared context, bias, launches per frame
     batch) for the 32 attention launches of one frame batch at the
-    flagship config: 4 motion and 4 appearance passes, each 2 layers of
-    self-attention over the L tokens and cross-attention against the first
-    256*idx codebook entries; only the first appearance layer carries a
-    key bias."""
-    cases = [("motion_self", 32, 8, L, False, False, 8)]
-    cases += [(f"motion_cross_K{256 * i}", 32, 8, 256 * i, True, False, 2)
+    flagship config (n_head H: 8 as shipped): 4 motion and 4 appearance
+    passes, each 2 layers of self-attention over the L tokens and
+    cross-attention against the first 256*idx codebook entries; only the
+    first appearance layer carries a key bias."""
+    cases = [("motion_self", 32, H, L, False, False, 8)]
+    cases += [(f"motion_cross_K{256 * i}", 32, H, 256 * i, True, False, 2)
               for i in range(1, 5)]
-    cases += [("app_self_bias", 256, 8, L, False, True, 4),
-              ("app_self", 256, 8, L, False, False, 4)]
-    cases += [(f"app_cross_K{256 * i}", 256, 8, 256 * i, True, False, 2)
+    cases += [("app_self_bias", 256, H, L, False, True, 4),
+              ("app_self", 256, H, L, False, False, 4)]
+    cases += [(f"app_cross_K{256 * i}", 256, H, 256 * i, True, False, 2)
               for i in range(1, 5)]
     return [(n, B, L, E, H, K, sh, bi, per) for n, E, H, K, sh, bi, per
             in cases]
@@ -322,11 +352,14 @@ def attention_times(torch, kernel, plain, library):
 def attention_bound(q, k, v, bias, scores, d, rate):
     """The least time of one call, the largest of: the bytes (q, k, v and
     the bias read once, the output written once) over the HBM rate; 2
-    FLOP per multiply-add of q.k and of p.v (4d per score) over the bf16
-    tensor-core peak (the f32 CUDA-core peak for float32 inputs); one
-    exponential per score over the special-function
+    FLOP per multiply-add of q.k and of p.v (4d per score, the function's
+    work) over the bf16 tensor-core peak (the f32 CUDA-core peak for
+    float32 inputs); one exponential per score over the special-function
     units' rate. bound_by is "bytes" or "operations"; bound_kind names
-    which of the three binds."""
+    which of the three binds (the products at the wide heads). For
+    bfloat16, hilo_products_ms is the tensor cores' time for the bf16
+    kernels' own products, 6d per score (p.v taken twice, as bf16 hi +
+    lo): an estimate beside the bound, not part of it."""
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + (
         bias.numel() * 4 if bias is not None else 0)
     dtype = str(q.dtype).split(".")[1]
@@ -335,10 +368,13 @@ def attention_bound(q, k, v, bias, scores, d, rate):
              flop: 4 * d * scores / PEAK_FLOPS[dtype],
              "exponentials": scores / rate["exp_per_s"]}
     kind = max(parts, key=parts.get)
-    return {"bound_ms": 1e3 * parts[kind],
-            "bound_by": "bytes" if kind == "bytes" else "operations",
-            "bound_kind": kind,
-            "bound_parts_ms": {k: 1e3 * t for k, t in parts.items()}}
+    out = {"bound_ms": 1e3 * parts[kind],
+           "bound_by": "bytes" if kind == "bytes" else "operations",
+           "bound_kind": kind,
+           "bound_parts_ms": {k: 1e3 * t for k, t in parts.items()}}
+    if dtype == "bfloat16":
+        out["hilo_products_ms"] = 1e3 * 6 * d * scores / PEAK_FLOPS[dtype]
+    return out
 
 
 def f32_issue_slots(d, rows):
@@ -393,32 +429,45 @@ def attention_halves(rows):
 
 
 def attention_note(row):
-    if "ms" not in row:
-        return "  (checked, not timed)"
+    if "ms" not in row:  # checked, not timed
+        return ""
     return (f"  kernel {row['device_ms']:.4f} ms device ({row['ms']:.4f} "
             f"events)  sdpa {row['library_device_ms']:.4f} device "
             f"({row['library_ms']:.4f} events)  plain {row['plain_ms']:.4f}"
             f"  bound {row['bound_ms']:.4f} ({row['bound_kind']}), share "
-            f"{row['bound_share']:.3f}")
+            f"{row['bound_share']:.3f}"
+            + (f"  hi+lo products {row['hilo_products_ms']:.4f}"
+               if "hilo_products_ms" in row else ""))
 
 
-def check_attention(torch, fa, B, rate, L=1024):
+def launched_kernel(fa, before):
+    """The one kernel name that fa.launch_kernels gained since ``before``
+    (a copy of it)."""
+    gained = list((fa.launch_kernels - before).elements())
+    assert len(gained) == 1, gained
+    return gained[0]
+
+
+def check_attention(torch, fa, B, rate, L=1024, cases=None):
     """Hold the kernel against the plain version at every main-path shape
-    and at RAGGED_ATTENTION in float32 and bfloat16; at the main-path
-    shapes time kernel, plain version and F.scaled_dot_product_attention
-    at bfloat16 and, for the motion transformer's calls, also at float32,
-    the dtype the bf16 pipeline gives them (the JAX graph's type promotion
-    of the float32 flow residual runs the motion pass in float32); time
-    the train step's B = 2 shapes of RAGGED_ATTENTION in both dtypes. Rows
-    in the pipeline's dtype are marked on_path. bfloat16 at d = 16, 32 and
-    64 runs the wgmma kernel, at d = 2, 4 and 8 the mma.sync one, float32
-    the CUDA-core one (ops/fused_attention.py::plan)."""
+    and at RAGGED_ATTENTION (or at ``cases``) in float32 and bfloat16; at
+    the main-path shapes time kernel, plain version and
+    F.scaled_dot_product_attention at bfloat16 and, for the motion
+    transformer's calls, also at float32, the dtype the bf16 pipeline
+    gives them (the JAX graph's type promotion of the float32 flow
+    residual runs the motion pass in float32); time the train step's B = 2
+    shapes of RAGGED_ATTENTION in both dtypes. Rows in the pipeline's dtype
+    are marked on_path, and each row names the kernel that ran it. At the
+    shipped widths bfloat16 at d = 16, 32 and 64 runs the wgmma kernel, at
+    d = 2, 4 and 8 the mma.sync one, float32 the CUDA-core one
+    (ops/fused_attention.py::plan)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = []
-    for name, bb, ll, E, H, K, shared, with_bias, per_batch in (
-            attention_cases(B, L) + RAGGED_ATTENTION):
+    if cases is None:
+        cases = attention_cases(B, L) + RAGGED_ATTENTION
+    for name, bb, ll, E, H, K, shared, with_bias, per_batch in cases:
         d = E // H
         path_dtype = "float32" if name.startswith("motion") else "bfloat16"
         for dtype in (torch.float32, torch.bfloat16):
@@ -430,6 +479,7 @@ def check_attention(torch, fa, B, rate, L=1024):
             kv_shape = (K, E) if shared else (bb, K, E)
             k, v = randn(*kv_shape), randn(*kv_shape)
             bias = random_bias(torch, gen, bb, K) if with_bias else None
+            before = fa.launch_kernels.copy()
             with torch.no_grad():
                 out = fa.fused_attention_packed(q, k, v, bias, num_heads=H)
                 ref = fa.fused_attention_packed_reference(q, k, v, bias,
@@ -439,6 +489,7 @@ def check_attention(torch, fa, B, rate, L=1024):
             assert_attention_close(torch, out, ref, with_bias)
             row = {"case": name, "dtype": str(dtype).split(".")[1], "B": bb,
                    "L": ll, "K": K, "E": E, "H": H, "d": d,
+                   "kernel": launched_kernel(fa, before),
                    "shared_kv": shared, "bias": with_bias,
                    "launches_per_frame_batch": per_batch,
                    "on_path": bool(per_batch) and str(dtype).split(".")[1]
@@ -473,8 +524,9 @@ def check_attention(torch, fa, B, rate, L=1024):
                         fa.f32_rows(bb, H, ll, d, rate["sms"]), rate)
                 del qh, kh, vh, mask
             rows.append(row)
-            print(f"  K1 {name:23s} {row['dtype']:8s} max_abs_err {err:.3e}"
-                  + (attention_note(row) if "ms" in row else ""),
+            print(f"  K1 {name:23s} {row['dtype']:8s} d {d:3d} "
+                  f"{row['kernel']:7s} max_abs_err {err:.3e}"
+                  + attention_note(row),
                   flush=True)
             del q, k, v, bias, out, ref
     return rows
@@ -511,17 +563,18 @@ def check_captured_attention(torch, fa, captured,
 # kernel K2: K1's shapes in the head-split layout (no path calls it)
 # ---------------------------------------------------------------------------
 
-def check_attention_split(torch, fa, B, rate, L=1024):
+def check_attention_split(torch, fa, B, rate, L=1024, cases=None):
     """Hold K2 against its plain version at K1's main-path shapes relaid to
-    (B, H, L, d), plus a ragged K on no path, in float32 and bfloat16, with
-    K1's tolerances; time kernel, plain version and
+    (B, H, L, d), plus a ragged K on no path (or at ``cases``), in float32
+    and bfloat16, with K1's tolerances; time kernel, plain version and
     F.scaled_dot_product_attention on the same head-split tensors at
-    bfloat16."""
+    bfloat16. Each row names the kernel that ran it."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2345)
-    cases = attention_cases(B, L) + [("ragged_K1000_bias", B, L, 256, 8,
-                                      1000, False, True, 0)]
+    if cases is None:
+        cases = attention_cases(B, L) + [("ragged_K1000_bias", B, L, 256, 8,
+                                          1000, False, True, 0)]
     rows = []
     for name, bb, ll, E, H, K, shared, with_bias, per_batch in cases:
         d = E // H
@@ -534,6 +587,7 @@ def check_attention_split(torch, fa, B, rate, L=1024):
             k = randn(1 if shared else bb, H, K, d)
             v = randn(1 if shared else bb, H, K, d)
             bias = random_bias(torch, gen, bb, K) if with_bias else None
+            before = fa.launch_kernels.copy()
             with torch.no_grad():
                 out = fa.fused_attention(q, k, v, bias)
                 ref = fa.fused_attention_reference(q, k, v, bias)
@@ -541,7 +595,8 @@ def check_attention_split(torch, fa, B, rate, L=1024):
             err = (out.float() - ref.float()).abs().max().item()
             assert_attention_close(torch, out, ref, with_bias)
             row = {"case": name, "dtype": str(dtype).split(".")[1], "B": bb,
-                   "H": H, "L": ll, "K": K, "d": d, "shared_kv": shared,
+                   "H": H, "L": ll, "K": K, "d": d,
+                   "kernel": launched_kernel(fa, before), "shared_kv": shared,
                    "bias": with_bias, "k1_launches_per_frame_batch":
                    per_batch, "max_abs_err": err}
             if dtype == torch.bfloat16 and per_batch:
@@ -559,8 +614,9 @@ def check_attention_split(torch, fa, B, rate, L=1024):
                 row["bound_share"] = row["bound_ms"] / row["device_ms"]
                 del kk, vv, mask
             rows.append(row)
-            print(f"  K2 {name:17s} {row['dtype']:8s} max_abs_err {err:.3e}"
-                  + (attention_note(row) if dtype == torch.bfloat16 else ""),
+            print(f"  K2 {name:17s} {row['dtype']:8s} d {d:3d} "
+                  f"{row['kernel']:7s} max_abs_err {err:.3e}"
+                  + attention_note(row),
                   flush=True)
             del q, k, v, bias, out, ref
     return rows
@@ -1133,10 +1189,11 @@ def profile(torch, run):
     wall_ms = float(np.median(walls))
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # a session that records no device activity reruns
+    for _ in range(3):  # a session that loses device activity reruns
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             run()
+            host_ms = 1e3 * (time.perf_counter() - t0)
             torch.cuda.synchronize()
             wall_profiled_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -1150,9 +1207,14 @@ def profile(torch, run):
             per_kernel[evt.key][0] += us / 1e3
             per_kernel[evt.key][1] += evt.count
         device_ms = sum(v[0] for v in per_kernel.values())
-        if device_ms > 0:
+        if device_ms > 0 and not activity_lost(device_ms,
+                                               wall_profiled_ms - host_ms):
             break
     assert device_ms > 0, "the profiler saw no device time"
+    assert not activity_lost(device_ms, wall_profiled_ms - host_ms), (
+        f"the profiler lost device activity: {device_ms:.3f} ms recorded "
+        f"where the card still had {wall_profiled_ms - host_ms:.3f} ms of "
+        f"queued work when the host had launched it")
     by_kind = defaultdict(float)
     for name, (ms, _) in per_kernel.items():
         by_kind[kind_of(name)] += ms
@@ -1622,9 +1684,11 @@ ABLATION_NORM_SCALE = 10
 
 def ablation_cfg(cfg, name, tiny=False):
     """``cfg`` (a network or training config) with variant ``name``'s
-    switches; without Jacobians the equivariance loss drops its Jacobian
-    term (use_jacobian false), which it could not compute."""
-    for ov in (ABLATIONS[name], TINY_ABLATIONS.get(name, {}) if tiny
+    switches (ABLATIONS) or head widths (HEAD_WIDTHS); without Jacobians
+    the equivariance loss drops its Jacobian term (use_jacobian false),
+    which it could not compute."""
+    for ov in ({**ABLATIONS, **HEAD_WIDTHS}[name],
+               TINY_ABLATIONS.get(name, {}) if tiny
                else {}):
         cfg["network_g"].update(ov.get("g", {}))
         me = cfg["network_motion_estimator"]
@@ -1826,6 +1890,150 @@ def ablations(torch, configs, ReenactmentPipeline, seeded_nets, Trainer,
     print(f"ablations: {len(ABLATIONS)} variants in {wall:.1f} s on {card}",
           flush=True)
     return {"variants": report, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# attention at every head width the JAX package takes
+# ---------------------------------------------------------------------------
+
+# n_head values of the flagship generator past the shipped 8 (every
+# TransformerLayer takes the one n_head): 1 gives the appearance
+# transformer d = 256 and the motion one d = 32, 2 gives 128 and 16, 32
+# gives 8 and 1
+HEAD_COUNTS = (1, 2, 32)
+# overrides of network_g, as ABLATIONS: the flagship at each n_head, and
+# the tiny config's variant with motion d = 1 and appearance d = 128
+# (tests/test_torch_attention_widths.py holds it against the JAX package)
+HEAD_WIDTHS = {f"n_head_{h}": {"g": {"n_head": h}} for h in HEAD_COUNTS}
+HEAD_WIDTHS["tiny_d1_d128"] = {"g": {
+    "n_head": 4, "embed_dim_motion": 4, "dim_embd_motion": 4,
+    "embed_dim_app": 512, "dim_embd_app": 512}}
+# (name, B, L, E, H, K, shared context, bias, 0): the d-chunked kernel's
+# widths off its column chunks, L and K off the query and key tiles, each
+# with a bias that masks every key of batch row 0; checked, not timed
+RAGGED_WIDTHS = [
+    ("ragged_L1000_K700_d96", 4, 1000, 192, 2, 700, False, True, 0),
+    ("ragged_L900_K333_d160", 3, 900, 320, 2, 333, True, True, 0),
+]
+WIDTHS_TIMEOUT = 300  # seconds for the phase's process
+
+
+def head_width_kernels(torch, fa, H, sms):
+    """The kernel that plan names for each of the 32 attention calls of
+    one flagship frame batch at n_head H (the motion calls in float32, the
+    appearance ones in bfloat16, pointers aligned), counted: a Counter."""
+    want = Counter()
+    for name, B, L, E, hh, K, _, _, per in attention_cases(FRAME_BATCH,
+                                                           H=H):
+        dtype = torch.float32 if name.startswith("motion") else \
+            torch.bfloat16
+        want[fa.plan(dtype, B, hh, L, E // hh, sms, 0, 0, 0, 0).kernel] += per
+    return want
+
+
+def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
+                     rate, seed, card):
+    """Attention at the head widths of the flagship generator at n_head 1,
+    2 and 32 (HEAD_COUNTS): K1 and K2 against their plain versions at
+    every attention shape of a frame batch at each, in float32 and
+    bfloat16 (timed against the bound and SDPA as the K1 and K2 phases
+    time theirs), and at RAGGED_WIDTHS; one flagship frame batch at each
+    n_head through ReenactmentPipeline.animate (ablation_inference), its
+    32 K1 launches counted by kernel against what plan names; the tiny
+    variant with motion d = 1 and appearance d = 128 in float32 on the
+    card against the CPU, within 1 level."""
+    t0 = time.perf_counter()
+    sms = rate["sms"]
+    report = {"k1": {}, "k2": {}, "frame_batches": {}}
+    for H in HEAD_COUNTS:
+        cases = attention_cases(FRAME_BATCH, H=H)
+        print(f"attention widths: n_head {H} (motion d = {32 // H}, "
+              f"appearance d = {256 // H})", flush=True)
+        k1 = check_attention(torch, fa, FRAME_BATCH, rate, cases=cases)
+        k2 = check_attention_split(torch, fa, FRAME_BATCH, rate,
+                                   cases=cases)
+        got = Counter()
+        for r in k1:
+            if r["on_path"]:
+                got[r["kernel"]] += r["launches_per_frame_batch"]
+        assert got == head_width_kernels(torch, fa, H, sms), (H, got)
+        report["k1"][H], report["k2"][H] = k1, k2
+        torch.cuda.empty_cache()
+    report["k1"]["ragged"] = check_attention(torch, fa, FRAME_BATCH, rate,
+                                             cases=RAGGED_WIDTHS)
+    report["k2"]["ragged"] = check_attention_split(
+        torch, fa, FRAME_BATCH, rate, cases=RAGGED_WIDTHS)
+    for H in HEAD_COUNTS:
+        row, _ = ablation_inference(torch, configs, ReenactmentPipeline,
+                                    seeded_nets, fa, f"n_head_{H}", seed)
+        row["k1_kernels"] = dict(fa.launch_kernels)
+        want = head_width_kernels(torch, fa, H, sms)
+        assert fa.launch_kernels == want, (H, fa.launch_kernels, want)
+        report["frame_batches"][H] = row
+        torch.cuda.empty_cache()
+        print(f"attention widths: flagship-256 bf16 at n_head {H}: "
+              f"{row['frames_per_s']:.2f} frames/s (one frame batch of "
+              f"{FRAME_BATCH}), K1 {row['k1_launches']} launches by kernel "
+              f"{row['k1_kernels']} on {card}", flush=True)
+    diff, launches = tiny_frames(
+        torch, ablation_cfg(configs.get("tiny"), "tiny_d1_d128"),
+        ReenactmentPipeline, seeded_nets, fa, seed, 6)
+    kernels = dict(fa.launch_kernels)
+    assert set(kernels) == {"chunked"}, kernels
+    report["tiny_d1_d128"] = {"max_diff_levels": int(diff.max()),
+                              "mean_diff_levels": float(diff.mean()),
+                              "k1_launches": launches,
+                              "k1_kernels": kernels}
+    report["seconds"] = time.perf_counter() - t0
+    print(f"attention widths: tiny f32 (motion d = 1, appearance d = 128) "
+          f"card vs CPU max |diff| {diff.max()} levels, K1 {kernels}; phase "
+          f"{report['seconds']:.1f} s on {card}", flush=True)
+    return report
+
+
+def attention_widths_process(rank, world, out_path, seed, card):
+    """attention_widths in a process of its own (run_ranks, world 1), its
+    report written to ``out_path`` as JSON. Run late in the one long
+    process, the phase saw the card machine's profiler lose device
+    activity at n_head 32 (SDPA's device time a fifth of its event time,
+    then three sessions with none), after some 250 profiler sessions in
+    the process and with the plain versions' ~10 GiB there in the
+    allocator's cache; which of the two caused it is not known. A fresh
+    process holds neither; and every profiler session is held against
+    the CUDA-event window around it (activity_lost), so a partial loss
+    in any phase reruns the session or fails."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from synergize_motion_appearance_tpu_torch import configs
+    from synergize_motion_appearance_tpu_torch.inference import (
+        ReenactmentPipeline,
+    )
+    from synergize_motion_appearance_tpu_torch.ops import fused_attention as fa
+    from synergize_motion_appearance_tpu_torch.weights import seeded_nets
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = attention_widths(torch, configs, ReenactmentPipeline,
+                              seeded_nets, fa, exp_rate(torch), seed, card)
+    with open(out_path, "w") as f:
+        json.dump(report, f)
+
+
+def attention_widths_phase(seed, card):
+    """attention_widths_process's report, from a spawned process (its
+    dict keys, n_head among them, as strings)."""
+    work = os.path.join(ROOT, "build", "chip_smoke_widths")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out_path = os.path.join(work, "report.json")
+    try:
+        run_ranks(attention_widths_process, 1, (out_path, seed, card),
+                  WIDTHS_TIMEOUT)
+        with open(out_path) as f:
+            return json.load(f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def write_frame_cache(torch, native_loader, path, seed):
@@ -2458,19 +2666,48 @@ def dp_two_ranks(torch, configs, Trainer, fa, k3, seed, card):
     return report
 
 
+def grad_rel_gap(torch, a, b, b1, beyond_ulp):
+    """How far the gradients behind Adam first moments ``a`` lie from those
+    behind ``b`` (one step from zero moments: gradient = mu / (1 - b1)),
+    leaf by leaf: the 2-norm of the differences over the 2-norm of b's
+    gradients. With ``beyond_ulp`` each element's difference is first
+    cut by one bf16 ulp of the larger of its two magnitudes (2^(e - 8)
+    for a magnitude in [2^(e-1), 2^e)), so that a bf16 value rounded to
+    its other neighbour counts 0."""
+    num = den = 0.0
+    for k in b:
+        ga, gb = a[k] / (1 - b1), b[k] / (1 - b1)
+        diff = (ga - gb).abs()
+        if beyond_ulp:
+            _, e = torch.frexp(torch.maximum(ga.abs(), gb.abs()))
+            diff = (diff - torch.ldexp(torch.ones_like(diff), e - 8)
+                    ).clamp(min=0)
+        num += float((diff ** 2).sum())
+        den += float((gb ** 2).sum())
+    return (num / max(den, 1e-30)) ** 0.5
+
+
 def remat_modes(torch, configs, Trainer, k3, seed, card):
     """options/train_v5e2.yml's recipe on one card: FLAGSHIP_TRAIN's
     networks, batch REMAT_BATCH, bf16, with remat false, true and
     selective: one step each from the same seeded state, then one more,
     timed; peak memory of each step (max_memory_allocated, and above what
     was allocated before it) and K3's forward and input-gradient
-    launches. The first step's gradients (from the Adam first moments)
-    are held across the modes against how far a second run of remat
-    false lies from the first (the bf16 step is not deterministic on the
-    card): remat changes no op, so a mode may lie at most 3 times that
-    (plus 1e-4) from false, relative 2-norm per network."""
+    launches. Remat changes no op, so the first step's logs are the same
+    in every mode, bit for bit (the forward is deterministic), and its
+    gradients (from the Adam first moments) are held across the modes
+    against how far a second run of remat false lies from the first (the
+    bf16 step is not deterministic on the card): a mode may lie at most 3
+    times that (plus 1e-4) from false, relative 2-norm per network of
+    what each element differs by beyond one bf16 ulp of its magnitude. A
+    bf16 weight gradient whose sum lands near a rounding boundary rounds
+    to either neighbour from run to run: two entries of G's
+    motion_emb.1.conv (two thirds of G's squared gradient norm) move G's
+    whole relative gap between 2.4e-5 and 1.8e-4 from run to run, remat
+    or not; beyond one ulp it stays near 1.0e-5 (grad_rel_gap). The whole
+    gap and the leaf that holds most of it are printed, not held."""
     batch = train_batch(torch, 256, seed + 70, "cuda", n=REMAT_BATCH)
-    report, mus = {}, {}
+    report, mus, logs0 = {}, {}, {}
     for mode in (False, True, "selective", "false again"):
         cfg = configs.get("flagship_train")
         cfg["train"]["remat"] = False if mode == "false again" else mode
@@ -2496,6 +2733,7 @@ def remat_modes(torch, configs, Trainer, k3, seed, card):
             for k, v in logs.items():
                 assert math.isfinite(float(v)), (mode, i, k)
             if i == 0:
+                logs0[mode] = {k: float(v) for k, v in logs.items()}
                 st = tr.state
                 mus[mode] = {n: {k: v.float().cpu() for k, v in
                                  getattr(st, "opt_" + n).mu.items()}
@@ -2503,18 +2741,23 @@ def remat_modes(torch, configs, Trainer, k3, seed, card):
         report[str(mode)] = row
         del tr
         torch.cuda.empty_cache()
-    def rel(a, b):
-        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
-        den = sum(float((b[k] ** 2).sum()) for k in b)
-        return (num / max(den, 1e-30)) ** 0.5
-
-    worst = {}
+    b1 = float(cfg["train"]["optim_g"]["betas"][0])
+    worst, raw, leaf = {}, {}, {}
     for n in ("g", "m"):
-        worst[f"false again/{n}"] = rel(mus["false again"][n], mus[False][n])
-        for mode in (True, "selective"):
-            worst[f"{mode}/{n}"] = rel(mus[mode][n], mus[False][n])
+        for mode in ("false again", True, "selective"):
+            a, b = mus[mode][n], mus[False][n]
+            worst[f"{mode}/{n}"] = grad_rel_gap(torch, a, b, b1, True)
+            raw[f"{mode}/{n}"] = grad_rel_gap(torch, a, b, b1, False)
+            sq = {k: float(((a[k] - b[k]) ** 2).sum()) for k in b}
+            top = max(sq, key=sq.get)
+            leaf[f"{mode}/{n}"] = [top, sq[top] / max(sum(sq.values()),
+                                                      1e-30),
+                                   int((a[top] != b[top]).sum())]
     f, t, s = (report[m]["steps"] for m in ("False", "True", "selective"))
     report.update(batch=REMAT_BATCH, grad_rel_norm_diff=worst,
+                  grad_rel_norm_diff_raw=raw, grad_gap_top_leaf=leaf,
+                  first_logs_identical=all(
+                      logs0[m] == logs0[False] for m in logs0),
                   config="flagship_train networks, options/train_v5e2.yml "
                          "batch 8, bf16, D off (net_d_start_iter 5001)")
     print(f"distributed: remat at train_v5e2.yml's recipe (flagship, batch "
@@ -2527,15 +2770,20 @@ def remat_modes(torch, configs, Trainer, k3, seed, card):
               f"gradient {st['k3_input_grad']} launches"
               for m, st in (("False", f[1]), ("True", t[1]),
                             ("selective", s[1])))
-          + f"; gradients across modes, relative 2-norm: "
-          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }",
-          flush=True)
+          + f"; first step's logs identical across modes: "
+          f"{report['first_logs_identical']}; gradients against remat "
+          f"false, relative 2-norm beyond one bf16 ulp an element: "
+          f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} } (all of "
+          f"it: { {k: float(f'{v:.3e}') for k, v in raw.items()} }; the "
+          f"leaf with most of it, its share of the squared gap and its "
+          f"entries that differ: {leaf})", flush=True)
     fwd = f[1]["k3_forward"]
     assert f[1]["k3_input_grad"] == fwd > 0, f
     assert t[1]["k3_forward"] == 2 * fwd, t
     assert s[1]["k3_forward"] == fwd, s
     assert s[1]["k3_input_grad"] == t[1]["k3_input_grad"] == fwd
     assert s[1]["peak_bytes"] < f[1]["peak_bytes"], (s, f)
+    assert report["first_logs_identical"], logs0
     for n in ("g", "m"):
         noise = worst[f"false again/{n}"]
         for mode in (True, "selective"):
@@ -4461,11 +4709,12 @@ def main():
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
     build_s = cuda_build.build("fused_attention_packed",
-                               "fused_attention_wgmma", "conv3x3",
+                               "fused_attention_wgmma",
+                               "fused_attention_chunked", "conv3x3",
                                "conv3x3_wgmma")
-    print(f"built fused_attention_packed, fused_attention_wgmma, conv3x3 "
-          f"and conv3x3_wgmma (one nvcc each, in parallel) in {build_s:.2f} "
-          f"s", flush=True)
+    print(f"built fused_attention_packed, fused_attention_wgmma, "
+          f"fused_attention_chunked, conv3x3 and conv3x3_wgmma (one nvcc "
+          f"each, in parallel) in {build_s:.2f} s", flush=True)
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s}
@@ -4486,6 +4735,10 @@ def main():
         cuda_build, "fused_attention_wgmma", "attn_packed_kernel",
         "attn_packed_kernel_wgmma", no_spill=("attn_packed_kernel_wgmma",),
         tc_op="HGMMA")
+    report["attention_chunked_build"] = build_report(
+        cuda_build, "fused_attention_chunked", "attn_packed_kernel",
+        "attn_packed_kernel_chunked_tc",
+        no_spill=("attn_packed_kernel_chunked",))
     rate = exp_rate(torch)
     report["exp_rate"] = rate
     print(f"exponentials: {EXP_PER_SM_CLOCK} per SM per clock x "
@@ -4521,6 +4774,7 @@ def main():
         torch, configs, ReenactmentPipeline, seeded_nets, Trainer,
         sample_random_tps, fa, k3, args.seed, card)
     torch.cuda.empty_cache()
+    report["attention_widths"] = attention_widths_phase(args.seed, card)
     report["train_cli"] = train_cli(torch, configs, fa, k3, args.seed, card)
     torch.cuda.empty_cache()
     report["distributed"] = distributed(
@@ -4549,6 +4803,9 @@ def main():
     k3_per_step = report["train_path"]["k3_launches_per_step"]
     dp = report["distributed"]
     ablated = report["ablations"]["variants"]
+    widths = report["attention_widths"]
+    chunked_rows = [r for key, rows in widths["k1"].items() for r in rows
+                    if r["kernel"] == "chunked"]
     kernels = [
         kernel_entry(
             "fused_attention_packed", "fused_attention_packed.cu",
@@ -4572,7 +4829,8 @@ def main():
             summed=lambda r: r["on_path"],
             sources=[f"synergize_motion_appearance_tpu_torch/csrc/{s}" for s
                      in ("fused_attention_wgmma.cu",
-                         "fused_attention_packed.cu")],
+                         "fused_attention_packed.cu",
+                         "fused_attention_chunked.cu")],
             **{f"{key}_{half}": h[key]
                for half, h in report["k1_halves"].items()
                if half != "train_B2" for key in h},
@@ -4603,7 +4861,10 @@ def main():
             launches_served_two_device_cuda=two_device["k1_launches_card"],
             launches_served_two_device_cpu=two_device["k1_launches_cpu"],
             launches_blocks=report["blocks"]["launches"]["k1"],
-            launches_data_utils=report["data_utils"]["k1_launches"]),
+            launches_data_utils=report["data_utils"]["k1_launches"],
+            launches_head_widths={
+                f"n_head_{H}": row["k1_kernels"]
+                for H, row in widths["frame_batches"].items()}),
         kernel_entry(
             "fused_attention (head-split)", "fused_attention_packed.cu",
             "fused_attention.py:56", report["k2_cases"],
@@ -4620,6 +4881,26 @@ def main():
                           "train step and the train CLI",
             launches_train_path=report["train_path"]["k2_launches"],
             launches_train_cli=cli["k2"]),
+        kernel_entry(
+            "fused_attention_packed (d-chunked)",
+            "fused_attention_chunked.cu", "fused_attention.py:227",
+            chunked_rows, "launches_per_frame_batch",
+            sum(row["k1_kernels"].get("chunked", 0)
+                for row in widths["frame_batches"].values()),
+            "sum over its launches in one flagship frame batch at each of "
+            "n_head 1, 2 and 32 (attention_widths phase): the appearance "
+            "transformer's 16 at n_head 1 (bf16, d = 256) and the motion "
+            "transformer's 16 at n_head 32 (float32, d = 1); the other "
+            "shapes it takes (bf16 d = 1, float32 d = 256, K2's, the "
+            "ragged d = 96 and 160) are checked, not summed; device_ms, "
+            "library_device_ms and the bound as for K1",
+            summed=lambda r: r["on_path"],
+            launches_note="launches over the three frame batches of the "
+                          "attention_widths phase (n_head 1, 2, 32); 0 on "
+                          "every shipped config (n_head 8)",
+            max_abs_err_k2=max(
+                r["max_abs_err"] for rows in widths["k2"].values()
+                for r in rows if r["kernel"] == "chunked")),
         kernel_entry(
             "conv3x3", "conv3x3_wgmma.cu", "pallas_conv_wl.py:39",
             report["k3_cases"], "launches_per_step",

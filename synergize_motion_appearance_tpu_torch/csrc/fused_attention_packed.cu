@@ -32,11 +32,14 @@
 // kernel below add, and what the wgmma kernel's warp specialisation and
 // the f32 kernel's rows per thread address.
 //
-// bfloat16 at d = 16, 32 and 64 (the appearance transformer's d = 32 among
-// them) runs `attn_packed_kernel_wgmma` of fused_attention_wgmma.cu, on
-// Hopper's warpgroup tensor cores. The other bfloat16 widths (d <= 8, d not
-// a multiple of 16; no path runs them in bf16) run `attn_packed_kernel_tc`
-// here, on `mma.sync`; ops/fused_attention.py::plan picks by shape. In
+// bfloat16 at d = 16, 32, 64 and 128 (the appearance transformer's d = 32
+// among them) runs `attn_packed_kernel_wgmma` of fused_attention_wgmma.cu,
+// on Hopper's warpgroup tensor cores; d = 1 and the widths above 64, in
+// either dtype, the d-chunked kernels of fused_attention_chunked.cu. The
+// other bfloat16 widths here (2 <= d <= 64: d <= 8, d not a multiple of 16;
+// no shipped path runs them in bf16) run `attn_packed_kernel_tc` on
+// `mma.sync`, and float32 up to 64 the CUDA-core kernel below;
+// ops/fused_attention.py::plan picks by shape. In
 // `attn_packed_kernel_tc` a block is one (tile of 64 or 128 query rows,
 // head, batch row); each warp owns 32 query rows as kMTiles = 2 m16
 // tiles, whose q fragments it loads once into registers, zero beyond d up
@@ -115,23 +118,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_mma.cuh"
+
 namespace {
-
-// Element strides of a layout: q and out share (q_batch, q_row, q_head);
-// k and v share (kv_batch, kv_row, kv_head), with kv_batch 0 for a context
-// shared by the batch. Within a head the d values are contiguous.
-struct Strides {
-  long long q_batch, q_row, q_head;
-  long long kv_batch, kv_row, kv_head;
-};
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
@@ -350,19 +339,6 @@ struct TcTile {
   static constexpr int kSmem = kStages * kStageBytes;
 };
 
-// Byte offset of 16-byte chunk c of row r in a tile of rows of NC chunks:
-// the chunk is XORed with the row's place among the rows of one 128-byte
-// span, so 8 consecutive rows at one chunk hit 8 distinct bank groups.
-template <int NC>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  constexpr int kPer = NC >= 8 ? 1 : 8 / NC;  // rows per 128 bytes
-  return static_cast<uint32_t>(r * NC * 16 + ((c ^ ((r / kPer) % NC)) << 4));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // global -> shared copy of `bytes` (16, 8 or 4); ok false writes zeros
 // and reads nothing
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
@@ -388,51 +364,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi), both
-// rounded to nearest even; x in the low half, as an mma fragment wants
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
 // NV: n8 tiles of P.V (8*NV >= d); ONES: column d of the value tile holds
@@ -837,13 +768,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 }
 
 // Both layouts' entries: checks the sizes, then launches in dtype 0
-// (float32, CUDA cores) or 1 (bfloat16, tensor cores).
+// (float32, CUDA cores; d = 1..64, d = 1 zero-padded to 4) or 1 (bfloat16,
+// tensor cores; d = 2..64).
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* bias, void* out, int B, int L, int K, int H,
                      int d, const Strides& st, float scale, int dtype, int nv,
                      int rows, int copy_bytes, void* stream) {
-  if (d < 2 || d > 64 || B <= 0 || L <= 0 || K <= 0 || H <= 0 ||
-      B > 65535 || H > 65535) {
+  if (d < (dtype == 0 ? 1 : 2) || d > 64 || B <= 0 || L <= 0 || K <= 0 ||
+      H <= 0 || B > 65535 || H > 65535) {
     return cudaErrorInvalidValue;
   }
   const float* b = static_cast<const float*>(bias);

@@ -294,7 +294,10 @@ class AppMotionCompFormer(nn.Module):
 
         self.encoder = Encoder(nf, embed_dim_app, ch_mult, res_blocks,
                                img_size, attn_resolutions)
-        self.generator = Generator(nf, embed_dim_app, ch_mult, res_blocks,
+        # the generator reads the compensated appearance features, which
+        # to_app_feat_{t} gives ch[t] channels (the JAX conv takes the
+        # width it is fed; ch[t] is embed_dim_app in every shipped config)
+        self.generator = Generator(nf, ch[t], ch_mult, res_blocks,
                                    img_size, attn_resolutions)
         self.enc_taps = encoder_tap_indices(nf, embed_dim_app, ch_mult,
                                             res_blocks, img_size,

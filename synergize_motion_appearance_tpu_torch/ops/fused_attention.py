@@ -15,13 +15,18 @@ Each layout is a ``torch.library`` custom op
 ``torch.ops.samt.fused_attention``), so that ``torch.export`` keeps the
 call in an exported program. On a CUDA tensor the op launches a
 hand-written kernel (given each layout's strides or tensor maps) or
-raises; ``plan`` picks it by dtype and shape: bfloat16 at d = 16, 32 and
-64 runs on Hopper's warpgroup tensor cores (``attn_packed_kernel_wgmma``
-of ``csrc/fused_attention_wgmma.cu``: TMA, ``wgmma``, warp
-specialisation), the other bfloat16 widths on ``mma.sync``
-(``attn_packed_kernel_tc`` of ``csrc/fused_attention_packed.cu``, in the
-variant ``tc_plan`` and ``copy_bytes`` pick), float32 on the CUDA cores
-(``attn_packed_kernel``, ``f32_rows`` query rows a thread). On a CPU
+raises; ``plan`` picks it by dtype and shape, for every head width d >= 1
+(as the JAX package's Pallas kernels take any d): bfloat16 at d = 16, 32,
+64 and 128 runs on Hopper's warpgroup tensor cores
+(``attn_packed_kernel_wgmma`` of ``csrc/fused_attention_wgmma.cu``: TMA,
+``wgmma``, warp specialisation), the other bfloat16 widths up to 64 on
+``mma.sync`` (``attn_packed_kernel_tc`` of
+``csrc/fused_attention_packed.cu``, in the variant ``tc_plan`` and
+``copy_bytes`` pick), float32 up to 64 on the CUDA cores
+(``attn_packed_kernel``, ``f32_rows`` query rows a thread), and d = 1 and
+the widths above 64 that the wgmma kernel does not take, in either dtype,
+the d-chunked kernels of ``csrc/fused_attention_chunked.cu`` (a block a
+chunk of at most 64 output columns). On a CPU
 tensor it runs the plain PyTorch version
 (``fused_attention_packed_reference``, ``fused_attention_reference``),
 which the tests hold against the JAX package and the on-card check holds
@@ -42,6 +47,7 @@ import contextlib
 import contextvars
 import ctypes
 import math
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
@@ -49,15 +55,18 @@ import torch
 from . import cuda_build
 
 # Kernel launches since the last reset, of either dtype's kernel: by
-# `fused_attention_packed` (K1) and by `fused_attention` (K2).
+# `fused_attention_packed` (K1) and by `fused_attention` (K2); and of both,
+# by the kernel `plan` named ("wgmma", "mma", "f32", "chunked").
 launches = 0
 split_launches = 0
+launch_kernels: Counter = Counter()
 
 
 def reset_launches() -> None:
     global launches, split_launches
     launches = 0
     split_launches = 0
+    launch_kernels.clear()
 
 
 _PLAIN_CPU = contextvars.ContextVar("samt_plain_cpu_attention",
@@ -123,19 +132,23 @@ def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # head widths of the bfloat16 wgmma kernel (attn_packed_kernel_wgmma<D, ..>):
-# a row of a head is one TMA box row of 32, 64 or 128 bytes, swizzled by
-# its own width, and a multiple of wgmma's depth of 16; its query rows per
-# block, at every grid (three blocks share an SM)
-WGMMA_WIDTHS = (16, 32, 64)
+# a row of a head is one TMA box row of 32, 64 or 128 bytes (two of 128 at
+# d = 128), swizzled by its own width, and a multiple of wgmma's depth of
+# 16; its query rows per block, at every grid (three blocks share an SM,
+# two at d = 128)
+WGMMA_WIDTHS = (16, 32, 64, 128)
 WGMMA_ROWS = 64
+# query rows per block of the d-chunked kernels, by dtype
+# (attn_packed_kernel_chunked_tc: 16 a warp; _f32: one a thread)
+CHUNKED_ROWS = {torch.bfloat16: 64, torch.float32: 128}
 
 
 class Plan(NamedTuple):
-    """The kernel a call launches: ``kernel`` is "wgmma", "mma" or "f32";
-    ``rows`` its query rows per block (wgmma: always 64, one consumer
-    warpgroup; mma) or per thread (f32); ``nv`` and ``copy_bytes`` the
-    mma.sync variant's P.V width in n8 tiles and bytes per cp.async of a
-    key row (0 for the others)."""
+    """The kernel a call launches: ``kernel`` is "wgmma", "mma", "f32" or
+    "chunked"; ``rows`` its query rows per block (wgmma: always 64, one
+    consumer warpgroup; mma; chunked) or per thread (f32); ``nv`` and
+    ``copy_bytes`` the mma.sync variant's P.V width in n8 tiles and bytes
+    per cp.async of a key row (0 for the others)."""
     kernel: str
     rows: int
     nv: int = 0
@@ -145,18 +158,22 @@ class Plan(NamedTuple):
 def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
          k_ptr: int, v_ptr: int, out_ptr: int) -> Plan:
     """Which kernel runs a call, by dtype, shape and the tensors'
-    addresses (no fallback: the plan's kernel launches or the call
-    raises). float32: the CUDA-core kernel at ``f32_rows`` rows a
-    thread. bfloat16: the wgmma kernel where d is in WGMMA_WIDTHS and q, k,
-    v and out are 16-byte aligned (TMA's rule for a tensor map's base);
-    else the mma.sync kernel's ``tc_plan`` variant."""
-    if not 2 <= d <= 8 * TC_WIDTHS[-1]:
-        raise ValueError(f"head width d={d} is outside the kernel's 2..64")
-    if dtype == torch.float32:
-        return Plan("f32", f32_rows(B, H, L, d, sms))
-    if d in WGMMA_WIDTHS and all(
+    addresses, for every head width d >= 1 (no fallback: the plan's kernel
+    launches or the call raises). bfloat16: the wgmma kernel where d is in
+    WGMMA_WIDTHS and q, k, v and out are 16-byte aligned (TMA's rule for a
+    tensor map's base). Else, at d = 1 and above 64, the d-chunked kernel
+    of either dtype; at d = 2..64 the mma.sync kernel's ``tc_plan`` variant
+    (bfloat16) or the CUDA-core kernel at ``f32_rows`` rows a thread
+    (float32)."""
+    if d < 1:
+        raise ValueError(f"head width d={d}: no kernel takes it")
+    if dtype == torch.bfloat16 and d in WGMMA_WIDTHS and all(
             a % 16 == 0 for a in (q_ptr, k_ptr, v_ptr, out_ptr)):
         return Plan("wgmma", WGMMA_ROWS)
+    if d == 1 or d > 8 * TC_WIDTHS[-1]:
+        return Plan("chunked", CHUNKED_ROWS[dtype])
+    if dtype == torch.float32:
+        return Plan("f32", f32_rows(B, H, L, d, sms))
     nv, _, rows = tc_plan(B, H, L, d, sms)
     return Plan("mma", rows, nv, copy_bytes(d, k_ptr, v_ptr))
 
@@ -187,9 +204,12 @@ def tc_plan(B: int, H: int, L: int, d: int, sms: int):
     ones: whether column d is spare (d < 8*nv), in which case the staged v
     tile carries ones there and P.V returns the row sums; rows: query rows
     per block (32 a warp), 128 (k and v staged once for twice the rows)
-    when that still gives at least 4 blocks per SM, else 64."""
+    when that still gives at least 4 blocks per SM, else 64. The kernel
+    takes d = 2..64 (``plan`` sends the other widths to the d-chunked
+    kernel)."""
     if not 2 <= d <= 8 * TC_WIDTHS[-1]:
-        raise ValueError(f"head width d={d} is outside the kernel's 2..64")
+        raise ValueError(f"head width d={d} is outside the mma.sync "
+                         f"kernel's 2..64")
     nv = next(n for n in TC_WIDTHS if 8 * n >= d)
     rows = 128 if B * H * -(-L // 128) >= 4 * sms else 64
     return nv, d < 8 * nv, rows
@@ -248,8 +268,8 @@ def _check_cuda(q, k, v, bias, num_heads):
     else:
         B, L, E = q.shape
         H, K, d = num_heads, k.shape[-2], E // num_heads
-    if not 2 <= d <= 64:
-        raise ValueError(f"head width d={d} is outside the kernel's 2..64")
+    if d < 1:
+        raise ValueError(f"head width d={d}: no kernel takes it")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -284,6 +304,13 @@ def _launch_cuda(q, k, v, bias, num_heads):
             ctypes.c_float, ctypes.c_void_p]
         args = (*ptrs, B, H, L, K, d, int(split), kv_shared,
                 1.0 / math.sqrt(d), stream)
+    elif p.kernel == "chunked":
+        fn = cuda_build.load(
+            "fused_attention_chunked").samt_attention_chunked
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        args = (*ptrs, B, H, L, K, d, int(split), kv_shared,
+                1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
     else:
         lib = cuda_build.load("fused_attention_packed")
         if split:
@@ -310,6 +337,7 @@ def _launch_cuda(q, k, v, bias, num_heads):
         split_launches += 1
     else:
         launches += 1
+    launch_kernels[p.kernel] += 1
     return out
 
 

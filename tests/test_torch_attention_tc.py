@@ -176,9 +176,10 @@ def test_tc_plan_every_width_has_a_variant():
         smaller = [n for n in port.TC_WIDTHS if n < nv]
         assert not smaller or 8 * smaller[-1] < d
         assert ones == (d < 8 * nv)
+    # the widths the mma.sync kernel does not take go to the d-chunked one
     for d in (1, 65):
-        with pytest.raises(ValueError, match="head width"):
-            port.tc_plan(1, 1, 1, d, H100_SMS)
+        assert port.plan(torch.bfloat16, 1, 1, 1, d, H100_SMS, 0, 0, 0,
+                         0).kernel == "chunked"
 
 
 @pytest.mark.parametrize("case", [

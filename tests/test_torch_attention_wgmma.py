@@ -306,11 +306,12 @@ def test_plan_f32_rows(case):
 
 def test_plan_mma_variant_is_tc_plan():
     """Where the mma.sync kernel runs, the plan carries tc_plan's variant
-    and copy_bytes' copy width for k's and v's addresses."""
+    and copy_bytes' copy width for k's and v's addresses; past its widths
+    (d = 65) the plan is the d-chunked kernel's."""
     for d in (2, 4, 8, 12, 24, 48):
         nv, _, rows = port.tc_plan(2, 8, 1024, d, H100_SMS)
         p = port.plan(torch.bfloat16, 2, 8, 1024, d, H100_SMS, 0, 64, 64,
                       0)
         assert p == port.Plan("mma", rows, nv, port.copy_bytes(d, 64, 64))
-    with pytest.raises(ValueError, match="head width"):
-        port.plan(torch.bfloat16, 1, 1, 1, 65, H100_SMS, 0, 0, 0, 0)
+    assert port.plan(torch.bfloat16, 1, 1, 1, 65, H100_SMS, 0, 0, 0,
+                     0) == port.Plan("chunked", 64)

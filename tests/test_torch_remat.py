@@ -129,6 +129,39 @@ def test_selective_saves_k3_outputs(runs):
     assert dgrad[True] == dgrad["selective"] == dgrad[False]
 
 
+# (gradient values, their other run's values, the difference beyond one
+# bf16 ulp): a bf16 value rounded to its other neighbour counts 0, two ulps
+# away one, and each element's ulp is that of its own magnitude
+GAP_CASES = [
+    ([1.0, 96.0], [1.0, 96.5], 0.0),
+    ([1.0, 96.0], [1.0, 97.0], 0.5),
+    ([-3.0, 0.25], [-3.0, 0.25], 0.0),
+    ([3e-3, 1.0], [3e-3 + 2 ** -16, 1.0], 0.0),
+    ([3e-3, 1.0], [3e-3 + 2 ** -14, 1.0], 2 ** -14 - 2 ** -16),
+]
+
+
+@pytest.mark.parametrize("case", GAP_CASES, ids=str)
+def test_grad_rel_gap(case):
+    """chip_smoke.grad_rel_gap, which holds the card's remat modes against
+    remat false: relative 2-norm of the gradients behind two Adam first
+    moments, whole and beyond one bf16 ulp an element."""
+    import chip_smoke
+
+    want, got, beyond = case
+    b1 = 0.9
+    mu = {k: {"w": torch.tensor(v, dtype=torch.float32) * (1 - b1)}
+          for k, v in (("a", got), ("b", want))}
+    norm = float(np.linalg.norm(want))
+    raw = float(np.linalg.norm(np.subtract(got, want))) / norm
+    gap = chip_smoke.grad_rel_gap(torch, mu["a"], mu["b"], b1, True)
+    # the moments' float32 round trip (g * 0.1 / 0.1) moves each value by
+    # a few float32 ulps
+    assert chip_smoke.grad_rel_gap(torch, mu["a"], mu["b"], b1, False) \
+        == pytest.approx(raw, rel=1e-4, abs=3e-7)
+    assert gap == pytest.approx(beyond / norm, rel=1e-4, abs=3e-7)
+
+
 def test_parse_remat():
     parse = trainer_mod.parse_remat
     assert parse(False) is False and parse(None) is False
