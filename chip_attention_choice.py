@@ -1,15 +1,19 @@
-"""Which kernel should serve two small head widths: times, on the card,
-both kernels that can take each at the attention shapes of the flagship
-generator at n_head 32 (chip_smoke.attention_cases, one frame batch of
-FRAME_BATCH), each launch held against the plain version first:
+"""Which kernel should serve three head widths: times, on the card, the
+kernels that can take each width at the attention shapes of the flagship
+generator (chip_smoke.attention_cases, one frame batch of FRAME_BATCH),
+each launch held against the plain version first:
 
-- float32 d = 1 (the motion transformer's 16 launches): the d-chunked
-  kernel's attn_packed_kernel_chunked_f32<1, 1> (what plan picks) and the
-  CUDA-core attn_packed_kernel<4, R> of fused_attention_packed.cu, which
-  zero-pads d to 4 (R = f32_rows);
-- bfloat16 d = 8 (the appearance transformer's 16 launches): the
-  mma.sync kernel (what plan picks) and the d-chunked
-  attn_packed_kernel_chunked_tc.
+- at n_head 32, float32 d = 1 (the motion transformer's 16 launches): the
+  d-chunked kernel's attn_packed_kernel_chunked_f32<1, 1> (what plan
+  picks) and the CUDA-core attn_packed_kernel<4, R> of
+  fused_attention_packed.cu, which zero-pads d to 4 (R = f32_rows);
+- at n_head 32, bfloat16 d = 8 (the appearance transformer's 16 launches):
+  the mma.sync kernel (what plan picks) and the d-chunked
+  attn_packed_kernel_chunked_tc;
+- at n_head 1, bfloat16 d = 256 (the appearance transformer's 16
+  launches): the d = 256 wgmma kernel of fused_attention_wgmma256.cu
+  (what plan picks) and the d-chunked attn_packed_kernel_chunked_tc that
+  served d = 256 before it.
 
 Each kernel is forced through fused_attention_packed by replacing plan
 for the call. Times are the profiler's device time per call
@@ -30,15 +34,22 @@ import torch
 
 import chip_smoke as cs
 
-H = 32  # n_head: motion d = 32 / H = 1, appearance d = 256 / H = 8
 
-
-def forced(fa, p):
+def forced(fa, p, H):
     """fused_attention_packed on kernel plan ``p`` whatever plan picks."""
     def call(q, k, v, bias):
         with mock.patch.object(fa, "plan", return_value=p):
             return fa.fused_attention_packed(q, k, v, bias, num_heads=H)
     return call
+
+
+def candidates(fa, H, motion, B, L, d, sms):
+    """The plans to time at one shape, plan's own first."""
+    dtype = torch.float32 if motion else torch.bfloat16
+    picked = fa.plan(dtype, B, H, L, d, sms, 0, 0, 0, 0)
+    if motion:
+        return dtype, [picked, fa.Plan("f32", fa.f32_rows(B, H, L, d, sms))]
+    return dtype, [picked, fa.Plan("chunked", fa.CHUNKED_ROWS[dtype])]
 
 
 def main():
@@ -51,18 +62,19 @@ def main():
 
     card = cs.card_line()
     print(card, flush=True)
-    cuda_build.build("fused_attention_packed", "fused_attention_chunked")
+    cuda_build.build("fused_attention_packed", "fused_attention_chunked",
+                     "fused_attention_wgmma256")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(4321)
     sums, rows = {}, []
-    for name, B, L, E, hh, K, shared, with_bias, per in cs.attention_cases(
-            cs.FRAME_BATCH, H=H):
-        d = E // hh
-        motion = name.startswith("motion")
-        dtype = torch.float32 if motion else torch.bfloat16
-        picked = fa.plan(dtype, B, hh, L, d, sms, 0, 0, 0, 0)
-        other = (fa.Plan("f32", fa.f32_rows(B, hh, L, d, sms)) if motion
-                 else fa.Plan("chunked", fa.CHUNKED_ROWS[dtype]))
+    # n_head 32: both halves; n_head 1: the appearance half (d = 256)
+    cases = cs.attention_cases(cs.FRAME_BATCH, H=32) + [
+        c for c in cs.attention_cases(cs.FRAME_BATCH, H=1)
+        if c[0].startswith("app")]
+    for name, B, L, E, H, K, shared, with_bias, per in cases:
+        d = E // H
+        dtype, plans = candidates(fa, H, name.startswith("motion"), B, L, d,
+                                  sms)
         q = torch.randn(B, L, E, generator=gen, device="cuda").to(dtype)
         kv_shape = (K, E) if shared else (B, K, E)
         k = torch.randn(*kv_shape, generator=gen, device="cuda").to(dtype)
@@ -72,16 +84,17 @@ def main():
             ref = fa.fused_attention_packed_reference(q, k, v, bias,
                                                       num_heads=H)
             calls = {}
-            for p in (picked, other):
-                call = forced(fa, p)
+            for p in plans:
+                call = forced(fa, p, H)
                 cs.assert_attention_close(torch, call(q, k, v, bias), ref,
                                           with_bias)
                 calls[p.kernel] = lambda call=call: call(q, k, v, bias)
             ms = {kern: [] for kern in calls}
             for kern in list(calls) + list(calls)[::-1]:
                 ms[kern].append(cs.device_ms(torch, calls[kern]))
-        row = {"case": name, "dtype": str(dtype).split(".")[1], "d": d,
-               "launches_per_frame_batch": per, "picked": picked.kernel,
+        row = {"case": name, "n_head": H, "dtype": str(dtype).split(".")[1],
+               "d": d, "launches_per_frame_batch": per,
+               "picked": plans[0].kernel,
                "ms": {kern: min(t) for kern, t in ms.items()},
                "ms_runs": ms}
         rows.append(row)
@@ -91,7 +104,7 @@ def main():
         print(f"{name:17s} {row['dtype']:8s} d {d}  "
               + "  ".join(f"{kern} {t:.4f} ms" for kern, t in
                           row["ms"].items())
-              + f"  (plan: {picked.kernel})", flush=True)
+              + f"  (plan: {row['picked']})", flush=True)
         del q, k, v, bias, ref
     out_dir = os.path.join(cs.ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

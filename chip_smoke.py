@@ -66,12 +66,14 @@ at the flagship 256x256 width with seeded random weights:
   and train.vgg_weights read by the flagship Trainer.
 - attention_widths (after the ablations): K1 and K2 at every attention
   shape of a flagship frame batch at n_head 1, 2 and 32 (head widths 1 to
-  256: the wgmma kernel at d = 128, the d-chunked kernel at d = 1 and
-  256) and at ragged d = 96 and 160, against their plain versions in both
-  dtypes, timed against the bound and SDPA; one flagship frame batch at
-  each n_head with its 32 K1 launches counted by the kernel plan names;
-  the tiny config with motion d = 1 and appearance d = 128 on the card
-  against the CPU;
+  256: the wgmma kernel at d = 128, the d = 256 wgmma kernel at bf16 d =
+  256, the d-chunked kernel at d = 1 and at float32 d = 128 and 256) and
+  at ragged d = 96, 160 and 256, against their plain versions in both
+  dtypes, timed against the bound and SDPA (float32 too above d = 64);
+  one flagship frame batch at each n_head with its 32 K1 launches counted
+  by the kernel plan names (at n_head 1 the appearance transformer's 16
+  on the d = 256 wgmma kernel); the tiny config with motion d = 1 and
+  appearance d = 128 on the card against the CPU;
 - train_options (after the train profile): the flagship Trainer with a
   fixed GAN weight (use_adaptive_weight false) and weight decay on its
   three optimizers, 3 timed steps (K1 and K3 as the train path, no
@@ -145,12 +147,17 @@ CACHE_SIZE = 256                   # frames of the flagship's img_size
 # H100 80GB HBM3 at 700.00 W, by the profiler's device time, as measured
 # when each was last redesigned: K1 per frame batch with its 32 launches
 # all in bf16 (device_ms_bf16) and its motion transformer's 16 launches in
-# float32 as the pipeline gives them (device_ms_motion), K3 per train step
+# float32 as the pipeline gives them (device_ms_motion), the appearance
+# transformer's 16 bf16 launches at n_head 2 (d = 128, the wgmma kernel)
+# and at n_head 1 (d = 256, the d = 256 wgmma kernel), K3 per train step
 # and K4 over K3's forward shapes, both bf16 on the wgmma kernel (their
 # calls are short enough that per-call event times measure the host). On
 # a card at that power limit none may be more than 10% slower now.
 PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
                ("fused_attention_packed", "device_ms_motion", 1.17),
+               ("fused_attention_packed", "device_ms_appearance_n_head_2",
+                0.742),
+               ("fused_attention_packed (wgmma d = 256)", "device_ms", 0.762),
                ("conv3x3", "device_ms", 2.97),
                ("conv3x3_nhwc", "device_ms", 1.16)]
 
@@ -183,6 +190,24 @@ def card_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader", "--id=0"],
         check=True, capture_output=True, text=True).stdout.strip()
+
+
+class PhaseClock(dict):
+    """The script's report: setting a key also records, in ``seconds``,
+    the wall time since the key set before it (for the first, since the
+    report was made), which is the time of the phase that computed its
+    value."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.seconds = {}
+        self._last = time.perf_counter()
+
+    def __setitem__(self, key, value):
+        now = time.perf_counter()
+        self.seconds[key] = now - self._last
+        self._last = now
+        super().__setitem__(key, value)
 
 
 def time_ms(torch, fn, iters, warmup=2):
@@ -494,10 +519,12 @@ def check_attention(torch, fa, B, rate, L=1024, cases=None):
                    "launches_per_frame_batch": per_batch,
                    "on_path": bool(per_batch) and str(dtype).split(".")[1]
                    == path_dtype, "max_abs_err": err}
-            # the main path's shapes, and the train step's B = 2 shapes
+            # the main path's shapes, and the train step's B = 2 shapes:
+            # bf16, the path's dtype, and float32 on the d-chunked kernel
+            # above d = 64
             timed = per_batch or name.startswith("train_B2")
             if timed and (dtype == torch.bfloat16 or row["on_path"]
-                          or not per_batch):
+                          or not per_batch or d > 64):
                 # the library yardstick, timed only: SDPA on head-split
                 # views
                 qh = q.view(bb, ll, H, d).transpose(1, 2)
@@ -1909,11 +1936,13 @@ HEAD_WIDTHS["tiny_d1_d128"] = {"g": {
     "n_head": 4, "embed_dim_motion": 4, "dim_embd_motion": 4,
     "embed_dim_app": 512, "dim_embd_app": 512}}
 # (name, B, L, E, H, K, shared context, bias, 0): the d-chunked kernel's
-# widths off its column chunks, L and K off the query and key tiles, each
+# widths off its column chunks, and d = 256 (the d = 256 wgmma kernel in
+# bf16) on a shared codebook, L and K off the query and key tiles, each
 # with a bias that masks every key of batch row 0; checked, not timed
 RAGGED_WIDTHS = [
     ("ragged_L1000_K700_d96", 4, 1000, 192, 2, 700, False, True, 0),
     ("ragged_L900_K333_d160", 3, 900, 320, 2, 333, True, True, 0),
+    ("ragged_L1000_K333_d256", 3, 1000, 256, 1, 333, True, True, 0),
 ]
 WIDTHS_TIMEOUT = 300  # seconds for the phase's process
 
@@ -1931,6 +1960,26 @@ def head_width_kernels(torch, fa, H, sms):
     return want
 
 
+def width_halves(rows, weight="launches_per_frame_batch"):
+    """Device sums per frame batch of the timed rows of one n_head (K1's,
+    or K2's with ``weight`` "k1_launches_per_frame_batch"), by transformer
+    half (appearance, motion), dtype and kernel: the kernel's, SDPA's and
+    the bound's, with the bound's share."""
+    halves = {}
+    for r in rows:
+        if not r[weight] or "device_ms" not in r:
+            continue
+        half = "motion" if r["case"].startswith("motion") else "appearance"
+        h = halves.setdefault(f"{half}_{r['dtype']}_d{r['d']}_{r['kernel']}",
+                              Counter())
+        for key in ("device_ms", "library_device_ms", "bound_ms"):
+            h[key] += r[key] * r[weight]
+        h["launches"] += r[weight]
+    for h in halves.values():
+        h["bound_share"] = h["bound_ms"] / h["device_ms"]
+    return {key: dict(h) for key, h in halves.items()}
+
+
 def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
                      rate, seed, card):
     """Attention at the head widths of the flagship generator at n_head 1,
@@ -1944,7 +1993,7 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
     card against the CPU, within 1 level."""
     t0 = time.perf_counter()
     sms = rate["sms"]
-    report = {"k1": {}, "k2": {}, "frame_batches": {}}
+    report = {"k1": {}, "k2": {}, "frame_batches": {}, "halves": {}}
     for H in HEAD_COUNTS:
         cases = attention_cases(FRAME_BATCH, H=H)
         print(f"attention widths: n_head {H} (motion d = {32 // H}, "
@@ -1958,6 +2007,16 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
                 got[r["kernel"]] += r["launches_per_frame_batch"]
         assert got == head_width_kernels(torch, fa, H, sms), (H, got)
         report["k1"][H], report["k2"][H] = k1, k2
+        report["halves"][H] = {"k1": width_halves(k1),
+                               "k2": width_halves(
+                                   k2, "k1_launches_per_frame_batch")}
+        for layout, halves in report["halves"][H].items():
+            for key, h in halves.items():
+                print(f"attention widths: n_head {H} {layout} {key}: "
+                      f"{h['launches']} launches, {h['device_ms']:.4f} ms "
+                      f"device, SDPA {h['library_device_ms']:.4f}, bound "
+                      f"{h['bound_ms']:.4f} (share {h['bound_share']:.3f}) "
+                      f"on {card}", flush=True)
         torch.cuda.empty_cache()
     report["k1"]["ragged"] = check_attention(torch, fa, FRAME_BATCH, rate,
                                              cases=RAGGED_WIDTHS)
@@ -1969,6 +2028,9 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
         row["k1_kernels"] = dict(fa.launch_kernels)
         want = head_width_kernels(torch, fa, H, sms)
         assert fa.launch_kernels == want, (H, fa.launch_kernels, want)
+        if H == 1:  # the appearance half on the d = 256 wgmma kernel
+            assert fa.launch_kernels["wgmma256"] == 16, fa.launch_kernels
+            assert "chunked" not in fa.launch_kernels, fa.launch_kernels
         report["frame_batches"][H] = row
         torch.cuda.empty_cache()
         print(f"attention widths: flagship-256 bf16 at n_head {H}: "
@@ -4653,6 +4715,7 @@ def kernel_entry(name, source, replaces, rows, weight, launches,
     one unit of the path; the ragged cases, weighted 0, are checked and
     not timed)."""
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    f32 = [r for r in rows if r["dtype"] == "float32"]
     timed = [r for r in (bf16 if summed is None else filter(summed, rows))
              if r[weight]]
 
@@ -4674,8 +4737,8 @@ def kernel_entry(name, source, replaces, rows, weight, launches,
         "replaces": f"synergize_motion_appearance_tpu/ops/{replaces}",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in bf16),
-        "max_abs_err_f32": max(r["max_abs_err"] for r in rows
-                               if r["dtype"] == "float32"),
+        **({"max_abs_err_f32": max(r["max_abs_err"] for r in f32)}
+           if f32 else {}),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound,
         "bound_by": "bytes" if by_bytes > bound / 2 else "operations",
@@ -4683,6 +4746,7 @@ def kernel_entry(name, source, replaces, rows, weight, launches,
 
 
 def main():
+    t_start = time.perf_counter()
     args = parse_args()
     import torch
 
@@ -4710,14 +4774,16 @@ def main():
           flush=True)
     build_s = cuda_build.build("fused_attention_packed",
                                "fused_attention_wgmma",
+                               "fused_attention_wgmma256",
                                "fused_attention_chunked", "conv3x3",
                                "conv3x3_wgmma")
     print(f"built fused_attention_packed, fused_attention_wgmma, "
-          f"fused_attention_chunked, conv3x3 and conv3x3_wgmma (one nvcc "
-          f"each, in parallel) in {build_s:.2f} s", flush=True)
+          f"fused_attention_wgmma256, fused_attention_chunked, conv3x3 and "
+          f"conv3x3_wgmma (one nvcc each, in parallel) in {build_s:.2f} s",
+          flush=True)
 
-    report = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "build_s": build_s}
+    report = PhaseClock(card=card, torch=torch.__version__,
+                        cuda=torch.version.cuda, build_s=build_s)
     report["conv3x3_build"] = build_report(cuda_build, "conv3x3",
                                            "conv3x3_kernel",
                                            "conv3x3_kernel_tc")
@@ -4734,6 +4800,11 @@ def main():
     report["attention_wgmma_build"] = build_report(
         cuda_build, "fused_attention_wgmma", "attn_packed_kernel",
         "attn_packed_kernel_wgmma", no_spill=("attn_packed_kernel_wgmma",),
+        tc_op="HGMMA")
+    report["attention_wgmma256_build"] = build_report(
+        cuda_build, "fused_attention_wgmma256", "attn_packed_kernel",
+        "attn_packed_kernel_wgmma256",
+        no_spill=("attn_packed_kernel_wgmma256",),
         tc_op="HGMMA")
     report["attention_chunked_build"] = build_report(
         cuda_build, "fused_attention_chunked", "attn_packed_kernel",
@@ -4806,6 +4877,8 @@ def main():
     widths = report["attention_widths"]
     chunked_rows = [r for key, rows in widths["k1"].items() for r in rows
                     if r["kernel"] == "chunked"]
+    wgmma256_rows = [r for key, rows in widths["k1"].items() for r in rows
+                     if r["kernel"] == "wgmma256"]
     kernels = [
         kernel_entry(
             "fused_attention_packed", "fused_attention_packed.cu",
@@ -4839,6 +4912,10 @@ def main():
                 r["device_ms"] * r["launches_per_frame_batch"]
                 for r in report["k1_cases"]
                 if r["dtype"] == "bfloat16" and "device_ms" in r),
+            device_ms_appearance_n_head_2=sum(
+                r["device_ms"] * r["launches_per_frame_batch"]
+                for r in widths["k1"]["2"]
+                if r["on_path"] and r["dtype"] == "bfloat16"),
             launches_train_path=report["train_path"]["k1_launches"],
             launches_train_cli=cli["k1"],
             launches_anchor_path=report["entry_points"]["anchor_path"][
@@ -4888,11 +4965,11 @@ def main():
             sum(row["k1_kernels"].get("chunked", 0)
                 for row in widths["frame_batches"].values()),
             "sum over its launches in one flagship frame batch at each of "
-            "n_head 1, 2 and 32 (attention_widths phase): the appearance "
-            "transformer's 16 at n_head 1 (bf16, d = 256) and the motion "
+            "n_head 1, 2 and 32 (attention_widths phase): the motion "
             "transformer's 16 at n_head 32 (float32, d = 1); the other "
-            "shapes it takes (bf16 d = 1, float32 d = 256, K2's, the "
-            "ragged d = 96 and 160) are checked, not summed; device_ms, "
+            "shapes it takes (bf16 d = 1, float32 d = 128 and 256, timed "
+            "in chiprun_out/chip_smoke.json, K2's, the ragged d = 96, 160 "
+            "and float32 256) are checked, not summed; device_ms, "
             "library_device_ms and the bound as for K1",
             summed=lambda r: r["on_path"],
             launches_note="launches over the three frame batches of the "
@@ -4901,6 +4978,29 @@ def main():
             max_abs_err_k2=max(
                 r["max_abs_err"] for rows in widths["k2"].values()
                 for r in rows if r["kernel"] == "chunked")),
+        kernel_entry(
+            "fused_attention_packed (wgmma d = 256)",
+            "fused_attention_wgmma256.cu", "fused_attention.py:227",
+            wgmma256_rows, "launches_per_frame_batch",
+            sum(row["k1_kernels"].get("wgmma256", 0)
+                for row in widths["frame_batches"].values()),
+            "sum over the appearance transformer's 16 bf16 launches (d = "
+            "256) of one flagship frame batch at n_head 1 (attention_widths "
+            "phase), on attn_packed_kernel_wgmma256<BIAS>; the ragged d = "
+            "256 case is checked, not summed; "
+            "device_ms, library_device_ms and the bound as for K1, "
+            "device_ms_k2 K2 at the same shapes",
+            summed=lambda r: r["on_path"],
+            launches_note="launches over the three frame batches of the "
+                          "attention_widths phase (n_head 1, 2, 32); 0 on "
+                          "every shipped config (n_head 8)",
+            device_ms_k2=sum(
+                r["device_ms"] * r["k1_launches_per_frame_batch"]
+                for r in widths["k2"]["1"]
+                if r["kernel"] == "wgmma256" and "device_ms" in r),
+            max_abs_err_k2=max(
+                r["max_abs_err"] for rows in widths["k2"].values()
+                for r in rows if r["kernel"] == "wgmma256")),
         kernel_entry(
             "conv3x3", "conv3x3_wgmma.cu", "pallas_conv_wl.py:39",
             report["k3_cases"], "launches_per_step",
@@ -4977,6 +5077,12 @@ def main():
         if checked:
             assert k[key] <= 1.1 * prev, (k["name"], key, k[key], prev)
     report["kernels"] = kernels
+    seconds = dict(report.seconds)
+    print("phase seconds (wall; each report key and the phase that made "
+          "it): " + ", ".join(f"{key} {t:.1f}" for key, t in seconds.items())
+          + f"; build {build_s:.1f}, whole script "
+          f"{time.perf_counter() - t_start:.1f}", flush=True)
+    report["phase_seconds"] = seconds
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

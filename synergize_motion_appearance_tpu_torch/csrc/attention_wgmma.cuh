@@ -1,0 +1,163 @@
+// Building blocks of the wgmma attention kernels (fused_attention_wgmma.cu,
+// fused_attention_wgmma256.cu): the layouts' tensor-map coordinates, wgmma
+// with p from registers, the exponential, the split of an f32 softmax
+// weight into bf16 hi + lo, and the host's encoding of a bf16 tensor map.
+// Each including file gets its own copy (anonymous namespace).
+#pragma once
+
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "hopper_async.cuh"
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Element strides of the output and tensor-map coordinates of the inputs:
+// q's tile of head h, batch row b is at column h * q_col_h, plane
+// b * q_z_b + h * q_z_h of its map; k's and v's likewise with kv_*.
+struct Coords {
+  int q_col_h, q_z_b, q_z_h;
+  int kv_col_h, kv_z_b, kv_z_h;
+  long long o_batch, o_row, o_head;
+};
+
+// ---------------------------------------------------------------------------
+// wgmma with A from registers (p.v)
+// ---------------------------------------------------------------------------
+
+// d (64 x 16) += a (64 x 16, registers) * b (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 32) += a (64 x 16, registers) * b (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += a (64 x 16, registers) * b (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi), both
+// rounded to nearest even; x in the low half, as an A fragment wants
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+// A 3-d bf16 map (`cols` columns, `rows` rows, `planes` planes; byte
+// strides of a row and of a plane) read in boxes of min(d, 64) x box_rows
+// (a head of d = 128 is two boxes, of d = 256 four), each box row swizzled
+// by its own width.
+inline bool encode(CUtensorMap* map, const void* ptr, int d, long long cols,
+                   long long rows, long long planes, long long row_bytes,
+                   long long plane_bytes, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(plane_bytes)};
+  const int box_cols = d > 64 ? 64 : d;
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
+      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_128B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps and coordinates of a call in either layout. layout 0,
+// token-major: q, out (B, L, H*d); k, v (B, K, H*d), or a shared (K, H*d)
+// when kv_shared. layout 1, head-split: q, out (B, H, L, d); k, v
+// (B, H, K, d), or a shared (1, H, K, d). q's boxes are q_rows rows, k's
+// and v's kv_rows. False where a map cannot be encoded.
+inline bool layout_maps(const void* q, const void* k, const void* v, int B,
+                        int H, int L, int K, int d, int layout, int kv_shared,
+                        int q_rows, int kv_rows, CUtensorMap* qm,
+                        CUtensorMap* km, CUtensorMap* vm, Coords* co) {
+  const long long E = static_cast<long long>(H) * d;
+  if (layout == 0) {
+    *co = Coords{d, 1, 0, d, kv_shared ? 0 : 1, 0, L * E, E, d};
+    return encode(qm, q, d, E, L, B, 2 * E, 2 * E * L, q_rows) &&
+           encode(km, k, d, E, K, kv_shared ? 1 : B, 2 * E, 2 * E * K,
+                  kv_rows) &&
+           encode(vm, v, d, E, K, kv_shared ? 1 : B, 2 * E, 2 * E * K,
+                  kv_rows);
+  }
+  const long long planes = kv_shared ? H : static_cast<long long>(B) * H;
+  *co = Coords{0, H, 1, 0, kv_shared ? 0 : H, 1, E * L,
+               static_cast<long long>(d), static_cast<long long>(L) * d};
+  return encode(qm, q, d, d, L, static_cast<long long>(B) * H, 2 * d,
+                2LL * d * L, q_rows) &&
+         encode(km, k, d, d, K, planes, 2 * d, 2LL * d * K, kv_rows) &&
+         encode(vm, v, d, d, K, planes, 2 * d, 2LL * d * K, kv_rows);
+}
+
+}  // namespace

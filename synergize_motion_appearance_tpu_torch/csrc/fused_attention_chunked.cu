@@ -1,9 +1,12 @@
 // Softmax attention at the head widths the other attention kernels do not
-// take, in both layouts: d = 1 and every d > 64 outside the wgmma kernel
-// (bfloat16 at 65..127 and above 128, or at 128 with a pointer TMA cannot
-// take; float32 above 64), in bfloat16 and in float32. No shipped config
-// reaches these widths; a generator at n_head 1 (d = 256 in the appearance
-// transformer) or 32 (d = 1 in the motion transformer) does.
+// take, in both layouts: d = 1 and every d > 64 outside the wgmma kernels
+// (bfloat16 at 65..127, 129..255 and above 256, or at 128 and 256 with a
+// pointer TMA cannot take; float32 above 64), in bfloat16 and in float32.
+// No shipped config reaches these widths; a generator at n_head 32 (d = 1
+// in the motion transformer) does. bfloat16 d = 256 (the appearance
+// transformer at n_head 1) runs fused_attention_wgmma256.cu, which runs q.k
+// and the exponentials once a head where this kernel runs them four times
+// (PERF.md section 6 has both times).
 //
 // Replaces, for those widths, the same two TPU kernels as
 // fused_attention_packed.cu (synergize_motion_appearance_tpu/ops/
@@ -16,8 +19,8 @@
 // 0 for a row whose every key is masked; the output in q's dtype and
 // layout, rounded once. ops/fused_attention.py::plan routes a call here.
 //
-// The design (a simple one that is right; no path of a shipped config runs
-// it): a block owns a tile of query rows of one head and one chunk of at
+// The design (a simple one that is right; no shipped config runs it): a
+// block owns a tile of query rows of one head and one chunk of at
 // most 64 of its output columns. It computes the full q.k over d in chunks
 // of columns, staging each chunk of q and k in shared memory, runs the
 // online softmax over key tiles (the accumulator rescaled once a tile), and

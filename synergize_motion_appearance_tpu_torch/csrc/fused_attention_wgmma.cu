@@ -15,8 +15,10 @@
 // the tensor maps and coordinates the entry builds (`Coords`). The mma.sync
 // kernel of fused_attention_packed.cu keeps the other widths up to 64 (d <=
 // 8, or d not 16, 32 or 64): a TMA box row must hold at least 16 bytes and
-// wgmma's depth is 16; fused_attention_chunked.cu the rest (d = 1, d > 64
-// but 128). ops/fused_attention.py::plan picks between them by shape.
+// wgmma's depth is 16; fused_attention_wgmma256.cu d = 256, with the
+// helpers of attention_wgmma.cuh that this file shares;
+// fused_attention_chunked.cu the rest (d = 1, d > 64 but 128 and 256).
+// ops/fused_attention.py::plan picks between them by shape.
 // At d = 128 a head row is 256 bytes, past the widest swizzle (128 bytes):
 // each tile arrives as two 64-column boxes, q.k runs its 8 k16 steps across
 // the two, and p.v is two n64 wgmmas a k16 step (and hi and lo each), one a
@@ -89,14 +91,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "hopper_async.cuh"
+#include "attention_wgmma.cuh"
 
 namespace {
 
 constexpr int kKeys = 64;     // keys per stage: the n of q.k's wgmma
 constexpr int kRows = 64;     // query rows per block: one warpgroup's m
 constexpr int kThreads = 160;  // the consumer warpgroup, the producer warp
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of a block, from a base aligned to 1024 bytes (the largest
 // swizzle's period): the query tile, the stages (k tile, then v tile), the
@@ -128,70 +129,6 @@ struct Geometry {
   static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
 };
 
-// Element strides of the output and tensor-map coordinates of the inputs:
-// q's tile of head h, batch row b is at column h * q_col_h, plane
-// b * q_z_b + h * q_z_h of its map; k's and v's likewise with kv_*.
-struct Coords {
-  int q_col_h, q_z_b, q_z_h;
-  int kv_col_h, kv_z_b, kv_z_h;
-  long long o_batch, o_row, o_head;
-};
-
-// ---------------------------------------------------------------------------
-// wgmma with A from registers (p.v)
-// ---------------------------------------------------------------------------
-
-// d (64 x 16) += a (64 x 16, registers) * b (16 x 16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 32) += a (64 x 16, registers) * b (16 x 32, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 64) += a (64 x 16, registers) * b (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
 // o (64 x D) += a (64 x 16) * v (16 x D); v's descriptor b at part 0, part
 // p (columns 64p..64p+63 at D = 128) part_step further
 template <int D>
@@ -208,26 +145,6 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
     wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&o[0]), a, b);
     wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&o[32]), a, b + part_step);
   }
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// (x, y) as bf16 pairs hi = bf16(x, y) and lo = bf16((x, y) - hi), both
-// rounded to nearest even; x in the low half, as an A fragment wants
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
 // ---------------------------------------------------------------------------
@@ -498,37 +415,6 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// ---------------------------------------------------------------------------
-// host side
-// ---------------------------------------------------------------------------
-
-// A 3-d bf16 map (`cols` columns, `rows` rows, `planes` planes; byte
-// strides of a row and of a plane) read in boxes of min(d, 64) x box_rows
-// (a head of d = 128 is two boxes), each box row swizzled by its own width.
-bool encode(CUtensorMap* map, const void* ptr, int d, long long cols,
-            long long rows, long long planes, long long row_bytes,
-            long long plane_bytes, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(planes)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
-                                 static_cast<cuuint64_t>(plane_bytes)};
-  const int box_cols = d > 64 ? 64 : d;
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
-                             static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      box_cols == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
-      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                       : CU_TENSOR_MAP_SWIZZLE_128B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool BIAS>
 cudaError_t launch_variant(const CUtensorMap& qm, const CUtensorMap& km,
                            const CUtensorMap& vm, const float* bias,
@@ -583,25 +469,10 @@ extern "C" int samt_attention_wgmma(const void* q, const void* k,
       !aligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long E = static_cast<long long>(H) * d;
   CUtensorMap qm, km, vm;
   Coords co;
-  bool ok;
-  if (layout == 0) {
-    co = Coords{d, 1, 0, d, kv_shared ? 0 : 1, 0, L * E, E, d};
-    ok = encode(&qm, q, d, E, L, B, 2 * E, 2 * E * L, kRows) &&
-         encode(&km, k, d, E, K, kv_shared ? 1 : B, 2 * E, 2 * E * K,
-                kKeys) &&
-         encode(&vm, v, d, E, K, kv_shared ? 1 : B, 2 * E, 2 * E * K, kKeys);
-  } else {
-    const long long planes = kv_shared ? H : static_cast<long long>(B) * H;
-    co = Coords{0, H, 1, 0, kv_shared ? 0 : H, 1, E * L,
-                static_cast<long long>(d), static_cast<long long>(L) * d};
-    ok = encode(&qm, q, d, d, L, static_cast<long long>(B) * H, 2 * d,
-                2LL * d * L, kRows) &&
-         encode(&km, k, d, d, K, planes, 2 * d, 2LL * d * K, kKeys) &&
-         encode(&vm, v, d, d, K, planes, 2 * d, 2LL * d * K, kKeys);
-  }
+  const bool ok = layout_maps(q, k, v, B, H, L, K, d, layout, kv_shared,
+                              kRows, kKeys, &qm, &km, &vm, &co);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const float* bb = static_cast<const float*>(bias);
   const float sl2 = scale * kLog2e;

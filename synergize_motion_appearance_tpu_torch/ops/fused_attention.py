@@ -19,12 +19,14 @@ raises; ``plan`` picks it by dtype and shape, for every head width d >= 1
 (as the JAX package's Pallas kernels take any d): bfloat16 at d = 16, 32,
 64 and 128 runs on Hopper's warpgroup tensor cores
 (``attn_packed_kernel_wgmma`` of ``csrc/fused_attention_wgmma.cu``: TMA,
-``wgmma``, warp specialisation), the other bfloat16 widths up to 64 on
-``mma.sync`` (``attn_packed_kernel_tc`` of
+``wgmma``, warp specialisation), and so does bfloat16 at d = 256
+(``attn_packed_kernel_wgmma256`` of ``csrc/fused_attention_wgmma256.cu``:
+a block all 256 output columns of its 64 query rows); the other bfloat16
+widths up to 64 run on ``mma.sync`` (``attn_packed_kernel_tc`` of
 ``csrc/fused_attention_packed.cu``, in the variant ``tc_plan`` and
 ``copy_bytes`` pick), float32 up to 64 on the CUDA cores
 (``attn_packed_kernel``, ``f32_rows`` query rows a thread), and d = 1 and
-the widths above 64 that the wgmma kernel does not take, in either dtype,
+the widths above 64 that the wgmma kernels do not take, in either dtype,
 the d-chunked kernels of ``csrc/fused_attention_chunked.cu`` (a block a
 chunk of at most 64 output columns). On a CPU
 tensor it runs the plain PyTorch version
@@ -56,7 +58,8 @@ from . import cuda_build
 
 # Kernel launches since the last reset, of either dtype's kernel: by
 # `fused_attention_packed` (K1) and by `fused_attention` (K2); and of both,
-# by the kernel `plan` named ("wgmma", "mma", "f32", "chunked").
+# by the kernel `plan` named ("wgmma", "wgmma256", "mma", "f32",
+# "chunked").
 launches = 0
 split_launches = 0
 launch_kernels: Counter = Counter()
@@ -134,8 +137,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head widths of the bfloat16 wgmma kernel (attn_packed_kernel_wgmma<D, ..>):
 # a row of a head is one TMA box row of 32, 64 or 128 bytes (two of 128 at
 # d = 128), swizzled by its own width, and a multiple of wgmma's depth of
-# 16; its query rows per block, at every grid (three blocks share an SM,
-# two at d = 128)
+# 16; its query rows per block, at every grid, as the d = 256 kernel's
+# (three blocks share an SM, two at d = 128, one at d = 256)
 WGMMA_WIDTHS = (16, 32, 64, 128)
 WGMMA_ROWS = 64
 # query rows per block of the d-chunked kernels, by dtype
@@ -144,11 +147,12 @@ CHUNKED_ROWS = {torch.bfloat16: 64, torch.float32: 128}
 
 
 class Plan(NamedTuple):
-    """The kernel a call launches: ``kernel`` is "wgmma", "mma", "f32" or
-    "chunked"; ``rows`` its query rows per block (wgmma: always 64, one
-    consumer warpgroup; mma; chunked) or per thread (f32); ``nv`` and
-    ``copy_bytes`` the mma.sync variant's P.V width in n8 tiles and bytes
-    per cp.async of a key row (0 for the others)."""
+    """The kernel a call launches: ``kernel`` is "wgmma", "wgmma256",
+    "mma", "f32" or "chunked"; ``rows`` its query rows per block (wgmma:
+    always 64, one consumer warpgroup, as wgmma256; mma; chunked) or per
+    thread (f32); ``nv`` and ``copy_bytes`` the mma.sync variant's P.V
+    width in n8 tiles and bytes per cp.async of a key row (0 for the
+    others)."""
     kernel: str
     rows: int
     nv: int = 0
@@ -159,17 +163,21 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
          k_ptr: int, v_ptr: int, out_ptr: int) -> Plan:
     """Which kernel runs a call, by dtype, shape and the tensors'
     addresses, for every head width d >= 1 (no fallback: the plan's kernel
-    launches or the call raises). bfloat16: the wgmma kernel where d is in
-    WGMMA_WIDTHS and q, k, v and out are 16-byte aligned (TMA's rule for a
-    tensor map's base). Else, at d = 1 and above 64, the d-chunked kernel
+    launches or the call raises). bfloat16 where q, k, v and out are
+    16-byte aligned (TMA's rule for a tensor map's base): the wgmma kernel
+    where d is in WGMMA_WIDTHS, the d = 256 wgmma kernel at d = 256.
+    Else, at d = 1 and above 64, the d-chunked kernel
     of either dtype; at d = 2..64 the mma.sync kernel's ``tc_plan`` variant
     (bfloat16) or the CUDA-core kernel at ``f32_rows`` rows a thread
     (float32)."""
     if d < 1:
         raise ValueError(f"head width d={d}: no kernel takes it")
-    if dtype == torch.bfloat16 and d in WGMMA_WIDTHS and all(
+    if dtype == torch.bfloat16 and all(
             a % 16 == 0 for a in (q_ptr, k_ptr, v_ptr, out_ptr)):
-        return Plan("wgmma", WGMMA_ROWS)
+        if d in WGMMA_WIDTHS:
+            return Plan("wgmma", WGMMA_ROWS)
+        if d == 256:
+            return Plan("wgmma256", WGMMA_ROWS)
     if d == 1 or d > 8 * TC_WIDTHS[-1]:
         return Plan("chunked", CHUNKED_ROWS[dtype])
     if dtype == torch.float32:
@@ -303,6 +311,13 @@ def _launch_cuda(q, k, v, bias, num_heads):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         args = (*ptrs, B, H, L, K, d, int(split), kv_shared,
+                1.0 / math.sqrt(d), stream)
+    elif p.kernel == "wgmma256":
+        fn = cuda_build.load(
+            "fused_attention_wgmma256").samt_attention_wgmma256
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+        args = (*ptrs, B, H, L, K, int(split), kv_shared,
                 1.0 / math.sqrt(d), stream)
     elif p.kernel == "chunked":
         fn = cuda_build.load(

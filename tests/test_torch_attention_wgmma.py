@@ -23,6 +23,13 @@ on the CPU, and the plan that picks a call's kernel.
   Pallas kernel and the plain version at 2e-5, ``chip_smoke.py``'s float32
   tolerance.
 
+- ``attn_packed_kernel_wgmma256`` (``csrc/fused_attention_wgmma256.cu``,
+  bfloat16 at d = 256; the appearance transformer at n_head 1): the same
+  arithmetic with a head row as four 64-column parts (q.k summed over the
+  parts, p.v into each part of O), 64-key tiles; held against the Pallas
+  kernel and the plain version at the bf16 tolerance; its shared memory
+  and blocks an SM.
+
 The tiny config's widths (d = 2 and 8) run the mma.sync kernel in bf16,
 whose emulation is ``test_torch_attention_tc.py``'s; here the plan test
 holds that choice. Nothing here decides anything about a card.
@@ -71,29 +78,32 @@ def _finish(acc, den, m, bias, B, L, E, dtype):
     return out.permute(0, 2, 1, 3).reshape(B, L, E).to(dtype)
 
 
-def emulate_wgmma(q, k, v, bias, num_heads):
-    """The wgmma kernel's arithmetic on token-major bf16 inputs: q (B, L,
+def emulate_wgmma(q, k, v, bias, num_heads, keys=WG_KEYS, cols=None):
+    """The wgmma kernels' arithmetic on token-major bf16 inputs: q (B, L,
     E), k, v (B, K, E) or (K, E), bias (B, K) float32 or None; returns
-    bf16 (B, L, E)."""
+    bf16 (B, L, E). keys: keys a tile; cols: columns of a part (a TMA box)
+    where a head row is several, as at d = 256 (four of 64): q.k sums the
+    parts' products, p.v adds into each part's columns of O."""
     B, L, E = q.shape
     H = num_heads
     d = E // H
     K = k.shape[-2]
+    parts = [slice(c, c + (cols or d)) for c in range(0, d, cols or d)]
     qh = _heads(q, B, H, L, d)
     kh, vh = _heads(k, B, H, K, d), _heads(v, B, H, K, d)
     sl2 = _scale_log2(d)
     m = torch.full((B, H, L), -FLT_MAX)
     l = torch.zeros(B, H, L)
     acc = torch.zeros(B, H, L, d)
-    for k0 in range(0, K, WG_KEYS):
-        n = min(WG_KEYS, K - k0)
-        kt = torch.zeros(B, H, WG_KEYS, d)   # TMA zero-fills past K
-        vt = torch.zeros(B, H, WG_KEYS, d)
+    for k0 in range(0, K, keys):
+        n = min(keys, K - k0)
+        kt = torch.zeros(B, H, keys, d)   # TMA zero-fills past K
+        vt = torch.zeros(B, H, keys, d)
         kt[:, :, :n] = kh[:, :, k0:k0 + n]
         vt[:, :, :n] = vh[:, :, k0:k0 + n]
-        s = qh @ kt.transpose(-1, -2)
+        s = sum(qh[..., c] @ kt[..., c].transpose(-1, -2) for c in parts)
         if bias is not None:
-            bl = torch.full((B, WG_KEYS), -math.inf)
+            bl = torch.full((B, keys), -math.inf)
             bl[:, :n] = bias[:, k0:k0 + n] * LOG2E
             s = s * sl2 + bl[:, None, None, :]
             mx = s.amax(-1)
@@ -109,7 +119,8 @@ def emulate_wgmma(q, k, v, bias, num_heads):
         l = l + p.sum(-1)
         hi = p.bfloat16().float()
         lo = (p - hi).bfloat16().float()
-        acc = acc + hi @ vt + lo @ vt
+        for c in parts:
+            acc[..., c] += hi @ vt[..., c] + lo @ vt[..., c]
     return _finish(acc, l, m, bias, B, L, E, torch.bfloat16)
 
 
@@ -220,6 +231,65 @@ def test_wgmma_emulation_matches_pallas_and_plain(B, H, L, K, E, masked,
     assert torch.isfinite(got).all()
 
 
+WGMMA256_CASES = [
+    # B, H, L, K, E, bias, shared
+    (2, 1, 70, 100, 256, True, False),    # L off the 64-row query tile
+    (2, 1, 24, 129, 256, False, False),   # a one-key last tile
+    (3, 1, 20, 129, 256, True, True),     # shared codebook, bias, one key
+    (1, 2, 16, 40, 512, False, True),     # two heads, shared, one tile
+    (2, 1, 8, 256, 256, True, True),      # whole tiles past the 3-stage ring
+    (1, 1, 1, 64, 256, False, False),     # one query row, one whole tile
+]
+
+
+@pytest.mark.parametrize("B,H,L,K,E,masked,shared", WGMMA256_CASES, ids=str)
+def test_wgmma256_emulation_matches_pallas_and_plain(B, H, L, K, E, masked,
+                                                     shared):
+    """The d = 256 kernel's blocking: 64-key tiles, a head row as four
+    64-column parts, scores in log2 units, p.v as hi + lo into each part
+    of O; against the Pallas kernel and the plain version at d = 256, the
+    all-masked batch row 0 exactly 0."""
+    q, k, v, bias = _inputs(B, L, K, E, masked, shared, seed=L + K + E)
+    assert port.plan(q.dtype, B, H, L, E // H, H100_SMS, 0, 0, 0,
+                     0).kernel == "wgmma256"
+    got = emulate_wgmma(q, k, v, bias, H, keys=WG_KEYS, cols=64).float()
+    want = _pallas(H, q, k, v, bias)
+    torch.testing.assert_close(got, want, **BF16_TOL)
+    plain = port.fused_attention_packed_reference(q, k, v, bias,
+                                                  num_heads=H).float()
+    torch.testing.assert_close(got, plain, **BF16_TOL)
+    if masked:
+        assert got[0].abs().max().item() == 0.0, "all-masked batch row"
+        assert want[0].abs().max().item() == 0.0
+    assert torch.isfinite(got).all()
+
+
+def wgmma256_geometry():
+    """Threads, shared memory (bytes) and blocks an SM of the d = 256
+    kernel, as csrc/fused_attention_wgmma256.cu computes them: a 64-row
+    query tile of 4 parts of 64 x 128 bytes; 3 stages, each a k and a v
+    tile of 64 keys (4 parts each) and the stage's bias; 2 barriers a
+    stage and one for q; 1024 bytes to align the base; one consumer
+    warpgroup and one producer warp; 1 KiB a block reserved by the card
+    out of an SM's 233,472 bytes."""
+    q = 4 * 64 * 128
+    tile = 4 * 64 * 128
+    stages = 3
+    smem = q + stages * (2 * tile + 64 * 4) + (2 * stages + 1) * 8 + 1024
+    return 128 + 32, smem, 233472 // (smem + 1024)
+
+
+def test_wgmma256_geometry():
+    """The block fits a block's 232,448 bytes of shared memory, at the 160
+    threads, one block an SM and 64 query rows a block that the header
+    note and plan state."""
+    threads, smem, blocks = wgmma256_geometry()
+    assert smem == 231224 <= 232448
+    assert (threads, blocks) == (160, 1)
+    assert port.plan(torch.bfloat16, 16, 1, 1024, 256, H100_SMS, 0, 0, 0,
+                     0) == port.Plan("wgmma256", 64)
+
+
 F32_CASES = [
     # B, H, L, K, E, bias, shared
     (2, 8, 24, 100, 32, False, False),    # d = 4 (motion), ragged K
@@ -315,3 +385,20 @@ def test_plan_mma_variant_is_tc_plan():
         assert p == port.Plan("mma", rows, nv, port.copy_bytes(d, 64, 64))
     assert port.plan(torch.bfloat16, 1, 1, 1, 65, H100_SMS, 0, 0, 0,
                      0) == port.Plan("chunked", 64)
+
+
+@pytest.mark.parametrize("case", [
+    # (dtype, the tensor off 16 bytes) -> kernel at d = 256
+    ((torch.bfloat16, None), "wgmma256"),
+    ((torch.bfloat16, "q"), "chunked"),     # a base TMA cannot take
+    ((torch.bfloat16, "k"), "chunked"),
+    ((torch.bfloat16, "v"), "chunked"),
+    ((torch.bfloat16, "out"), "chunked"),
+    ((torch.float32, None), "chunked"),
+], ids=str)
+def test_plan_d256(case):
+    (dtype, off), want = case
+    ptrs = [4096 + 2 * (name == off) for name in ("q", "k", "v", "out")]
+    p = port.plan(dtype, 16, 1, 1024, 256, H100_SMS, *ptrs)
+    assert p == (port.Plan("wgmma256", 64) if want == "wgmma256" else
+                 port.Plan("chunked", port.CHUNKED_ROWS[dtype]))

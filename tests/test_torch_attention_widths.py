@@ -16,7 +16,8 @@ outside the shipped d = 4 and 32), on the CPU.
   the plain version at ``chip_smoke.py``'s tolerances (bf16: atol 1e-3,
   rtol 2^-7, one bf16 ulp; float32 2e-5).
 - ``plan`` for every d in 1..512 in both dtypes (no raise; d = 2..64 as
-  before this kernel; bf16 d = 128 on wgmma), and the per-kernel counts
+  before this kernel; bf16 d = 128 on wgmma, d = 256 on the d = 256 wgmma
+  kernel), and the per-kernel counts
   that ``chip_smoke.py``'s attention_widths phase expects at n_head 1, 2,
   8 and 32; the flagship generator's layers and parameters at n_head 1, 2
   and 32.
@@ -233,7 +234,8 @@ def test_chunked_emulation_matches_pallas_and_plain(d, H, B, L, K, masked,
                                                     shared, dtype):
     q, k, v, bias = _inputs(B, H, L, K, d, masked, shared, seed=d + K,
                             dtype=dtype)
-    assert port.plan(dtype, B, H, L, d, H100_SMS, 0, 0, 0,
+    # q at an address TMA cannot take: bf16 d = 256 runs here only then
+    assert port.plan(dtype, B, H, L, d, H100_SMS, 2, 0, 0,
                      0).kernel == "chunked"
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     got = emulate_chunked(q, k, v, bias, H).float()
@@ -268,7 +270,8 @@ def _plan_before(dtype, B, H, L, d, sms, q_ptr, k_ptr, v_ptr, out_ptr):
 def test_plan_takes_every_width(dtype):
     """Every d in 1..512 gets a kernel, aligned or not; d = 2..64 the one
     it got before; d = 1 and the rest past 64 the d-chunked kernel, but
-    bf16 d = 128 at aligned pointers, which runs on wgmma."""
+    bf16 d = 128 and 256 at aligned pointers, which run on wgmma and on
+    the d = 256 wgmma kernel."""
     for d in range(1, 513):
         for ptr in (4096, 4096 + 8):
             for B, H, L in ((16, 8, 1024), (2, 1, 33)):
@@ -279,6 +282,8 @@ def test_plan_takes_every_width(dtype):
                                                4096, ptr, 4096, 4096), d
                 elif dtype == torch.bfloat16 and d == 128 and ptr == 4096:
                     assert got == port.Plan("wgmma", 64)
+                elif dtype == torch.bfloat16 and d == 256 and ptr == 4096:
+                    assert got == port.Plan("wgmma256", 64)
                 else:
                     assert got == port.Plan("chunked",
                                             port.CHUNKED_ROWS[dtype]), d
@@ -307,7 +312,7 @@ def test_plan_and_check_refuse_width_0():
 
 @pytest.mark.parametrize("case", [
     # n_head -> the kernels of one flagship frame batch's 32 K1 launches
-    (1, {"f32": 16, "chunked": 16}),   # motion d = 32, appearance 256
+    (1, {"f32": 16, "wgmma256": 16}),  # motion d = 32, appearance 256
     (2, {"f32": 16, "wgmma": 16}),     # motion d = 16, appearance 128
     (8, {"f32": 16, "wgmma": 16}),     # shipped: d = 4 and 32
     (32, {"chunked": 16, "mma": 16}),  # motion d = 1, appearance 8
@@ -315,6 +320,56 @@ def test_plan_and_check_refuse_width_0():
 def test_head_width_kernels(case):
     H, want = case
     assert chip_smoke.head_width_kernels(torch, port, H, H100_SMS) == want
+
+
+def test_choice_times_every_d256_variant():
+    """chip_attention_choice.py times, at the n_head 1 appearance shapes
+    (bf16 d = 256), plan's kernel first (the d = 256 wgmma kernel, its
+    only variant), then the d-chunked kernel; at n_head 32 plan's kernel
+    and the one other kernel of each width."""
+    import chip_attention_choice as choice
+
+    dtype, plans = choice.candidates(port, 1, False, 16, 1024, 256,
+                                     H100_SMS)
+    assert dtype == torch.bfloat16
+    assert plans == [port.Plan("wgmma256", 64), port.Plan("chunked", 64)]
+    assert [p.kernel for p in choice.candidates(
+        port, 32, True, 16, 1024, 1, H100_SMS)[1]] == ["chunked", "f32"]
+    assert [p.kernel for p in choice.candidates(
+        port, 32, False, 16, 1024, 8, H100_SMS)[1]] == ["mma", "chunked"]
+
+
+def test_width_halves_sum_by_half_dtype_and_kernel():
+    """chip_smoke.width_halves: the timed rows of one n_head summed per
+    frame batch by half, dtype, width and kernel; checked-only rows (no
+    launches a frame batch, or no time) left out."""
+    def row(case, dtype, d, kernel, per, ms):
+        r = {"case": case, "dtype": dtype, "d": d, "kernel": kernel,
+             "launches_per_frame_batch": per}
+        if ms is not None:
+            r.update(device_ms=ms, library_device_ms=2 * ms,
+                     bound_ms=ms / 4)
+        return r
+
+    rows = [row("app_self", "bfloat16", 256, "wgmma256", 4, 0.05),
+            row("app_cross_K256", "bfloat16", 256, "wgmma256", 2, 0.02),
+            row("app_self", "float32", 256, "chunked", 4, 1.0),
+            row("motion_self", "float32", 32, "f32", 8, 0.1),
+            row("ragged_L1000_K333_d256", "bfloat16", 256, "wgmma256", 0,
+                None)]
+    got = chip_smoke.width_halves(rows)
+    assert set(got) == {"appearance_bfloat16_d256_wgmma256",
+                        "appearance_float32_d256_chunked",
+                        "motion_float32_d32_f32"}
+    h = got["appearance_bfloat16_d256_wgmma256"]
+    assert h["launches"] == 6
+    assert h["device_ms"] == pytest.approx(4 * 0.05 + 2 * 0.02)
+    assert h["library_device_ms"] == pytest.approx(2 * h["device_ms"])
+    assert h["bound_share"] == pytest.approx(0.25)
+    k2 = [dict(r, k1_launches_per_frame_batch=r.pop(
+        "launches_per_frame_batch")) for r in rows]
+    assert chip_smoke.width_halves(
+        k2, "k1_launches_per_frame_batch") == got
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
