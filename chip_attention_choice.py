@@ -1,19 +1,27 @@
-"""Which kernel should serve three head widths: times, on the card, the
+"""Which kernel should serve six head widths: times, on the card, the
 kernels that can take each width at the attention shapes of the flagship
 generator (chip_smoke.attention_cases, one frame batch of FRAME_BATCH),
 each launch held against the plain version first:
 
 - at n_head 32, float32 d = 1 (the motion transformer's 16 launches): the
-  d-chunked kernel's attn_packed_kernel_chunked_f32<1, 1> (what plan
-  picks) and the CUDA-core attn_packed_kernel<4, R> of
-  fused_attention_packed.cu, which zero-pads d to 4 (R = f32_rows);
+  CUDA-core d = 1 kernel attn_packed_kernel_chunked_f32<1, 1, float> of
+  fused_attention_chunked.cu (what plan picks) and the CUDA-core
+  attn_packed_kernel<4, R> of fused_attention_packed.cu, which zero-pads
+  d to 4 (R = f32_rows);
+- at n_head 32, bfloat16 d = 1 (the motion transformer's shapes in
+  bfloat16, on no path): the d = 1 kernel in bfloat16 (what plan picks)
+  and the d-chunked attn_packed_kernel_chunked_tc that served it before;
 - at n_head 32, bfloat16 d = 8 (the appearance transformer's 16 launches):
   the mma.sync kernel (what plan picks) and the d-chunked
   attn_packed_kernel_chunked_tc;
 - at n_head 1, bfloat16 d = 256 (the appearance transformer's 16
   launches): the d = 256 wgmma kernel of fused_attention_wgmma256.cu
   (what plan picks) and the d-chunked attn_packed_kernel_chunked_tc that
-  served d = 256 before it.
+  served d = 256 before it;
+- at n_head 1 and 2, float32 d = 256 and 128 (the appearance
+  transformer's 16 launches in a float32 generator): the float32 wide
+  kernel attn_packed_kernel_f32wide (what plan picks) and the d-chunked
+  attn_packed_kernel_chunked_f32<16, 64> that served them before it.
 
 Each kernel is forced through fused_attention_packed by replacing plan
 for the call. Times are the profiler's device time per call
@@ -43,13 +51,20 @@ def forced(fa, p, H):
     return call
 
 
-def candidates(fa, H, motion, B, L, d, sms):
-    """The plans to time at one shape, plan's own first."""
-    dtype = torch.float32 if motion else torch.bfloat16
+def candidates(fa, dtype, B, H, L, d, sms):
+    """The plans to time at one shape, plan's own first, then the kernel
+    that served the width before it (float32 up to d = 64: the CUDA-core
+    kernel of fused_attention_packed.cu; else the d-chunked kernel)."""
     picked = fa.plan(dtype, B, H, L, d, sms, 0, 0, 0, 0)
-    if motion:
-        return dtype, [picked, fa.Plan("f32", fa.f32_rows(B, H, L, d, sms))]
-    return dtype, [picked, fa.Plan("chunked", fa.CHUNKED_ROWS[dtype])]
+    if dtype == torch.float32 and d <= 64:
+        return [picked, fa.Plan("f32", fa.f32_rows(B, H, L, d, sms))]
+    return [picked, fa.Plan("chunked", fa.CHUNKED_ROWS[dtype])]
+
+
+# (n_head, transformer half, dtype) of the widths compared
+WIDTHS = [(32, "motion", torch.float32), (32, "motion", torch.bfloat16),
+          (32, "app", torch.bfloat16), (1, "app", torch.bfloat16),
+          (1, "app", torch.float32), (2, "app", torch.float32)]
 
 
 def main():
@@ -67,14 +82,12 @@ def main():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(4321)
     sums, rows = {}, []
-    # n_head 32: both halves; n_head 1: the appearance half (d = 256)
-    cases = cs.attention_cases(cs.FRAME_BATCH, H=32) + [
-        c for c in cs.attention_cases(cs.FRAME_BATCH, H=1)
-        if c[0].startswith("app")]
-    for name, B, L, E, H, K, shared, with_bias, per in cases:
+    cases = [(dtype, case) for H, half, dtype in WIDTHS
+             for case in cs.attention_cases(cs.FRAME_BATCH, H=H)
+             if case[0].startswith(half)]
+    for dtype, (name, B, L, E, H, K, shared, with_bias, per) in cases:
         d = E // H
-        dtype, plans = candidates(fa, H, name.startswith("motion"), B, L, d,
-                                  sms)
+        plans = candidates(fa, dtype, B, H, L, d, sms)
         q = torch.randn(B, L, E, generator=gen, device="cuda").to(dtype)
         kv_shape = (K, E) if shared else (B, K, E)
         k = torch.randn(*kv_shape, generator=gen, device="cuda").to(dtype)

@@ -66,14 +66,17 @@ at the flagship 256x256 width with seeded random weights:
   and train.vgg_weights read by the flagship Trainer.
 - attention_widths (after the ablations): K1 and K2 at every attention
   shape of a flagship frame batch at n_head 1, 2 and 32 (head widths 1 to
-  256: the wgmma kernel at d = 128, the d = 256 wgmma kernel at bf16 d =
-  256, the d-chunked kernel at d = 1 and at float32 d = 128 and 256) and
-  at ragged d = 96, 160 and 256, against their plain versions in both
-  dtypes, timed against the bound and SDPA (float32 too above d = 64);
-  one flagship frame batch at each n_head with its 32 K1 launches counted
-  by the kernel plan names (at n_head 1 the appearance transformer's 16
-  on the d = 256 wgmma kernel); the tiny config with motion d = 1 and
-  appearance d = 128 on the card against the CPU;
+  256: the wgmma kernel at bf16 d = 128, the d = 256 wgmma kernel at bf16
+  d = 256, the float32 wide kernel at float32 d = 128 and 256, the d = 1
+  kernel at d = 1) and at ragged d = 96, 161, 256 and 320 (the d-chunked
+  kernels, timed there), against their plain versions in both dtypes,
+  timed against the bound and SDPA (float32 too above d = 64); one
+  flagship frame batch at each n_head with its 32 K1 launches counted by
+  the kernel plan names (at n_head 1 the appearance transformer's 16 on
+  the d = 256 wgmma kernel), and one in float32 at n_head 1 (its 16 on
+  the float32 wide kernel); the tiny config with motion d = 1 and
+  appearance d = 128 on the card against the CPU (d = 1 and wide
+  kernels);
 - train_options (after the train profile): the flagship Trainer with a
   fixed GAN weight (use_adaptive_weight false) and weight decay on its
   three optimizers, 3 timed steps (K1 and K3 as the train path, no
@@ -149,15 +152,20 @@ CACHE_SIZE = 256                   # frames of the flagship's img_size
 # all in bf16 (device_ms_bf16) and its motion transformer's 16 launches in
 # float32 as the pipeline gives them (device_ms_motion), the appearance
 # transformer's 16 bf16 launches at n_head 2 (d = 128, the wgmma kernel)
-# and at n_head 1 (d = 256, the d = 256 wgmma kernel), K3 per train step
-# and K4 over K3's forward shapes, both bf16 on the wgmma kernel (their
-# calls are short enough that per-call event times measure the host). On
-# a card at that power limit none may be more than 10% slower now.
+# and at n_head 1 (d = 256, the d = 256 wgmma kernel), the appearance
+# transformer's 16 float32 launches at n_head 1 (d = 256, the float32 wide
+# kernel), the motion transformer's 16 launches at n_head 32 in bf16
+# (d = 1, the d = 1 kernel), K3 per train step and K4 over K3's forward
+# shapes, both bf16 on the wgmma kernel (their calls are short enough that
+# per-call event times measure the host). On a card at that power limit
+# none may be more than 10% slower now.
 PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
                ("fused_attention_packed", "device_ms_motion", 1.17),
                ("fused_attention_packed", "device_ms_appearance_n_head_2",
                 0.742),
                ("fused_attention_packed (wgmma d = 256)", "device_ms", 0.762),
+               ("fused_attention_packed (f32 wide)", "device_ms", 6.40),
+               ("fused_attention_packed (d = 1)", "device_ms_bf16", 2.83),
                ("conv3x3", "device_ms", 2.97),
                ("conv3x3_nhwc", "device_ms", 1.16)]
 
@@ -516,13 +524,15 @@ def check_attention(torch, fa, B, rate, L=1024, cases=None):
                    "L": ll, "K": K, "E": E, "H": H, "d": d,
                    "kernel": launched_kernel(fa, before),
                    "shared_kv": shared, "bias": with_bias,
-                   "launches_per_frame_batch": per_batch,
+                   "launches_per_frame_batch": per_batch, "calls": 1,
                    "on_path": bool(per_batch) and str(dtype).split(".")[1]
                    == path_dtype, "max_abs_err": err}
             # the main path's shapes, and the train step's B = 2 shapes:
-            # bf16, the path's dtype, and float32 on the d-chunked kernel
-            # above d = 64
-            timed = per_batch or name.startswith("train_B2")
+            # bf16, the path's dtype, and float32 above d = 64; the
+            # d-chunked kernels, on no frame batch, at the ragged shapes
+            # they take
+            timed = (per_batch or name.startswith("train_B2")
+                     or row["kernel"] == "chunked")
             if timed and (dtype == torch.bfloat16 or row["on_path"]
                           or not per_batch or d > 64):
                 # the library yardstick, timed only: SDPA on head-split
@@ -595,7 +605,8 @@ def check_attention_split(torch, fa, B, rate, L=1024, cases=None):
     (B, H, L, d), plus a ragged K on no path (or at ``cases``), in float32
     and bfloat16, with K1's tolerances; time kernel, plain version and
     F.scaled_dot_product_attention on the same head-split tensors at
-    bfloat16. Each row names the kernel that ran it."""
+    bfloat16 (and float32 at d = 1 and above 64). Each row names the
+    kernel that ran it."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2345)
@@ -626,7 +637,7 @@ def check_attention_split(torch, fa, B, rate, L=1024, cases=None):
                    "kernel": launched_kernel(fa, before), "shared_kv": shared,
                    "bias": with_bias, "k1_launches_per_frame_batch":
                    per_batch, "max_abs_err": err}
-            if dtype == torch.bfloat16 and per_batch:
+            if per_batch and (dtype == torch.bfloat16 or d > 64 or d == 1):
                 kk = k.expand(bb, H, K, d).contiguous()
                 vv = v.expand(bb, H, K, d).contiguous()
                 mask = None if bias is None else \
@@ -1791,9 +1802,10 @@ def ablation_tiny(torch, configs, ReenactmentPipeline, seeded_nets, Trainer,
 
 
 def ablation_inference(torch, configs, ReenactmentPipeline, seeded_nets, fa,
-                       name, seed):
-    """Variant ``name``'s flagship-256 networks in one bf16 frame batch of
-    FRAME_BATCH uint8 frames (relative motion, hull-area scaling): a
+                       name, seed, dtype=None):
+    """Variant ``name``'s flagship-256 networks in one frame batch (bf16,
+    or ``dtype``) of FRAME_BATCH uint8 frames (relative motion, hull-area
+    scaling): a
     warm-up batch, whose attention inputs are captured for the variants
     of NEW_K1_INPUTS, then a timed one with the kernel counts reset just
     before it. Frames finite (the generator's output), K1 as the config
@@ -1802,8 +1814,8 @@ def ablation_inference(torch, configs, ReenactmentPipeline, seeded_nets, fa,
     g, me = seeded_nets(cfg, seed)
     pipe = ReenactmentPipeline(g, me, relative=True, adapt_scale=True,
                                frame_batch=FRAME_BATCH,
-                               compute_dtype=torch.bfloat16, u8_io=True,
-                               device="cuda")
+                               compute_dtype=dtype or torch.bfloat16,
+                               u8_io=True, device="cuda")
     src = frames(1, 256, seed + 20)
     drv = frames(FRAME_BATCH, 256, seed + 21)
     captured, launch_k1 = [], fa.fused_attention_packed
@@ -1935,14 +1947,19 @@ HEAD_WIDTHS = {f"n_head_{h}": {"g": {"n_head": h}} for h in HEAD_COUNTS}
 HEAD_WIDTHS["tiny_d1_d128"] = {"g": {
     "n_head": 4, "embed_dim_motion": 4, "dim_embd_motion": 4,
     "embed_dim_app": 512, "dim_embd_app": 512}}
-# (name, B, L, E, H, K, shared context, bias, 0): the d-chunked kernel's
-# widths off its column chunks, and d = 256 (the d = 256 wgmma kernel in
-# bf16) on a shared codebook, L and K off the query and key tiles, each
-# with a bias that masks every key of batch row 0; checked, not timed
+# (name, B, L, E, H, K, shared context, bias, 0): widths off the column
+# chunks of the d-chunked kernel (bf16) and of the float32 wide kernel
+# (d = 161 also off 16-byte rows: both kernels' element-wise copies),
+# d = 256 (the d = 256 wgmma kernel in bf16, the wide kernel in float32)
+# on a shared codebook, and d = 320, past the wide kernel (the d-chunked
+# kernel in both dtypes); L and K off the query and key tiles, each with
+# a bias that masks every key of batch row 0; checked, and timed where
+# the d-chunked kernels run them (on no frame batch)
 RAGGED_WIDTHS = [
     ("ragged_L1000_K700_d96", 4, 1000, 192, 2, 700, False, True, 0),
-    ("ragged_L900_K333_d160", 3, 900, 320, 2, 333, True, True, 0),
+    ("ragged_L900_K333_d161", 3, 900, 322, 2, 333, True, True, 0),
     ("ragged_L1000_K333_d256", 3, 1000, 256, 1, 333, True, True, 0),
+    ("ragged_L1000_K333_d320", 3, 1000, 320, 1, 333, True, True, 0),
 ]
 WIDTHS_TIMEOUT = 300  # seconds for the phase's process
 
@@ -1988,9 +2005,11 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
     bfloat16 (timed against the bound and SDPA as the K1 and K2 phases
     time theirs), and at RAGGED_WIDTHS; one flagship frame batch at each
     n_head through ReenactmentPipeline.animate (ablation_inference), its
-    32 K1 launches counted by kernel against what plan names; the tiny
-    variant with motion d = 1 and appearance d = 128 in float32 on the
-    card against the CPU, within 1 level."""
+    32 K1 launches counted by kernel against what plan names, and one in
+    float32 at n_head 1 (the appearance transformer's 16 on the float32
+    wide kernel); the tiny variant with motion d = 1 and appearance d =
+    128 in float32 on the card against the CPU, within 1 level, on the
+    d = 1 and the float32 wide kernels."""
     t0 = time.perf_counter()
     sms = rate["sms"]
     report = {"k1": {}, "k2": {}, "frame_batches": {}, "halves": {}}
@@ -2037,11 +2056,23 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
               f"{row['frames_per_s']:.2f} frames/s (one frame batch of "
               f"{FRAME_BATCH}), K1 {row['k1_launches']} launches by kernel "
               f"{row['k1_kernels']} on {card}", flush=True)
+    # a float32 generator at n_head 1: the appearance half at d = 256
+    row, _ = ablation_inference(torch, configs, ReenactmentPipeline,
+                                seeded_nets, fa, "n_head_1", seed,
+                                dtype=torch.float32)
+    row["k1_kernels"] = dict(fa.launch_kernels)
+    assert fa.launch_kernels == {"f32": 16, "f32wide": 16}, row
+    report["frame_batch_float32"] = row
+    torch.cuda.empty_cache()
+    print(f"attention widths: flagship-256 float32 at n_head 1: "
+          f"{row['frames_per_s']:.2f} frames/s (one frame batch of "
+          f"{FRAME_BATCH}), K1 {row['k1_launches']} launches by kernel "
+          f"{row['k1_kernels']} on {card}", flush=True)
     diff, launches = tiny_frames(
         torch, ablation_cfg(configs.get("tiny"), "tiny_d1_d128"),
         ReenactmentPipeline, seeded_nets, fa, seed, 6)
     kernels = dict(fa.launch_kernels)
-    assert set(kernels) == {"chunked"}, kernels
+    assert set(kernels) == {"d1", "f32wide"}, kernels
     report["tiny_d1_d128"] = {"max_diff_levels": int(diff.max()),
                               "mean_diff_levels": float(diff.mean()),
                               "k1_launches": launches,
@@ -4707,9 +4738,113 @@ def serving_two_device(torch, configs, ReenactmentPipeline, seeded_nets,
     return report
 
 
+def width_kernel_entries(widths):
+    """The kernels-line entries of the kernels that only the
+    attention_widths phase (``widths``, its report) runs on the card: the
+    d-chunked kernels, the float32 wide kernel, the d = 1 kernel and the
+    d = 256 wgmma kernel."""
+    def width_rows(layout, kernel):
+        return [r for rows in widths[layout].values() for r in rows
+                if r["kernel"] == kernel]
+
+    return [
+        kernel_entry(
+            "fused_attention_packed (d-chunked)",
+            "fused_attention_chunked.cu", "fused_attention.py:227",
+            width_rows("k1", "chunked"), "calls",
+            sum(row["k1_kernels"].get("chunked", 0)
+                for row in widths["frame_batches"].values()),
+            "sum over one call at each ragged shape it takes in the "
+            "attention_widths phase (bf16 d = 96, 161 and 320, float32 "
+            "d = 320; chiprun_out/chip_smoke.json has each); device_ms, "
+            "library_device_ms and the bound as for K1",
+            summed=lambda r: "device_ms" in r,
+            launches_note="launches over the three frame batches of the "
+                          "attention_widths phase (n_head 1, 2, 32): "
+                          "none takes its widths (bf16 above 64 where the "
+                          "wgmma kernels do not run, float32 above 256); "
+                          "0 on every shipped config (n_head 8)",
+            max_abs_err_k2=max(r["max_abs_err"]
+                               for r in width_rows("k2", "chunked"))),
+        kernel_entry(
+            "fused_attention_packed (f32 wide)",
+            "fused_attention_chunked.cu", "fused_attention.py:227",
+            width_rows("k1", "f32wide"), "launches_per_frame_batch",
+            widths["frame_batch_float32"]["k1_kernels"]["f32wide"],
+            "sum over the appearance transformer's 16 float32 launches "
+            "(d = 256) of one flagship frame batch at n_head 1 "
+            "(attention_widths phase), on attn_packed_kernel_f32wide<256>; "
+            "the d = 128 ones at n_head 2 (<128>) in the _d128 keys, K2 "
+            "at the same shapes in the _k2 keys; the ragged float32 d = "
+            "96, 161 and 256 cases are checked, not summed; device_ms, "
+            "library_device_ms and the bound as for K1",
+            summed=lambda r: r["d"] == 256,
+            launches_note="launches in the float32 frame batch at n_head 1 "
+                          "of the attention_widths phase; 0 on every "
+                          "shipped config (n_head 8) and on the bf16 paths",
+            **{f"{key}_{suffix}": widths["halves"][H][layout][
+                f"appearance_float32_d{256 // int(H)}_f32wide"][key]
+               for H, layout, suffix in (("2", "k1", "d128"),
+                                         ("1", "k2", "k2"),
+                                         ("2", "k2", "k2_d128"))
+               for key in ("device_ms", "library_device_ms", "bound_ms",
+                           "bound_share")},
+            max_abs_err_k2=max(r["max_abs_err"]
+                               for r in width_rows("k2", "f32wide"))),
+        kernel_entry(
+            "fused_attention_packed (d = 1)",
+            "fused_attention_chunked.cu", "fused_attention.py:227",
+            width_rows("k1", "d1"), "launches_per_frame_batch",
+            widths["frame_batches"]["32"]["k1_kernels"]["d1"],
+            "sum over the motion transformer's 16 float32 launches (d = 1) "
+            "of one flagship frame batch at n_head 32 (attention_widths "
+            "phase), on attn_packed_kernel_chunked_f32<1, 1, float>; the "
+            "same shapes in bfloat16 (<1, 1, bf16>, on no path) in the "
+            "_bf16 keys, K2's in the _k2 keys; device_ms, "
+            "library_device_ms and the bound as for K1",
+            summed=lambda r: r["on_path"],
+            launches_note="launches over the three frame batches of the "
+                          "attention_widths phase (n_head 1, 2, 32); 0 on "
+                          "every shipped config (n_head 8)",
+            **{f"{key}_{suffix}": widths["halves"]["32"][layout][
+                f"motion_{dtype}_d1_d1"][key]
+               for layout, dtype, suffix in (
+                   ("k1", "bfloat16", "bf16"), ("k2", "float32", "k2"),
+                   ("k2", "bfloat16", "bf16_k2"))
+               for key in ("device_ms", "library_device_ms", "bound_ms",
+                           "bound_share")},
+            max_abs_err_k2=max(r["max_abs_err"]
+                               for r in width_rows("k2", "d1"))),
+        kernel_entry(
+            "fused_attention_packed (wgmma d = 256)",
+            "fused_attention_wgmma256.cu", "fused_attention.py:227",
+            width_rows("k1", "wgmma256"), "launches_per_frame_batch",
+            sum(row["k1_kernels"].get("wgmma256", 0)
+                for row in widths["frame_batches"].values()),
+            "sum over the appearance transformer's 16 bf16 launches (d = "
+            "256) of one flagship frame batch at n_head 1 (attention_widths "
+            "phase), on attn_packed_kernel_wgmma256<BIAS>; the ragged d = "
+            "256 case is checked, not summed; "
+            "device_ms, library_device_ms and the bound as for K1, "
+            "device_ms_k2 K2 at the same shapes",
+            summed=lambda r: r["on_path"],
+            launches_note="launches over the three frame batches of the "
+                          "attention_widths phase (n_head 1, 2, 32); 0 on "
+                          "every shipped config (n_head 8)",
+            device_ms_k2=sum(
+                r["device_ms"] * r["k1_launches_per_frame_batch"]
+                for r in widths["k2"]["1"]
+                if r["kernel"] == "wgmma256" and "device_ms" in r),
+            max_abs_err_k2=max(
+                r["max_abs_err"] for rows in widths["k2"].values()
+                for r in rows if r["kernel"] == "wgmma256")),
+    ]
+
+
 def kernel_entry(name, source, replaces, rows, weight, launches,
                  times_are, summed=None, **extra):
-    """One kernel's entry of the kernels line: errors over its f32 and bf16
+    """One kernel's entry of the kernels line: errors over its bf16 cases
+    (max_abs_err; its float32 ones for a float32-only kernel) and float32
     cases; times and bound summed over the cases ``summed`` picks (by
     default its bf16 cases), each weighted by ``weight`` (its launches in
     one unit of the path; the ragged cases, weighted 0, are checked and
@@ -4736,9 +4871,9 @@ def kernel_entry(name, source, replaces, rows, weight, launches,
         "source": f"synergize_motion_appearance_tpu_torch/csrc/{source}",
         "replaces": f"synergize_motion_appearance_tpu/ops/{replaces}",
         "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in bf16),
+        "max_abs_err": max(r["max_abs_err"] for r in bf16 or f32),
         **({"max_abs_err_f32": max(r["max_abs_err"] for r in f32)}
-           if f32 else {}),
+           if f32 and bf16 else {}),
         "ms": total("ms"), "plain_ms": total("plain_ms"),
         "bound_ms": bound,
         "bound_by": "bytes" if by_bytes > bound / 2 else "operations",
@@ -4809,7 +4944,8 @@ def main():
     report["attention_chunked_build"] = build_report(
         cuda_build, "fused_attention_chunked", "attn_packed_kernel",
         "attn_packed_kernel_chunked_tc",
-        no_spill=("attn_packed_kernel_chunked",))
+        no_spill=("attn_packed_kernel_chunked",
+                  "attn_packed_kernel_f32wide"))
     rate = exp_rate(torch)
     report["exp_rate"] = rate
     print(f"exponentials: {EXP_PER_SM_CLOCK} per SM per clock x "
@@ -4875,10 +5011,6 @@ def main():
     dp = report["distributed"]
     ablated = report["ablations"]["variants"]
     widths = report["attention_widths"]
-    chunked_rows = [r for key, rows in widths["k1"].items() for r in rows
-                    if r["kernel"] == "chunked"]
-    wgmma256_rows = [r for key, rows in widths["k1"].items() for r in rows
-                     if r["kernel"] == "wgmma256"]
     kernels = [
         kernel_entry(
             "fused_attention_packed", "fused_attention_packed.cu",
@@ -4958,49 +5090,7 @@ def main():
                           "train step and the train CLI",
             launches_train_path=report["train_path"]["k2_launches"],
             launches_train_cli=cli["k2"]),
-        kernel_entry(
-            "fused_attention_packed (d-chunked)",
-            "fused_attention_chunked.cu", "fused_attention.py:227",
-            chunked_rows, "launches_per_frame_batch",
-            sum(row["k1_kernels"].get("chunked", 0)
-                for row in widths["frame_batches"].values()),
-            "sum over its launches in one flagship frame batch at each of "
-            "n_head 1, 2 and 32 (attention_widths phase): the motion "
-            "transformer's 16 at n_head 32 (float32, d = 1); the other "
-            "shapes it takes (bf16 d = 1, float32 d = 128 and 256, timed "
-            "in chiprun_out/chip_smoke.json, K2's, the ragged d = 96, 160 "
-            "and float32 256) are checked, not summed; device_ms, "
-            "library_device_ms and the bound as for K1",
-            summed=lambda r: r["on_path"],
-            launches_note="launches over the three frame batches of the "
-                          "attention_widths phase (n_head 1, 2, 32); 0 on "
-                          "every shipped config (n_head 8)",
-            max_abs_err_k2=max(
-                r["max_abs_err"] for rows in widths["k2"].values()
-                for r in rows if r["kernel"] == "chunked")),
-        kernel_entry(
-            "fused_attention_packed (wgmma d = 256)",
-            "fused_attention_wgmma256.cu", "fused_attention.py:227",
-            wgmma256_rows, "launches_per_frame_batch",
-            sum(row["k1_kernels"].get("wgmma256", 0)
-                for row in widths["frame_batches"].values()),
-            "sum over the appearance transformer's 16 bf16 launches (d = "
-            "256) of one flagship frame batch at n_head 1 (attention_widths "
-            "phase), on attn_packed_kernel_wgmma256<BIAS>; the ragged d = "
-            "256 case is checked, not summed; "
-            "device_ms, library_device_ms and the bound as for K1, "
-            "device_ms_k2 K2 at the same shapes",
-            summed=lambda r: r["on_path"],
-            launches_note="launches over the three frame batches of the "
-                          "attention_widths phase (n_head 1, 2, 32); 0 on "
-                          "every shipped config (n_head 8)",
-            device_ms_k2=sum(
-                r["device_ms"] * r["k1_launches_per_frame_batch"]
-                for r in widths["k2"]["1"]
-                if r["kernel"] == "wgmma256" and "device_ms" in r),
-            max_abs_err_k2=max(
-                r["max_abs_err"] for rows in widths["k2"].values()
-                for r in rows if r["kernel"] == "wgmma256")),
+        *width_kernel_entries(widths),
         kernel_entry(
             "conv3x3", "conv3x3_wgmma.cu", "pallas_conv_wl.py:39",
             report["k3_cases"], "launches_per_step",

@@ -1,12 +1,22 @@
 // Softmax attention at the head widths the other attention kernels do not
-// take, in both layouts: d = 1 and every d > 64 outside the wgmma kernels
-// (bfloat16 at 65..127, 129..255 and above 256, or at 128 and 256 with a
-// pointer TMA cannot take; float32 above 64), in bfloat16 and in float32.
+// take, in both layouts, on three kernels:
+// - float32 at d = 65..256: `attn_packed_kernel_f32wide<C>` (plan kernel
+//   "f32wide"), a block all output columns of its query rows, so q.k and
+//   every exponential run once a head;
+// - d = 1, either dtype: `attn_packed_kernel_chunked_f32<1, 1, T>` (plan
+//   kernel "d1"), one query row a thread on the CUDA cores, bf16 loads
+//   widened to f32 (the name says its arithmetic);
+// - the rest (plan kernel "chunked"): bfloat16 at 65..127, 129..255 and
+//   above 256, or at 128 and 256 with a pointer TMA cannot take, on
+//   `attn_packed_kernel_chunked_tc`; float32 above 256 on
+//   `attn_packed_kernel_chunked_f32<16, 64, float>`, whose blocks of 64
+//   output columns each repeat their head's q.k (the f32 wide kernel's
+//   q tile, 64 rows of d floats in shared memory, leaves no room past
+//   d = 256).
 // No shipped config reaches these widths; a generator at n_head 32 (d = 1
-// in the motion transformer) does. bfloat16 d = 256 (the appearance
-// transformer at n_head 1) runs fused_attention_wgmma256.cu, which runs q.k
-// and the exponentials once a head where this kernel runs them four times
-// (PERF.md section 6 has both times).
+// in the motion transformer) or a float32 one at n_head 1 or 2 (d = 256,
+// 128 in the appearance transformer) does. bfloat16 d = 256 and 128 at
+// aligned pointers run the wgmma kernels (PERF.md section 6 has the times).
 //
 // Replaces, for those widths, the same two TPU kernels as
 // fused_attention_packed.cu (synergize_motion_appearance_tpu/ops/
@@ -19,37 +29,58 @@
 // 0 for a row whose every key is masked; the output in q's dtype and
 // layout, rounded once. ops/fused_attention.py::plan routes a call here.
 //
-// The design (a simple one that is right; no shipped config runs it): a
-// block owns a tile of query rows of one head and one chunk of at
-// most 64 of its output columns. It computes the full q.k over d in chunks
-// of columns, staging each chunk of q and k in shared memory, runs the
-// online softmax over key tiles (the accumulator rescaled once a tile), and
-// accumulates p.v for its own columns only. So the ceil(d / 64) blocks of a
-// head each repeat its q.k and its exponentials: at d = 256 four times.
-// Copies are plain loads through registers (16 bytes a thread where the
-// rows and pointers allow, else element by element: a bf16 row of d = 1 is
-// 2 bytes, which no cp.async takes), one tile at a time between two
-// barriers; the other blocks of the SM hide the loads' latency.
+// The float32 wide kernel. f32 is exact FMAs on the CUDA cores (no TF32),
+// so the bound is the FMAs: 2d a score, q.k and p.v, at 128 a clock an SM.
+// A block owns all d columns of R query rows of one head (256 threads; d
+// rounded up to C = 128 or 256, R = 16384 / C), so q.k and every
+// exponential run once a head. q is staged once, times scale * log2(e);
+// keys come in super-tiles of C: k in depth chunks, v in key chunks, each
+// about 32 KiB, through a 2-slot ring filled by `cp.async` (16 bytes a
+// thread where d and the pointers allow, else 4), each chunk landing while
+// the one before it is used. Each thread holds an 8 x 8 register tile of
+// the R x C scores and one of O, so each float4 it reads from shared
+// memory feeds 16 FMAs: one byte a FMA, which is the rate at which shared
+// memory returns data to an SM's threads (128 bytes a clock), so the two
+// bind together. The lanes of a row (a warp at C = 256, a half-warp at
+// 128) take its max and sum by shuffles; p goes through shared memory (C
+// keys x R rows). 206.0 KiB of shared memory at C = 256, 202.0 at C =
+// 128: one block an SM. Padding columns cost FMAs (d = 160: three eighths
+// of them). Unrolled, the q.k loop took ptxas past 255 registers into a
+// spill; rolled, 250 and no spill, at the same time.
+//
+// The d-chunked kernels (a simple design that is right; no shipped config
+// runs them): a block owns a tile of query rows of one head and one chunk
+// of at most 64 of its output columns. It computes the full q.k over d in
+// chunks of columns, staging each chunk of q and k in shared memory, runs
+// the online softmax over key tiles (the accumulator rescaled once a
+// tile), and accumulates p.v for its own columns only. So the ceil(d / 64)
+// blocks of a head each repeat its q.k and its exponentials: at d = 256
+// four times. Copies are plain loads through registers (16 bytes a thread
+// where the rows and pointers allow, else element by element: a bf16 row
+// of d = 1 is 2 bytes, which no cp.async takes), one tile at a time
+// between two barriers; the other blocks of the SM hide the loads'
+// latency.
 // - bfloat16 (`attn_packed_kernel_chunked_tc`): 64 query rows a block, 16
 //   a warp; q.k on `mma.sync.m16n8k16` with q and k read by `ldmatrix` from
 //   64-column chunks (zero past d, so only the k16 steps that hold columns
 //   of d run), p.v the same way with p split into bf16 hi + lo (two
 //   products into one f32 accumulator, ~16 bits of each weight, as
 //   fused_attention_packed.cu's tensor-core kernel) on 64-key tiles.
-// - float32 (`attn_packed_kernel_chunked_f32<QC, VC>`): exact f32 FMAs on
-//   the CUDA cores (no TF32), one query row a thread, 128 a block; q (times
+// - `attn_packed_kernel_chunked_f32<QC, VC, T>`: exact f32 FMAs on the
+//   CUDA cores (no TF32), one query row a thread, 128 a block; q (times
 //   scale * log2(e)) and k staged QC columns at a time, the block's VC
-//   output columns of v once a key tile. d = 1 runs <1, 1>, so no FMA is
-//   spent on padding (fused_attention_packed.cu's float32 kernel also
-//   takes d = 1, zero-padded to 4, and took 1.24 times as long at the
-//   n_head 32 motion shapes on an H100 at 700 W: chip_attention_choice.py);
-//   d > 64 runs <16, 64>.
-// What bounds it: at d > 64 the q.k and p.v products, which grow with d
-// while the exponentials do not (4d FLOP a score: at d = 128 the
-// tensor cores' time passes the exponentials'), times the ceil(d / 64)
-// repeats of q.k; at d = 1 the exponentials and the issue slots of the
-// softmax. Neither kernel allocates anything; both run on the caller's
-// stream, and the (L, K) scores never leave the SM.
+//   output columns of v once a key tile. d = 1 runs <1, 1, T> in both
+//   dtypes, so no FMA is spent on padding (fused_attention_packed.cu's
+//   float32 kernel also takes d = 1, zero-padded to 4, and took 1.24
+//   times as long at the n_head 32 motion shapes on an H100 at 700 W:
+//   chip_attention_choice.py); at bf16 d = 1 the tensor-core kernel's
+//   k16 steps held one column of data in 16. Float32 above 256 runs
+//   <16, 64, float>.
+// What bounds them: above d = 64 the q.k and p.v products, which grow
+// with d while the exponentials do not, times the ceil(d / 64) repeats of
+// q.k; at d = 1 the exponentials and the issue slots of the softmax. No
+// kernel here allocates anything; all run on the caller's stream, and the
+// (L, K) scores never leave the SM.
 
 #include <cfloat>
 #include <cmath>
@@ -62,7 +93,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // threads a block, both kernels
+constexpr int kThreads = 128;  // threads a block: d-chunked, d = 1
 constexpr int kCols = 64;      // output columns a block; q.k chunk (bf16)
 
 // ---------------------------------------------------------------------------
@@ -277,25 +308,42 @@ attn_packed_kernel_chunked_tc(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores
+// CUDA cores, f32 arithmetic: the d-chunked kernel and the d = 1 kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Keys = 64;  // keys a tile
 
-// QC: columns of d a q.k chunk; VC: output columns a block (d = 1: <1, 1>;
-// d > 64: <16, 64>). Block (tile of 128 query rows, head * nc + output
-// chunk, batch row), nc = ceil(d / VC); thread i owns row i of the tile.
-// Scores are in log2 units from the start: q is staged times scale_log2,
-// and the staged bias times log2(e) (-inf past K) is added to each dot
-// product, so the exponent's argument is one subtraction of the running max
-// (fused_attention_packed.cu's float32 kernel says why not an FMA with it).
-template <int QC, int VC>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // to nearest even, once
+}
+
+// QC: columns of d a q.k chunk; VC: output columns a block (d = 1:
+// <1, 1, T> in either dtype; float32 above 256: <16, 64, float>); T the
+// element type of q, k, v and out, widened to f32 as it is staged. Block
+// (tile of 128 query rows, head * nc + output chunk, batch row), nc =
+// ceil(d / VC); thread i owns row i of the tile. Scores are in log2 units
+// from the start: q is staged times scale_log2, and the staged bias times
+// log2(e) (-inf past K) is added to each dot product, so the exponent's
+// argument is one subtraction of the running max (fused_attention_packed.
+// cu's float32 kernel says why not an FMA with it).
+template <int QC, int VC, typename T>
 __global__ void __launch_bounds__(kThreads)
-attn_packed_kernel_chunked_f32(const float* __restrict__ q,
-                               const float* __restrict__ k,
-                               const float* __restrict__ v,
+attn_packed_kernel_chunked_f32(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
                                const float* __restrict__ bias,
-                               float* __restrict__ out, int L, int K, int d,
+                               T* __restrict__ out, int L, int K, int d,
                                Strides st, float scale_log2) {
   __shared__ float qs[kThreads][QC + 1];  // +1: a thread's row, no conflict
   __shared__ __align__(16) float ks[kF32Keys][QC];
@@ -308,10 +356,10 @@ attn_packed_kernel_chunked_f32(const float* __restrict__ q,
   const int col_o = (blockIdx.y % nc) * VC;
   const int q0 = blockIdx.x * kThreads;
   const int tid = threadIdx.x;
-  const float* qb = q + b * st.q_batch + h * st.q_head;
+  const T* qb = q + b * st.q_batch + h * st.q_head;
   const long long kv_off = b * st.kv_batch + h * st.kv_head;
-  const float* kb = k + kv_off;
-  const float* vb = v + kv_off;
+  const T* kb = k + kv_off;
+  const T* vb = v + kv_off;
   const float* biasb = bias ? bias + static_cast<long long>(b) * K : nullptr;
 
   float acc[VC];
@@ -330,17 +378,18 @@ attn_packed_kernel_chunked_f32(const float* __restrict__ q,
       if (k0 == 0 || d > QC) {  // one chunk of q stays for every tile
         for (int i = tid; i < kThreads * QC; i += kThreads) {
           const int r = i / QC, c = c0 + i % QC;
-          qs[r][i % QC] = q0 + r < L && c < d
-                              ? qb[static_cast<long long>(q0 + r) * st.q_row
-                                   + c] * scale_log2
-                              : 0.f;
+          qs[r][i % QC] =
+              q0 + r < L && c < d
+                  ? to_f32(qb[static_cast<long long>(q0 + r) * st.q_row +
+                              c]) * scale_log2
+                  : 0.f;
         }
       }
       for (int i = tid; i < kF32Keys * QC; i += kThreads) {
         const int j = i / QC, c = c0 + i % QC;
         ks[j][i % QC] =
             j < nk && c < d
-                ? kb[static_cast<long long>(k0 + j) * st.kv_row + c]
+                ? to_f32(kb[static_cast<long long>(k0 + j) * st.kv_row + c])
                 : 0.f;
       }
       if (c0 == 0) {
@@ -348,7 +397,8 @@ attn_packed_kernel_chunked_f32(const float* __restrict__ q,
           const int j = i / VC, c = col_o + i % VC;
           vs[j][i % VC] =
               j < nk && c < d
-                  ? vb[static_cast<long long>(k0 + j) * st.kv_row + c]
+                  ? to_f32(vb[static_cast<long long>(k0 + j) * st.kv_row +
+                              c])
                   : 0.f;
         }
         if (tid < kF32Keys) {
@@ -392,30 +442,394 @@ attn_packed_kernel_chunked_f32(const float* __restrict__ q,
   // all keys masked: 0, as the TPU kernel's (m > -1e29) factor gives
   const bool keep = biasb == nullptr || m > -1e29f * kLog2e;
   const float inv = keep ? 1.f / l : 0.f;
-  float* op = out + b * st.q_batch + h * st.q_head +
-              static_cast<long long>(row) * st.q_row;
+  T* op = out + b * st.q_batch + h * st.q_head +
+          static_cast<long long>(row) * st.q_row;
 #pragma unroll
   for (int i = 0; i < VC; ++i) {
-    if (col_o + i < d) op[col_o + i] = acc[i] * inv;
+    if (col_o + i < d) op[col_o + i] = from_f32<T>(acc[i] * inv);
   }
+}
+
+// ---------------------------------------------------------------------------
+// float32, d = 65..256: one block all columns of its rows
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 256;
+constexpr int kWideMaxD = 256;
+
+// C: d rounded up to 128 or 256. A block owns R query rows and takes keys
+// in super-tiles of KS; q (R x C) and p (KS x R) each fill 64 KiB. k comes
+// in depth chunks of DK columns of the KS keys, v in chunks of VK keys of
+// all C columns, each about 32 KiB, through a 2-slot ring. Each thread
+// holds an 8 x 8 register tile of the R x KS scores (rows rg + TR i, keys
+// kg + TK j) and one of O (rows rg + TR i, the two float4 columns
+// 4 kg + C/2 n): each float4 a thread reads from shared memory feeds 16
+// FMAs, one byte a FMA, the rate at which shared memory returns data.
+// Rows are padded by 4 floats: 8 consecutive rows at one float4 fall in
+// distinct banks.
+template <int C>
+struct Wide {
+  static constexpr int kRows = 16384 / C;  // R
+  static constexpr int kKeys = C;          // KS
+  static constexpr int kDk = 8192 / C;     // DK
+  static constexpr int kVk = 8192 / C;     // VK
+  static constexpr int kTr = kRows / 8;    // row groups
+  static constexpr int kTk = kKeys / 8;    // key groups (lanes of a row)
+  static constexpr int kQs = C + 4;        // row strides, floats
+  static constexpr int kKs = kDk + 4;
+  static constexpr int kPs = kRows + 4;
+  static constexpr int kSlot = kKeys * kKs > kVk * kQs ? kKeys * kKs
+                                                       : kVk * kQs;
+  // q, p, two slots; each row's running max, running sum, rescale and
+  // 1 / sum
+  static constexpr int kFloats =
+      kRows * kQs + kKeys * kPs + 2 * kSlot + 4 * kRows;
+  static constexpr int kSmem = 4 * kFloats;
+  static_assert(kTr * kTk == kWideThreads, "a thread a score tile");
+  static_assert(kTr * (C / 8) == kWideThreads, "a thread an O tile");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of a rows x cols box (row r, column c at src + r * stride
+// + c; columns c0.. of the tensor) into `tile` (row stride ts floats),
+// zero-filled at rows >= nrows and at columns c0 + c >= d. vec: d and
+// every stride are multiples of 4 and the pointers 16-byte aligned, so
+// each 4 columns are one 16-byte copy; else one copy a value.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void wide_stage(float* tile, int ts,
+                                           const float* src,
+                                           long long stride, int nrows,
+                                           int c0, int d, bool vec) {
+  const uint32_t base = smem_u32(tile);
+  if (vec) {
+    for (int i = threadIdx.x; i < ROWS * COLS / 4; i += kWideThreads) {
+      const int r = i / (COLS / 4);
+      const int c = 4 * (i % (COLS / 4));
+      const bool ok = r < nrows && c0 + c < d;
+      cp_async16(base + 4 * (r * ts + c), ok ? src + r * stride + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * COLS; i += kWideThreads) {
+      const int r = i / COLS;
+      const int c = i % COLS;
+      const bool ok = r < nrows && c0 + c < d;
+      cp_async4(base + 4 * (r * ts + c), ok ? src + r * stride + c : src,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+// Block (tile of R query rows, head, batch row). scale_log2 = log2(e) /
+// sqrt(d). vec as wide_stage's, for out too.
+template <int C>
+__global__ void __launch_bounds__(kWideThreads, 1)
+attn_packed_kernel_f32wide(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ bias,
+                           float* __restrict__ out, int L, int K, int d,
+                           Strides st, float scale_log2, int vec) {
+  using G = Wide<C>;
+  constexpr int R = G::kRows;
+  extern __shared__ __align__(16) float wsm[];
+  float* const qs = wsm;                       // R x C, times scale_log2
+  float* const ps = qs + R * G::kQs;           // p[key][8 rg + i]
+  float* const slots = ps + G::kKeys * G::kPs;  // k or v chunks
+  float* const mrow = slots + 2 * G::kSlot;  // each row's running max (log2)
+  float* const lrow = mrow + R;       // each row's running sum
+  float* const corr = lrow + R;       // each row's rescale this super-tile
+  float* const linv = corr + R;       // each row's 1 / sum
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * R;
+  const int tid = threadIdx.x;
+  const int rg = tid / G::kTk;  // rows rg + TR i, of q.k and of p.v
+  const int kg = tid % G::kTk;  // q.k: keys kg + TK j; p.v: column group
+  const float* qb = q + b * st.q_batch + h * st.q_head + q0 * st.q_row;
+  const long long kv_off = b * st.kv_batch + h * st.kv_head;
+  const float* kb = k + kv_off;
+  const float* vb = v + kv_off;
+  const float* biasb = bias ? bias + static_cast<long long>(b) * K : nullptr;
+  const int nkd = (d + G::kDk - 1) / G::kDk;  // k chunks a super-tile
+  const int tiles = (K + G::kKeys - 1) / G::kKeys;
+  // units a super-tile: nkd k chunks, then its v chunks
+  const auto units = [&](int t) {
+    return nkd + (min(G::kKeys, K - t * G::kKeys) + G::kVk - 1) / G::kVk;
+  };
+  // start the copy of unit i of super-tile t into slot n
+  const auto issue = [&](int t, int i, int n) {
+    const int k0 = t * G::kKeys;
+    float* const slot = slots + n * G::kSlot;
+    if (i < nkd) {
+      wide_stage<G::kKeys, G::kDk>(slot, G::kKs,
+                                   kb + k0 * st.kv_row + i * G::kDk,
+                                   st.kv_row, K - k0, i * G::kDk, d, vec);
+    } else {
+      const int j0 = k0 + (i - nkd) * G::kVk;
+      wide_stage<G::kVk, C>(slot, G::kQs, vb + j0 * st.kv_row, st.kv_row,
+                            K - j0, 0, d, vec);
+    }
+  };
+
+  // q and the first unit, then the second, each its own group
+  wide_stage<R, C>(qs, G::kQs, qb, st.q_row, L - q0, 0, d, vec);
+  int nt = 0, ni = 0;  // the next unit to copy
+  for (int n = 0; n < 2; ++n) {
+    if (nt < tiles) {
+      issue(nt, ni, n);
+      if (++ni == units(nt)) ni = 0, ++nt;
+    }
+    cp_async_commit();
+  }
+
+  if (tid < R) {
+    mrow[tid] = -FLT_MAX;
+    lrow[tid] = 0.f;
+  }
+  float s[8][8];  // scores of the super-tile, then its p
+  float o[8][8];  // O: rows rg + TR i, columns 4 kg + C/2 (e / 4)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
+
+  int n = 0;  // the slot of the current unit
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * G::kKeys;
+    const int nu = units(t);
+    for (int i = 0; i < nu; ++i, n ^= 1) {
+      cp_async_wait<1>();  // this unit (and q) landed; the next may not
+      __syncthreads();
+      const float* slot = slots + n * G::kSlot;
+      if (t == 0 && i == 0) {  // scores in log2 units from here on
+        for (int x = tid; x < R * G::kQs; x += kWideThreads) {
+          qs[x] *= scale_log2;
+        }
+        __syncthreads();
+      }
+      if (i < nkd) {
+        // S += q.k over this chunk's DK columns, in column order
+        if (i == 0) {
+#pragma unroll
+          for (int x = 0; x < 8; ++x)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) s[x][j] = 0.f;
+        }
+        const float* qr = qs + rg * G::kQs + i * G::kDk;
+        const float* kr = slot + kg * G::kKs;
+#pragma unroll 1  // unrolled, ptxas spills (see the note at the top)
+        for (int c = 0; c < G::kDk; c += 4) {
+          float4 qv[8];
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            qv[x] = *reinterpret_cast<const float4*>(
+                qr + x * G::kTr * G::kQs + c);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                kr + j * G::kTk * G::kKs + c);
+#pragma unroll
+            for (int x = 0; x < 8; ++x) {
+              s[x][j] = fmaf(qv[x].x, kv.x, s[x][j]);
+              s[x][j] = fmaf(qv[x].y, kv.y, s[x][j]);
+              s[x][j] = fmaf(qv[x].z, kv.z, s[x][j]);
+              s[x][j] = fmaf(qv[x].w, kv.w, s[x][j]);
+            }
+          }
+        }
+      } else {
+        if (i == nkd) {
+          // online softmax over the super-tile: each row's max and sum
+          // over its TK lanes (one warp or half-warp); the running max and
+          // sum, and the rescale of O (below), kept in shared memory. The
+          // bias of this thread's keys (times log2(e); -inf past K) comes
+          // straight from device memory, once a super-tile.
+          float bl[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int key = k0 + kg + G::kTk * j;
+            bl[j] = key >= K ? -INFINITY
+                             : (biasb ? __ldg(biasb + key) * kLog2e : 0.f);
+          }
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int row = rg + G::kTr * x;
+            float mx = -FLT_MAX;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              s[x][j] += bl[j];
+              mx = fmaxf(mx, s[x][j]);
+            }
+#pragma unroll
+            for (int off = 1; off < G::kTk; off *= 2) {
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            }
+            const float mo = mrow[row];
+            const float mn = fmaxf(mo, mx);
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              s[x][j] = ex2(s[x][j] - mn);
+              sum += s[x][j];
+            }
+#pragma unroll
+            for (int off = 1; off < G::kTk; off *= 2) {
+              sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            }
+            if (kg == 0) {  // the row's lanes read mrow before the shuffles
+              const float c = ex2(mo - mn);  // 1 when the max held
+              mrow[row] = mn;
+              lrow[row] = lrow[row] * c + sum;
+              corr[row] = c;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float* const pp = ps + (kg + G::kTk * j) * G::kPs + 8 * rg;
+            *reinterpret_cast<float4*>(pp) =
+                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+            *reinterpret_cast<float4*>(pp + 4) =
+                make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+          }
+          __syncthreads();  // p and the rescales written
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const float c = corr[rg + G::kTr * x];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) o[x][e] *= c;
+          }
+        }
+        // O += p.v over this chunk's VK keys
+        const float* pr = ps + ((i - nkd) * G::kVk) * G::kPs + 8 * rg;
+        const float* vr = slot + 4 * kg;
+#pragma unroll 8
+        for (int j = 0; j < G::kVk; ++j) {
+          const float4 p0 = *reinterpret_cast<const float4*>(pr + j * G::kPs);
+          const float4 p1 =
+              *reinterpret_cast<const float4*>(pr + j * G::kPs + 4);
+          const float4 w0 = *reinterpret_cast<const float4*>(vr + j * G::kQs);
+          const float4 w1 =
+              *reinterpret_cast<const float4*>(vr + j * G::kQs + C / 2);
+          const float pv[8] = {p0.x, p0.y, p0.z, p0.w,
+                               p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            o[x][0] = fmaf(pv[x], w0.x, o[x][0]);
+            o[x][1] = fmaf(pv[x], w0.y, o[x][1]);
+            o[x][2] = fmaf(pv[x], w0.z, o[x][2]);
+            o[x][3] = fmaf(pv[x], w0.w, o[x][3]);
+            o[x][4] = fmaf(pv[x], w1.x, o[x][4]);
+            o[x][5] = fmaf(pv[x], w1.y, o[x][5]);
+            o[x][6] = fmaf(pv[x], w1.z, o[x][6]);
+            o[x][7] = fmaf(pv[x], w1.w, o[x][7]);
+          }
+        }
+      }
+      __syncthreads();  // the slot (and p) read
+      if (nt < tiles) {
+        issue(nt, ni, n);
+        if (++ni == units(nt)) ni = 0, ++nt;
+      }
+      cp_async_commit();  // (empty at the end: the count stays even)
+    }
+  }
+  cp_async_wait<0>();
+
+  // 1 / sum, or 0 where every key was masked, as the TPU kernel's
+  // (m > -1e29) factor (in log2 units)
+  if (tid < R) {
+    const bool keep = biasb == nullptr || mrow[tid] > -1e29f * kLog2e;
+    linv[tid] = keep ? 1.f / lrow[tid] : 0.f;
+  }
+  __syncthreads();
+
+  float* ob = out + b * st.q_batch + h * st.q_head;
+#pragma unroll
+  for (int x = 0; x < 8; ++x) {
+    const int row = q0 + rg + G::kTr * x;
+    if (row >= L) continue;
+    const float inv = linv[rg + G::kTr * x];
+    float* op = ob + static_cast<long long>(row) * st.q_row;
+#pragma unroll
+    for (int hn = 0; hn < 2; ++hn) {
+      const int c = 4 * kg + (C / 2) * hn;
+      if (c >= d) continue;
+      const float rv[4] = {o[x][4 * hn] * inv, o[x][4 * hn + 1] * inv,
+                           o[x][4 * hn + 2] * inv, o[x][4 * hn + 3] * inv};
+      if (vec) {
+        *reinterpret_cast<float4*>(op + c) =
+            make_float4(rv[0], rv[1], rv[2], rv[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (c + e < d) op[c + e] = rv[e];
+        }
+      }
+    }
+  }
+}
+
+template <int C>
+int launch_wide(const float* q, const float* k, const float* v,
+                const float* bias, float* out, int B, int H, int L, int K,
+                int d, const Strides& st, float sl2, int vec,
+                cudaStream_t s) {
+  auto kernel = attn_packed_kernel_f32wide<C>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Wide<C>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L + Wide<C>::kRows - 1) / Wide<C>::kRows, H, B);
+  kernel<<<grid, kWideThreads, Wide<C>::kSmem, s>>>(q, k, v, bias, out, L, K,
+                                                    d, st, sl2, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry, bound with ctypes: q, k, v and out share dtype 0 (float32) or 1
-// (bfloat16); bias is a float32 (B, K) or null; any d >= 1. layout 0,
-// token-major (kernel K1): q, out (B, L, H*d); k, v (B, K, H*d), or a shared
-// (K, H*d) when kv_shared is 1. layout 1, head-split (kernel K2): q, out
-// (B, H, L, d); k, v (B, H, K, d), or a shared (1, H, K, d). Returns the
+// (bfloat16); bias is a float32 (B, K) or null. layout 0, token-major
+// (kernel K1): q, out (B, L, H*d); k, v (B, K, H*d), or a shared (K, H*d)
+// when kv_shared is 1. layout 1, head-split (kernel K2): q, out (B, H, L,
+// d); k, v (B, H, K, d), or a shared (1, H, K, d). kernel (plan's kernel):
+// 0 the d-chunked kernels (any d >= 1: attn_packed_kernel_chunked_tc for
+// bfloat16, attn_packed_kernel_chunked_f32<16, 64> for float32); 1 the
+// d = 1 kernel attn_packed_kernel_chunked_f32<1, 1, T> (d = 1, either
+// dtype); 2 attn_packed_kernel_f32wide (float32, d = 65..256). Returns the
 // CUDA error of the launch (0 on success), cudaErrorInvalidValue for what
-// the kernels do not take.
+// the kernel named does not take.
 extern "C" int samt_attention_chunked(const void* q, const void* k,
                                       const void* v, const void* bias,
                                       void* out, int B, int H, int L, int K,
                                       int d, int layout, int kv_shared,
-                                      float scale, int dtype, void* stream) {
+                                      float scale, int dtype, int kernel,
+                                      void* stream) {
   if (d < 1 || B <= 0 || H <= 0 || L <= 0 || K <= 0 || B > 65535 ||
-      (layout != 0 && layout != 1) || (dtype != 0 && dtype != 1)) {
+      (layout != 0 && layout != 1) || (dtype != 0 && dtype != 1) ||
+      (kernel == 1 && d != 1) ||
+      (kernel == 2 && (dtype != 0 || d <= 64 || d > kWideMaxD)) ||
+      kernel < 0 || kernel > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long E = static_cast<long long>(H) * d;
@@ -426,17 +840,44 @@ extern "C" int samt_attention_chunked(const void* q, const void* k,
           : Strides{H * static_cast<long long>(L) * d, d,
                     static_cast<long long>(L) * d, kv_shared ? 0 : H * kv_head,
                     d, kv_head};
-  const int nc = (d + kCols - 1) / kCols;
+  const int nc = kernel == 0 ? (d + kCols - 1) / kCols : 1;
   const float* bb = static_cast<const float*>(bias);
   const float sl2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (static_cast<long long>(H) * nc > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    const auto aligned = [](const void* p) {
-      return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-    };
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (kernel == 2) {
+    const int vec = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) &&
+                    aligned(out);
+    const auto* qf = static_cast<const float*>(q);
+    const auto* kf = static_cast<const float*>(k);
+    const auto* vf = static_cast<const float*>(v);
+    auto* of = static_cast<float*>(out);
+    return d <= 128 ? launch_wide<128>(qf, kf, vf, bb, of, B, H, L, K, d, st,
+                                       sl2, vec, s)
+                    : launch_wide<256>(qf, kf, vf, bb, of, B, H, L, K, d, st,
+                                       sl2, vec, s);
+  }
+  if (kernel == 1) {
+    const dim3 grid((L + kThreads - 1) / kThreads, H, B);
+    if (dtype == 1) {
+      attn_packed_kernel_chunked_f32<1, 1, __nv_bfloat16>
+          <<<grid, kThreads, 0, s>>>(
+              static_cast<const __nv_bfloat16*>(q),
+              static_cast<const __nv_bfloat16*>(k),
+              static_cast<const __nv_bfloat16*>(v), bb,
+              static_cast<__nv_bfloat16*>(out), L, K, d, st, sl2);
+    } else {
+      attn_packed_kernel_chunked_f32<1, 1, float><<<grid, kThreads, 0, s>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v), bb, static_cast<float*>(out), L, K,
+          d, st, sl2);
+    }
+  } else if (dtype == 1) {
     const int vec = d % 8 == 0 && aligned(q) && aligned(k) && aligned(v);
     const dim3 grid((L + kTcRows - 1) / kTcRows, H * nc, B);
     attn_packed_kernel_chunked_tc<<<grid, kThreads, 0, s>>>(
@@ -444,18 +885,13 @@ extern "C" int samt_attention_chunked(const void* q, const void* k,
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), bb,
         static_cast<__nv_bfloat16*>(out), L, K, d, st, sl2, vec);
-  } else if (d == 1) {
-    const dim3 grid((L + kThreads - 1) / kThreads, H, B);
-    attn_packed_kernel_chunked_f32<1, 1><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bb, static_cast<float*>(out), L, K, d,
-        st, sl2);
   } else {
     const dim3 grid((L + kThreads - 1) / kThreads, H * nc, B);
-    attn_packed_kernel_chunked_f32<16, kCols><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bb, static_cast<float*>(out), L, K, d,
-        st, sl2);
+    attn_packed_kernel_chunked_f32<16, kCols, float>
+        <<<grid, kThreads, 0, s>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k),
+            static_cast<const float*>(v), bb, static_cast<float*>(out), L,
+            K, d, st, sl2);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -25,10 +25,13 @@ a block all 256 output columns of its 64 query rows); the other bfloat16
 widths up to 64 run on ``mma.sync`` (``attn_packed_kernel_tc`` of
 ``csrc/fused_attention_packed.cu``, in the variant ``tc_plan`` and
 ``copy_bytes`` pick), float32 up to 64 on the CUDA cores
-(``attn_packed_kernel``, ``f32_rows`` query rows a thread), and d = 1 and
-the widths above 64 that the wgmma kernels do not take, in either dtype,
-the d-chunked kernels of ``csrc/fused_attention_chunked.cu`` (a block a
-chunk of at most 64 output columns). On a CPU
+(``attn_packed_kernel``, ``f32_rows`` query rows a thread). The kernels
+of ``csrc/fused_attention_chunked.cu`` take the rest: float32 at d =
+65..256 ``attn_packed_kernel_f32wide`` (CUDA cores, a block all output
+columns of its query rows), d = 1 in either dtype the CUDA-core
+``attn_packed_kernel_chunked_f32<1, 1, T>``, and the d-chunked kernels
+(a block a chunk of at most 64 output columns) bfloat16 above 64 where
+the wgmma kernels do not run and float32 above 256. On a CPU
 tensor it runs the plain PyTorch version
 (``fused_attention_packed_reference``, ``fused_attention_reference``),
 which the tests hold against the JAX package and the on-card check holds
@@ -59,7 +62,7 @@ from . import cuda_build
 # Kernel launches since the last reset, of either dtype's kernel: by
 # `fused_attention_packed` (K1) and by `fused_attention` (K2); and of both,
 # by the kernel `plan` named ("wgmma", "wgmma256", "mma", "f32",
-# "chunked").
+# "f32wide", "d1", "chunked").
 launches = 0
 split_launches = 0
 launch_kernels: Counter = Counter()
@@ -142,17 +145,33 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_WIDTHS = (16, 32, 64, 128)
 WGMMA_ROWS = 64
 # query rows per block of the d-chunked kernels, by dtype
-# (attn_packed_kernel_chunked_tc: 16 a warp; _f32: one a thread)
+# (attn_packed_kernel_chunked_tc: 16 a warp; _f32: one a thread), and of the
+# d = 1 kernel (one a thread, either dtype)
 CHUNKED_ROWS = {torch.bfloat16: 64, torch.float32: 128}
+D1_ROWS = 128
+# the float32 wide kernel (attn_packed_kernel_f32wide<C>) takes d above 64
+# up to F32WIDE_MAX_D: all columns of its query rows, d rounded up to C =
+# 128 or 256 and 16384 / C rows a block, so that q fills 64 KiB of shared
+# memory (at 64 rows of d floats, no room is left beyond 256)
+F32WIDE_MAX_D = 256
+
+
+def f32wide_rows(d: int) -> int:
+    """Query rows per block of the float32 wide kernel at head width d."""
+    return 16384 // (128 if d <= 128 else 256)
+
+
+# C entry samt_attention_chunked's kernel argument, by plan kernel
+CHUNKED_ENTRY_KERNELS = {"chunked": 0, "d1": 1, "f32wide": 2}
 
 
 class Plan(NamedTuple):
     """The kernel a call launches: ``kernel`` is "wgmma", "wgmma256",
-    "mma", "f32" or "chunked"; ``rows`` its query rows per block (wgmma:
-    always 64, one consumer warpgroup, as wgmma256; mma; chunked) or per
-    thread (f32); ``nv`` and ``copy_bytes`` the mma.sync variant's P.V
-    width in n8 tiles and bytes per cp.async of a key row (0 for the
-    others)."""
+    "mma", "f32", "f32wide", "d1" or "chunked"; ``rows`` its query rows
+    per block (wgmma: always 64, one consumer warpgroup, as wgmma256;
+    f32wide: ``f32wide_rows``; mma; d1; chunked) or per thread (f32); ``nv`` and
+    ``copy_bytes`` the mma.sync variant's P.V width in n8 tiles and bytes
+    per cp.async of a key row (0 for the others)."""
     kernel: str
     rows: int
     nv: int = 0
@@ -166,8 +185,10 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
     launches or the call raises). bfloat16 where q, k, v and out are
     16-byte aligned (TMA's rule for a tensor map's base): the wgmma kernel
     where d is in WGMMA_WIDTHS, the d = 256 wgmma kernel at d = 256.
-    Else, at d = 1 and above 64, the d-chunked kernel
-    of either dtype; at d = 2..64 the mma.sync kernel's ``tc_plan`` variant
+    Else: d = 1, the CUDA-core d = 1 kernel of either dtype; float32 at
+    d = 65..F32WIDE_MAX_D the float32 wide kernel; above 64 the rest (bf16
+    not on wgmma, float32 above F32WIDE_MAX_D) the d-chunked kernel of its
+    dtype; at d = 2..64 the mma.sync kernel's ``tc_plan`` variant
     (bfloat16) or the CUDA-core kernel at ``f32_rows`` rows a thread
     (float32)."""
     if d < 1:
@@ -178,7 +199,11 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
             return Plan("wgmma", WGMMA_ROWS)
         if d == 256:
             return Plan("wgmma256", WGMMA_ROWS)
-    if d == 1 or d > 8 * TC_WIDTHS[-1]:
+    if d == 1:
+        return Plan("d1", D1_ROWS)
+    if dtype == torch.float32 and 8 * TC_WIDTHS[-1] < d <= F32WIDE_MAX_D:
+        return Plan("f32wide", f32wide_rows(d))
+    if d > 8 * TC_WIDTHS[-1]:
         return Plan("chunked", CHUNKED_ROWS[dtype])
     if dtype == torch.float32:
         return Plan("f32", f32_rows(B, H, L, d, sms))
@@ -319,13 +344,14 @@ def _launch_cuda(q, k, v, bias, num_heads):
             ctypes.c_float, ctypes.c_void_p]
         args = (*ptrs, B, H, L, K, int(split), kv_shared,
                 1.0 / math.sqrt(d), stream)
-    elif p.kernel == "chunked":
+    elif p.kernel in CHUNKED_ENTRY_KERNELS:
         fn = cuda_build.load(
             "fused_attention_chunked").samt_attention_chunked
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         args = (*ptrs, B, H, L, K, d, int(split), kv_shared,
-                1.0 / math.sqrt(d), _DTYPES[q.dtype], stream)
+                1.0 / math.sqrt(d), _DTYPES[q.dtype],
+                CHUNKED_ENTRY_KERNELS[p.kernel], stream)
     else:
         lib = cuda_build.load("fused_attention_packed")
         if split:

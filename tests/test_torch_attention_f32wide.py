@@ -1,0 +1,240 @@
+"""The float32 wide kernel and the d = 1 kernel of
+``csrc/fused_attention_chunked.cu`` (kernels K1 and K2 at float32 d =
+65..256 and at d = 1 in either dtype), on the CPU.
+
+- ``attn_packed_kernel_f32wide<C>``'s arithmetic emulated in torch: d
+  zero-padded to C = 128 or 256 columns, q times scale * log2(e) first,
+  keys in super-tiles of C (-inf past K), a running max from -FLT_MAX
+  rescaling the sum and the accumulator once a super-tile, exp2, f32
+  weights, 0 for an all-masked row. Held against the JAX package's Pallas
+  kernels in interpret mode and the plain version at d = 65, 96, 128,
+  160 and 256, ragged L and K over two super-tiles, a shared context, in
+  both layouts, at ``chip_smoke.py``'s float32 tolerance (2e-5). Above
+  256 float32 stays on the d-chunked kernel, emulated at d = 320.
+- The d = 1 kernel in bfloat16: bf16 q, k and v widened to f32, the
+  float32 d = 1 kernel's arithmetic, one rounding, at one bf16 ulp.
+- ``plan``'s routing of these widths, and the pairs that
+  ``chip_attention_choice.py`` times.
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_attention_choice as choice  # noqa: E402
+from synergize_motion_appearance_tpu_torch.ops import (  # noqa: E402
+    fused_attention as port,
+)
+from test_torch_attention_wgmma import (  # noqa: E402
+    BF16_TOL,
+    F32_TOL,
+    FLT_MAX,
+    H100_SMS,
+    LOG2E,
+    _heads,
+)
+from test_torch_attention_widths import (  # noqa: E402
+    _inputs,
+    _pallas,
+    emulate_chunked,
+)
+from _torch_threads import two_torch_threads  # noqa: E402,F401
+
+
+def wide_columns(d):
+    """The padded width C of the kernel instance that takes d (its rows
+    per block are 16384 / C, its keys per super-tile C)."""
+    return 128 if d <= 128 else 256
+
+
+def emulate_f32wide(q, k, v, bias, num_heads):
+    """The float32 wide kernel's arithmetic on token-major float32 inputs:
+    q (B, L, E), k, v (B, K, E) or (K, E), bias (B, K) float32 or None;
+    returns (B, L, E)."""
+    B, L, E = q.shape
+    H = num_heads
+    d = E // H
+    K = k.shape[-2]
+    C = wide_columns(d)
+
+    def pad(t):  # zero past d, up to C columns
+        return torch.nn.functional.pad(t, (0, C - d))
+
+    sl2 = torch.tensor(1 / math.sqrt(d), dtype=torch.float32) * LOG2E
+    qh = pad(_heads(q, B, H, L, d)) * sl2  # q staged times scale_log2
+    kh, vh = pad(_heads(k, B, H, K, d)), pad(_heads(v, B, H, K, d))
+    m = torch.full((B, H, L), -FLT_MAX)
+    l = torch.zeros(B, H, L)
+    acc = torch.zeros(B, H, L, C)
+    for k0 in range(0, K, C):  # super-tiles of C keys
+        n = min(C, K - k0)
+        kt = torch.zeros(B, H, C, C)  # zero past K
+        kt[:, :, :n] = kh[:, :, k0:k0 + n]
+        vt = torch.zeros(B, H, C, C)
+        vt[:, :, :n] = vh[:, :, k0:k0 + n]
+        bl = torch.full((B, C), -math.inf)
+        bl[:, :n] = 0.0 if bias is None else bias[:, k0:k0 + n] * LOG2E
+        s = qh @ kt.transpose(-1, -2) + bl[:, None, None, :]
+        m_new = torch.maximum(m, s.amax(-1))
+        c = torch.exp2(m - m_new)
+        m = m_new
+        p = torch.exp2(s - m[..., None])
+        l = l * c + p.sum(-1)
+        acc = acc * c[..., None] + p @ vt
+    o = acc / l[..., None]
+    if bias is not None:
+        keep = m > torch.tensor(-1e29, dtype=torch.float32) * LOG2E
+        o = torch.where(keep[..., None], o, torch.zeros(()))
+    return o[..., :d].permute(0, 2, 1, 3).reshape(B, L, E)
+
+
+def _token_major(q, k, v):
+    """Head-split q (B, H, L, d), k, v (B or 1, H, K, d) as token-major
+    q (B, L, E) and k, v (B, K, E), or (K, E) for a shared context."""
+    def merge(t):
+        n, H, T, d = t.shape
+        return t.permute(0, 2, 1, 3).reshape(n, T, H * d)
+
+    B = q.shape[0]
+    kk, vv = merge(k), merge(v)
+    if k.shape[0] == 1 and B != 1:
+        kk, vv = kk[0], vv[0]
+    return merge(q), kk, vv
+
+
+def _split(out, H):
+    B, L, E = out.shape
+    return out.reshape(B, L, H, E // H).permute(0, 2, 1, 3)
+
+
+WIDE_CASES = [
+    # d, H, B, L, K, bias, shared
+    (65, 2, 2, 18, 140, True, False),   # one column past 64, C = 128
+    (96, 2, 2, 20, 129, False, True),   # shared codebook, one-key tile
+    (128, 1, 2, 17, 200, True, False),  # C = 128, two super-tiles
+    (160, 1, 2, 16, 270, True, True),   # C = 256, ragged K
+    (256, 1, 2, 19, 260, True, False),  # two super-tiles of 256
+]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("d,H,B,L,K,masked,shared", WIDE_CASES, ids=str)
+def test_f32wide_emulation_matches_pallas_and_plain(d, H, B, L, K, masked,
+                                                    shared, split):
+    q, k, v, bias = _inputs(B, H, L, K, d, masked, shared, seed=d + K,
+                            split=split)
+    assert port.plan(torch.float32, B, H, L, d, H100_SMS, 0, 0, 0,
+                     0) == port.Plan("f32wide", 16384 // wide_columns(d))
+    got = emulate_f32wide(*(_token_major(q, k, v) if split else (q, k, v)),
+                          bias, H)
+    if split:
+        got = _split(got, H)
+    torch.testing.assert_close(got, _pallas(H, q, k, v, bias, split),
+                               **F32_TOL)
+    plain = (port.fused_attention_reference(q, k, v, bias) if split else
+             port.fused_attention_packed_reference(q, k, v, bias,
+                                                   num_heads=H))
+    torch.testing.assert_close(got, plain, **F32_TOL)
+    if masked:
+        assert got[0].abs().max().item() == 0.0, "all-masked batch row"
+    assert torch.isfinite(got).all()
+
+
+def test_f32_above_256_stays_on_the_d_chunked_kernel():
+    """float32 d = 320: past the wide kernel's q tile, plan keeps the
+    d-chunked kernel (<16, 64>: five 64-column blocks, each repeating
+    q.k), whose arithmetic matches the Pallas kernel and the plain
+    version."""
+    d, H, B, L, K = 320, 1, 2, 17, 90
+    assert port.plan(torch.float32, B, H, L, d, H100_SMS, 0, 0, 0,
+                     0) == port.Plan("chunked", 128)
+    q, k, v, bias = _inputs(B, H, L, K, d, True, True, seed=11)
+    got = emulate_chunked(q, k, v, bias, H)
+    torch.testing.assert_close(got, _pallas(H, q, k, v, bias), **F32_TOL)
+    torch.testing.assert_close(
+        got, port.fused_attention_packed_reference(q, k, v, bias,
+                                                   num_heads=H), **F32_TOL)
+    assert got[0].abs().max().item() == 0.0
+
+
+D1_CASES = [
+    # H, B, L, K, bias, shared
+    (4, 2, 20, 70, True, False),
+    (8, 2, 16, 40, False, True),
+    (32, 1, 9, 130, True, True),
+]
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("H,B,L,K,masked,shared", D1_CASES, ids=str)
+def test_d1_bf16_emulation_matches_pallas_and_plain(H, B, L, K, masked,
+                                                    shared, split):
+    """bfloat16 d = 1 on the CUDA-core d = 1 kernel: the float32
+    instance's arithmetic (one row a thread, 64-key tiles, a one-column
+    q.k chunk) on the widened inputs, rounded once to bf16."""
+    q, k, v, bias = _inputs(B, H, L, K, 1, masked, shared, seed=K + L,
+                            dtype=torch.bfloat16, split=split)
+    assert port.plan(torch.bfloat16, B, H, L, 1, H100_SMS, 0, 0, 0,
+                     0) == port.Plan("d1", port.D1_ROWS)
+    tq, tk, tv = _token_major(q, k, v) if split else (q, k, v)
+    got = emulate_chunked(tq.float(), tk.float(), tv.float(), bias,
+                          H).to(torch.bfloat16)
+    if split:
+        got = _split(got, H)
+    torch.testing.assert_close(got.float(), _pallas(H, q, k, v, bias, split),
+                               **BF16_TOL)
+    plain = (port.fused_attention_reference(q, k, v, bias) if split else
+             port.fused_attention_packed_reference(q, k, v, bias,
+                                                   num_heads=H))
+    assert plain.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), plain.float(), **BF16_TOL)
+    if masked:
+        assert got[0].abs().max().item() == 0.0, "all-masked batch row"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_plan_routes_d1_and_f32_wide_at_any_address(dtype):
+    """d = 1 goes to the d = 1 kernel and float32 65..256 to the wide
+    kernel at every address (neither reads through TMA), and the C
+    entry's kernel argument names each."""
+    for ptr in (4096, 4096 + 4, 4096 + 2 * (dtype == torch.bfloat16)):
+        for B, H, L in ((16, 32, 1024), (1, 1, 1)):
+            assert port.plan(dtype, B, H, L, 1, H100_SMS, ptr, ptr, ptr,
+                             ptr) == port.Plan("d1", 128)
+            for d in (65, 97, 128, 129, 200, 256):
+                want = (port.Plan("f32wide", 128 if d <= 128 else 64)
+                        if dtype == torch.float32
+                        else port.plan(dtype, B, H, L, d, H100_SMS, ptr,
+                                       ptr, ptr, ptr))
+                assert port.plan(dtype, B, H, L, d, H100_SMS, ptr, ptr, ptr,
+                                 ptr) == want
+                if dtype == torch.bfloat16:
+                    assert want.kernel != "f32wide"
+    assert port.F32WIDE_MAX_D == 256
+    assert port.CHUNKED_ENTRY_KERNELS == {"chunked": 0, "d1": 1,
+                                          "f32wide": 2}
+
+
+def test_choice_times_each_new_kernel_against_the_one_it_replaced():
+    """chip_attention_choice.py: at float32 d = 256 and 128 the wide
+    kernel against the d-chunked one, at bfloat16 d = 1 the d = 1 kernel
+    against the d-chunked tensor-core one, at float32 d = 1 the d = 1
+    kernel against the CUDA-core kernel of fused_attention_packed.cu; its
+    widths are the six it names."""
+    def kernels(dtype, H, d):
+        return [p.kernel for p in choice.candidates(port, dtype, 16, H, 1024,
+                                                    d, H100_SMS)]
+
+    assert kernels(torch.float32, 1, 256) == ["f32wide", "chunked"]
+    assert kernels(torch.float32, 2, 128) == ["f32wide", "chunked"]
+    assert kernels(torch.bfloat16, 32, 1) == ["d1", "chunked"]
+    assert kernels(torch.float32, 32, 1) == ["d1", "f32"]
+    assert choice.candidates(port, torch.float32, 16, 1, 1024, 256,
+                             H100_SMS)[1] == port.Plan("chunked", 128)
+    assert choice.WIDTHS == [
+        (32, "motion", torch.float32), (32, "motion", torch.bfloat16),
+        (32, "app", torch.bfloat16), (1, "app", torch.bfloat16),
+        (1, "app", torch.float32), (2, "app", torch.float32)]
+

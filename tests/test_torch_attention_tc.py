@@ -176,10 +176,11 @@ def test_tc_plan_every_width_has_a_variant():
         smaller = [n for n in port.TC_WIDTHS if n < nv]
         assert not smaller or 8 * smaller[-1] < d
         assert ones == (d < 8 * nv)
-    # the widths the mma.sync kernel does not take go to the d-chunked one
-    for d in (1, 65):
+    # the widths the mma.sync kernel does not take: d = 1 to the d = 1
+    # kernel, 65 to the d-chunked one
+    for d, kernel in ((1, "d1"), (65, "chunked")):
         assert port.plan(torch.bfloat16, 1, 1, 1, d, H100_SMS, 0, 0, 0,
-                         0).kernel == "chunked"
+                         0).kernel == kernel
 
 
 @pytest.mark.parametrize("case", [

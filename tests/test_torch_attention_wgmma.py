@@ -394,11 +394,12 @@ def test_plan_mma_variant_is_tc_plan():
     ((torch.bfloat16, "k"), "chunked"),
     ((torch.bfloat16, "v"), "chunked"),
     ((torch.bfloat16, "out"), "chunked"),
-    ((torch.float32, None), "chunked"),
+    ((torch.float32, None), "f32wide"),
 ], ids=str)
 def test_plan_d256(case):
     (dtype, off), want = case
     ptrs = [4096 + 2 * (name == off) for name in ("q", "k", "v", "out")]
     p = port.plan(dtype, 16, 1, 1024, 256, H100_SMS, *ptrs)
-    assert p == (port.Plan("wgmma256", 64) if want == "wgmma256" else
-                 port.Plan("chunked", port.CHUNKED_ROWS[dtype]))
+    rows = {"wgmma256": 64, "f32wide": port.f32wide_rows(256),
+            "chunked": port.CHUNKED_ROWS[dtype]}
+    assert p == port.Plan(want, rows[want])

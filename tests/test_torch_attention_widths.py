@@ -234,9 +234,14 @@ def test_chunked_emulation_matches_pallas_and_plain(d, H, B, L, K, masked,
                                                     shared, dtype):
     q, k, v, bias = _inputs(B, H, L, K, d, masked, shared, seed=d + K,
                             dtype=dtype)
-    # q at an address TMA cannot take: bf16 d = 256 runs here only then
+    # plan sends bf16 above 64 here where TMA cannot take an address (q
+    # here); float32 65..256 to the wide kernel and d = 1 to the d = 1
+    # kernel (tests/test_torch_attention_f32wide.py), where the d-chunked
+    # kernels still run when named (chip_attention_choice.py times them)
+    want = ("d1" if d == 1 else "f32wide" if dtype == torch.float32
+            else "chunked")
     assert port.plan(dtype, B, H, L, d, H100_SMS, 2, 0, 0,
-                     0).kernel == "chunked"
+                     0).kernel == want
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     got = emulate_chunked(q, k, v, bias, H).float()
     torch.testing.assert_close(got, _pallas(H, q, k, v, bias), **tol)
@@ -269,9 +274,10 @@ def _plan_before(dtype, B, H, L, d, sms, q_ptr, k_ptr, v_ptr, out_ptr):
                          ids=["f32", "bf16"])
 def test_plan_takes_every_width(dtype):
     """Every d in 1..512 gets a kernel, aligned or not; d = 2..64 the one
-    it got before; d = 1 and the rest past 64 the d-chunked kernel, but
-    bf16 d = 128 and 256 at aligned pointers, which run on wgmma and on
-    the d = 256 wgmma kernel."""
+    it got before; d = 1 the d = 1 kernel; float32 65..256 the wide
+    kernel; the rest past 64 the d-chunked kernel, but bf16 d = 128 and
+    256 at aligned pointers, which run on wgmma and on the d = 256 wgmma
+    kernel."""
     for d in range(1, 513):
         for ptr in (4096, 4096 + 8):
             for B, H, L in ((16, 8, 1024), (2, 1, 33)):
@@ -284,6 +290,11 @@ def test_plan_takes_every_width(dtype):
                     assert got == port.Plan("wgmma", 64)
                 elif dtype == torch.bfloat16 and d == 256 and ptr == 4096:
                     assert got == port.Plan("wgmma256", 64)
+                elif d == 1:
+                    assert got == port.Plan("d1", 128)
+                elif dtype == torch.float32 and d <= 256:
+                    assert got == port.Plan("f32wide",
+                                            128 if d <= 128 else 64), d
                 else:
                     assert got == port.Plan("chunked",
                                             port.CHUNKED_ROWS[dtype]), d
@@ -293,7 +304,7 @@ def test_plan_takes_every_width(dtype):
     # (dtype, aligned) -> kernel at d = 128
     ((torch.bfloat16, True), "wgmma"),
     ((torch.bfloat16, False), "chunked"),   # a base TMA cannot take
-    ((torch.float32, True), "chunked"),
+    ((torch.float32, True), "f32wide"),
 ], ids=str)
 def test_plan_d128(case):
     (dtype, aligned), want = case
@@ -315,7 +326,7 @@ def test_plan_and_check_refuse_width_0():
     (1, {"f32": 16, "wgmma256": 16}),  # motion d = 32, appearance 256
     (2, {"f32": 16, "wgmma": 16}),     # motion d = 16, appearance 128
     (8, {"f32": 16, "wgmma": 16}),     # shipped: d = 4 and 32
-    (32, {"chunked": 16, "mma": 16}),  # motion d = 1, appearance 8
+    (32, {"d1": 16, "mma": 16}),       # motion d = 1, appearance 8
 ], ids=str)
 def test_head_width_kernels(case):
     H, want = case
@@ -329,14 +340,14 @@ def test_choice_times_every_d256_variant():
     and the one other kernel of each width."""
     import chip_attention_choice as choice
 
-    dtype, plans = choice.candidates(port, 1, False, 16, 1024, 256,
-                                     H100_SMS)
-    assert dtype == torch.bfloat16
+    plans = choice.candidates(port, torch.bfloat16, 16, 1, 1024, 256,
+                              H100_SMS)
     assert plans == [port.Plan("wgmma256", 64), port.Plan("chunked", 64)]
     assert [p.kernel for p in choice.candidates(
-        port, 32, True, 16, 1024, 1, H100_SMS)[1]] == ["chunked", "f32"]
+        port, torch.float32, 16, 32, 1024, 1, H100_SMS)] == ["d1", "f32"]
     assert [p.kernel for p in choice.candidates(
-        port, 32, False, 16, 1024, 8, H100_SMS)[1]] == ["mma", "chunked"]
+        port, torch.bfloat16, 16, 32, 1024, 8, H100_SMS)] == ["mma",
+                                                              "chunked"]
 
 
 def test_width_halves_sum_by_half_dtype_and_kernel():

@@ -14,3 +14,157 @@ def test_phase_clock_times_each_key_from_the_one_before(monkeypatch):
                               "kernels": 0.25}
     assert report == {"card": "H100", "build_s": 1.0, "k1_cases": [1],
                       "main_path": {"frames": 64}, "kernels": []}
+
+
+def test_kernel_entry_of_a_float32_only_kernel():
+    """kernel_entry for a kernel with float32 cases only (the float32
+    wide kernel): max_abs_err over them, and times summed per call with
+    weight "calls" over the cases ``summed`` picks (the d-chunked
+    kernels' ragged shapes, one call each)."""
+    def row(d, err, ms, calls=1, timed=True):
+        r = {"dtype": "float32", "d": d, "max_abs_err": err, "calls": calls}
+        if timed:
+            r.update(ms=ms, plain_ms=10 * ms, library_ms=ms / 2,
+                     device_ms=ms, library_device_ms=ms / 2,
+                     bound_ms=ms / 4, bound_by="operations")
+        return r
+
+    rows = [row(256, 1e-6, 0.5), row(320, 3e-6, 1.0),
+            row(96, 2e-6, None, timed=False)]
+    got = chip_smoke.kernel_entry("k", "a.cu", "b.py:1", rows, "calls", 0,
+                                  "note", summed=lambda r: "ms" in r)
+    assert got["max_abs_err"] == 3e-6 and "max_abs_err_f32" not in got
+    assert got["ms"] == 1.5 and got["plain_ms"] == 15.0
+    assert got["library_ms"] == 0.75 and got["device_ms"] == 1.5
+    assert got["bound_ms"] == 0.375 and got["bound_by"] == "operations"
+    assert got["launches"] == 0
+
+
+def test_guards_hold_the_new_kernels():
+    """The speed guards name the float32 wide kernel's float32 d = 256
+    sum and the d = 1 kernel's bf16 sum, beside the earlier six."""
+    names = [(name, key) for name, key, _ in chip_smoke.PREVIOUS_MS]
+    assert ("fused_attention_packed (f32 wide)", "device_ms") in names
+    assert ("fused_attention_packed (d = 1)", "device_ms_bf16") in names
+    assert len(names) == 8 == len(set(names))
+
+
+def test_ragged_widths_reach_each_wide_kernel():
+    """RAGGED_WIDTHS, at aligned pointers, run the float32 wide kernel
+    (float32 d = 96, 161, 256), the d = 256 wgmma kernel (bf16 d = 256)
+    and the d-chunked kernels (bf16 d = 96, 161, 320, float32 d = 320),
+    so the d-chunked kernels, on no frame batch, are checked and timed
+    there."""
+    import pytest
+
+    torch = pytest.importorskip("torch")
+    from synergize_motion_appearance_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+
+    got = {}
+    for name, B, L, E, H, K, _, _, _ in chip_smoke.RAGGED_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            kernel = fa.plan(dtype, B, H, L, E // H, 132, 0, 0, 0, 0).kernel
+            got.setdefault(kernel, set()).add(
+                (str(dtype).split(".")[1], E // H))
+    assert got == {
+        "f32wide": {("float32", 96), ("float32", 161), ("float32", 256)},
+        "wgmma256": {("bfloat16", 256)},
+        "chunked": {("bfloat16", 96), ("bfloat16", 161), ("bfloat16", 320),
+                    ("float32", 320)}}
+
+
+def _widths_report(torch, fa):
+    """A report shaped as attention_widths_phase returns it (string keys),
+    with each row's kernel from plan and made-up times: K1 and K2 rows at
+    n_head 1, 2 and 32 and at RAGGED_WIDTHS, timed as the phase times
+    them, and the frame batches' kernel counts."""
+    def rows(cases, weight, split):
+        out = []
+        for name, B, L, E, H, K, _, _, per in cases:
+            d = E // H
+            path = "float32" if name.startswith("motion") else "bfloat16"
+            for dtype in (torch.float32, torch.bfloat16):
+                dt = str(dtype).split(".")[1]
+                kernel = fa.plan(dtype, B, H, L, d, 132, 0, 0, 0, 0).kernel
+                r = {"case": name, "dtype": dt, "d": d, "kernel": kernel,
+                     weight: per, "max_abs_err": 1e-6 * d}
+                if split:
+                    timed = per and (dt == "bfloat16" or d > 64 or d == 1)
+                else:
+                    r.update(calls=1, on_path=bool(per) and dt == path)
+                    timed = ((per or kernel == "chunked")
+                             and (dt == "bfloat16" or r["on_path"]
+                                  or not per or d > 64))
+                if timed:
+                    r.update(ms=0.2, plain_ms=2.0, library_ms=0.1,
+                             device_ms=0.1, library_device_ms=0.05,
+                             bound_ms=0.05, bound_by="operations")
+                out.append(r)
+        return out
+
+    report = {"k1": {}, "k2": {}, "halves": {}, "frame_batches": {}}
+    for H in chip_smoke.HEAD_COUNTS:
+        cases = chip_smoke.attention_cases(chip_smoke.FRAME_BATCH, H=H)
+        k1 = rows(cases, "launches_per_frame_batch", False)
+        k2 = rows(cases, "k1_launches_per_frame_batch", True)
+        report["k1"][str(H)], report["k2"][str(H)] = k1, k2
+        report["halves"][str(H)] = {
+            "k1": chip_smoke.width_halves(k1),
+            "k2": chip_smoke.width_halves(k2, "k1_launches_per_frame_batch")}
+        report["frame_batches"][str(H)] = {"k1_kernels": dict(
+            chip_smoke.head_width_kernels(torch, fa, H, 132))}
+    report["k1"]["ragged"] = rows(chip_smoke.RAGGED_WIDTHS,
+                                  "launches_per_frame_batch", False)
+    report["k2"]["ragged"] = rows(chip_smoke.RAGGED_WIDTHS,
+                                  "k1_launches_per_frame_batch", True)
+    report["frame_batch_float32"] = {"k1_kernels": {"f32": 16,
+                                                    "f32wide": 16}}
+    return report
+
+
+def test_width_kernel_entries_from_the_phase_report():
+    """width_kernel_entries builds the d-chunked, float32 wide, d = 1 and
+    d = 256 wgmma entries of the kernels line from the attention_widths
+    report: each with the contract's keys, its launches on the phase's
+    frame batches (the d-chunked kernels on none), its times summed over
+    its frame batch's 16 launches (the d-chunked kernels' over one call
+    at each ragged shape they run), and the keys the speed guards read."""
+    import pytest
+
+    torch = pytest.importorskip("torch")
+    from synergize_motion_appearance_tpu_torch.ops import (
+        fused_attention as fa,
+    )
+
+    entries = {e["name"]: e for e in chip_smoke.width_kernel_entries(
+        _widths_report(torch, fa))}
+    assert list(entries) == [
+        "fused_attention_packed (d-chunked)",
+        "fused_attention_packed (f32 wide)",
+        "fused_attention_packed (d = 1)",
+        "fused_attention_packed (wgmma d = 256)"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for e in entries.values():
+        assert keys <= set(e), e["name"]
+    launches = {name: e["launches"] for name, e in entries.items()}
+    assert launches == {"fused_attention_packed (d-chunked)": 0,
+                        "fused_attention_packed (f32 wide)": 16,
+                        "fused_attention_packed (d = 1)": 16,
+                        "fused_attention_packed (wgmma d = 256)": 16}
+    # the ragged bf16 d = 96, 161, 320 and float32 d = 320, one call each
+    assert entries["fused_attention_packed (d-chunked)"]["ms"] == (
+        pytest.approx(4 * 0.2))
+    wide = entries["fused_attention_packed (f32 wide)"]
+    assert wide["device_ms"] == pytest.approx(16 * 0.1)
+    assert wide["device_ms_d128"] == pytest.approx(16 * 0.1)
+    assert wide["device_ms_k2"] == pytest.approx(16 * 0.1)
+    assert wide["max_abs_err"] == pytest.approx(256e-6)
+    d1 = entries["fused_attention_packed (d = 1)"]
+    assert d1["device_ms"] == pytest.approx(1.6)
+    assert d1["device_ms_bf16"] == pytest.approx(1.6)
+    for name, key, _ in chip_smoke.PREVIOUS_MS:
+        if name in entries:
+            assert key in entries[name], (name, key)
