@@ -66,15 +66,16 @@ at the flagship 256x256 width with seeded random weights:
   and train.vgg_weights read by the flagship Trainer.
 - attention_widths (after the ablations): K1 and K2 at every attention
   shape of a flagship frame batch at n_head 1, 2 and 32 (head widths 1 to
-  256: the wgmma kernel at bf16 d = 128, the d = 256 wgmma kernel at bf16
-  d = 256, the float32 wide kernel at float32 d = 128 and 256, the d = 1
-  kernel at d = 1) and at ragged d = 96, 161, 256 and 320 (the d-chunked
-  kernels, timed there), against their plain versions in both dtypes,
-  timed against the bound and SDPA (float32 too above d = 64); one
-  flagship frame batch at each n_head with its 32 K1 launches counted by
-  the kernel plan names (at n_head 1 the appearance transformer's 16 on
-  the d = 256 wgmma kernel), and one in float32 at n_head 1 (its 16 on
-  the float32 wide kernel); the tiny config with motion d = 1 and
+  256: the d = 128 wgmma kernel at bf16 d = 128, the d = 256 wgmma kernel
+  at bf16 d = 256, the float32 wide kernel at float32 d = 128 and 256,
+  the d = 1 kernel at d = 1) and at ragged d = 96, 128, 161, 256 and 320
+  (the d-chunked kernels, timed there), against their plain versions in
+  both dtypes, timed against the bound and SDPA (float32 too above
+  d = 64); one flagship frame batch at each n_head with its 32 K1
+  launches counted by the kernel plan names (at n_head 1 the appearance
+  transformer's 16 on the d = 256 wgmma kernel, at n_head 2 on the
+  d = 128 one), and one in float32 at n_head 1 (its 16 on the float32
+  wide kernel); the tiny config with motion d = 1 and
   appearance d = 128 on the card against the CPU (d = 1 and wide
   kernels);
 - train_options (after the train profile): the flagship Trainer with a
@@ -151,18 +152,18 @@ CACHE_SIZE = 256                   # frames of the flagship's img_size
 # when each was last redesigned: K1 per frame batch with its 32 launches
 # all in bf16 (device_ms_bf16) and its motion transformer's 16 launches in
 # float32 as the pipeline gives them (device_ms_motion), the appearance
-# transformer's 16 bf16 launches at n_head 2 (d = 128, the wgmma kernel)
-# and at n_head 1 (d = 256, the d = 256 wgmma kernel), the appearance
-# transformer's 16 float32 launches at n_head 1 (d = 256, the float32 wide
-# kernel), the motion transformer's 16 launches at n_head 32 in bf16
-# (d = 1, the d = 1 kernel), K3 per train step and K4 over K3's forward
-# shapes, both bf16 on the wgmma kernel (their calls are short enough that
-# per-call event times measure the host). On a card at that power limit
-# none may be more than 10% slower now.
+# transformer's 16 bf16 launches at n_head 2 (d = 128, the d = 128 wgmma
+# kernel) and at n_head 1 (d = 256, the d = 256 wgmma kernel), the
+# appearance transformer's 16 float32 launches at n_head 1 (d = 256, the
+# float32 wide kernel), the motion transformer's 16 launches at n_head 32
+# in bf16 (d = 1, the d = 1 kernel), K3 per train step and K4 over K3's
+# forward shapes, both bf16 on the wgmma kernel (their calls are short
+# enough that per-call event times measure the host). On a card at that
+# power limit none may be more than 10% slower now.
 PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
                ("fused_attention_packed", "device_ms_motion", 1.17),
                ("fused_attention_packed", "device_ms_appearance_n_head_2",
-                0.742),
+                0.575),
                ("fused_attention_packed (wgmma d = 256)", "device_ms", 0.762),
                ("fused_attention_packed (f32 wide)", "device_ms", 6.40),
                ("fused_attention_packed (d = 1)", "device_ms_bf16", 2.83),
@@ -247,6 +248,10 @@ def activity_lost(device_ms, pending_ms):
     return device_ms < 0.5 * pending_ms - 0.05
 
 
+# the start of device_times' error when every session lost device activity
+PROFILER_LOST = "the profiler lost device activity"
+
+
 def device_times(torch, fn, iters=10, attempts=3):
     """Device time of one call of ``fn`` by kernel name: every kernel and
     memset it launches, summed by torch.profiler over ``iters`` calls after
@@ -277,7 +282,7 @@ def device_times(torch, fn, iters=10, attempts=3):
                                        pending_ms):
             return times
     raise AssertionError(
-        f"the profiler lost device activity in {attempts} sessions: the "
+        f"{PROFILER_LOST} in {attempts} sessions: the "
         f"last recorded {iters * sum(times.values()):.4f} ms of device time "
         f"where {pending_ms:.4f} ms of queued work was left when the host "
         f"had launched it")
@@ -326,9 +331,10 @@ def attention_cases(B, L=1024, H=8):
 # (name, B, L, E, H, K, shared context, bias, 0) on no path, checked and
 # not timed (but for the train step's), each with a bias that masks every
 # key of batch row 0: L and K off the query and key tiles at d = 4 and 32,
-# the train step's B = 2 (timed; the wgmma kernel's 64-row query tiles),
-# the tiny config's d = 2 and 8, and the wgmma kernel's other widths, d =
-# 16 and 64
+# the train step's B = 2 (timed; the wgmma kernel's 64-row query tiles, and
+# at n_head 2, d = 128, the d = 128 wgmma kernel's 128-row items: 32 of
+# them for the card's SMs), the tiny config's d = 2 and 8, and the wgmma
+# kernel's other widths, d = 16 and 64
 RAGGED_ATTENTION = [
     ("ragged_L1000_K1000_d4", FRAME_BATCH, 1000, 32, 8, 1000, False, True,
      0),
@@ -336,6 +342,8 @@ RAGGED_ATTENTION = [
      0),
     ("train_B2_self_d4", TRAIN_BATCH, 1024, 32, 8, 1024, False, True, 0),
     ("train_B2_cross_K768_d32", TRAIN_BATCH, 1024, 256, 8, 768, True, True,
+     0),
+    ("train_B2_cross_K768_d128", TRAIN_BATCH, 1024, 256, 2, 768, True, True,
      0),
     ("tiny_self_d2", 4, 64, 8, 4, 64, False, True, 0),
     ("tiny_cross_K48_d8", 4, 64, 32, 4, 48, True, True, 0),
@@ -1015,7 +1023,8 @@ def build_report(cuda_build, library, kernel, tc_kernel, no_spill=(),
     ``tc_op`` instructions, and every kernel whose (mangled) name holds one
     of ``no_spill`` must spill nothing and keep no stack frame (an array
     that ptxas could not keep in registers); with HGMMA, no wgmma of it may
-    be serialized (ptxas's C7512 and C7520)."""
+    be serialized (ptxas's C7512 and C7520), and no setmaxnreg of it
+    ignored (C7508: the roles' paths reconverge)."""
     import re
 
     kernels, name = {}, None
@@ -1060,8 +1069,9 @@ def build_report(cuda_build, library, kernel, tc_kernel, no_spill=(),
                 f"spills in {name}: {k.get('stack_spill')}")
             if tc_op == "HGMMA":
                 assert not any(c in n for n in k.get("notes", ())
-                               for c in ("C7512", "C7520")), (
-                    f"serialized wgmma in {name}: {k['notes']}")
+                               for c in ("C7508", "C7512", "C7520")), (
+                    f"serialized wgmma or ignored setmaxnreg in {name}: "
+                    f"{k['notes']}")
     return kernels
 
 
@@ -1950,14 +1960,16 @@ HEAD_WIDTHS["tiny_d1_d128"] = {"g": {
 # (name, B, L, E, H, K, shared context, bias, 0): widths off the column
 # chunks of the d-chunked kernel (bf16) and of the float32 wide kernel
 # (d = 161 also off 16-byte rows: both kernels' element-wise copies),
-# d = 256 (the d = 256 wgmma kernel in bf16, the wide kernel in float32)
-# on a shared codebook, and d = 320, past the wide kernel (the d-chunked
-# kernel in both dtypes); L and K off the query and key tiles, each with
-# a bias that masks every key of batch row 0; checked, and timed where
-# the d-chunked kernels run them (on no frame batch)
+# d = 128 and 256 (the d = 128 and d = 256 wgmma kernels in bf16, the wide
+# kernel in float32) on a shared codebook, and d = 320, past the wide
+# kernel (the d-chunked kernel in both dtypes); L and K off the query and
+# key tiles, each with a bias that masks every key of batch row 0;
+# checked, and timed where the d-chunked kernels run them (on no frame
+# batch)
 RAGGED_WIDTHS = [
     ("ragged_L1000_K700_d96", 4, 1000, 192, 2, 700, False, True, 0),
     ("ragged_L900_K333_d161", 3, 900, 322, 2, 333, True, True, 0),
+    ("ragged_L1000_K333_d128", 3, 1000, 256, 2, 333, True, True, 0),
     ("ragged_L1000_K333_d256", 3, 1000, 256, 1, 333, True, True, 0),
     ("ragged_L1000_K333_d320", 3, 1000, 320, 1, 333, True, True, 0),
 ]
@@ -2050,6 +2062,8 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
         if H == 1:  # the appearance half on the d = 256 wgmma kernel
             assert fa.launch_kernels["wgmma256"] == 16, fa.launch_kernels
             assert "chunked" not in fa.launch_kernels, fa.launch_kernels
+        if H == 2:  # the appearance half on the d = 128 wgmma kernel
+            assert fa.launch_kernels["wgmma128"] == 16, fa.launch_kernels
         report["frame_batches"][H] = row
         torch.cuda.empty_cache()
         print(f"attention widths: flagship-256 bf16 at n_head {H}: "
@@ -2107,26 +2121,44 @@ def attention_widths_process(rank, world, out_path, seed, card):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    report = attention_widths(torch, configs, ReenactmentPipeline,
-                              seeded_nets, fa, exp_rate(torch), seed, card)
+    try:
+        report = attention_widths(torch, configs, ReenactmentPipeline,
+                                  seeded_nets, fa, exp_rate(torch), seed,
+                                  card)
+    except AssertionError as e:
+        if str(e).startswith(PROFILER_LOST):
+            with open(out_path + ".lost", "w") as f:
+                f.write(str(e))
+        raise
     with open(out_path, "w") as f:
         json.dump(report, f)
 
 
 def attention_widths_phase(seed, card):
     """attention_widths_process's report, from a spawned process (its
-    dict keys, n_head among them, as strings)."""
+    dict keys, n_head among them, as strings). A process whose profiler
+    sessions all lost device activity at one call (device_times' error;
+    on the card's machine a process now and then loses it for good after
+    one to two hundred sessions) is run once more, whole, in a fresh
+    process; any other failure, and a second loss, fails the phase."""
     work = os.path.join(ROOT, "build", "chip_smoke_widths")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
     out_path = os.path.join(work, "report.json")
-    try:
-        run_ranks(attention_widths_process, 1, (out_path, seed, card),
-                  WIDTHS_TIMEOUT)
-        with open(out_path) as f:
-            return json.load(f)
-    finally:
+    for attempt in range(2):
         shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            run_ranks(attention_widths_process, 1, (out_path, seed, card),
+                      WIDTHS_TIMEOUT)
+            with open(out_path) as f:
+                return json.load(f)
+        except AssertionError:
+            if attempt or not os.path.exists(out_path + ".lost"):
+                raise
+            with open(out_path + ".lost") as f:
+                print(f"attention widths: {f.read()}; the phase runs once "
+                      f"more in a fresh process", flush=True)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def write_frame_cache(torch, native_loader, path, seed):
@@ -4742,7 +4774,7 @@ def width_kernel_entries(widths):
     """The kernels-line entries of the kernels that only the
     attention_widths phase (``widths``, its report) runs on the card: the
     d-chunked kernels, the float32 wide kernel, the d = 1 kernel and the
-    d = 256 wgmma kernel."""
+    d = 128 and d = 256 wgmma kernels."""
     def width_rows(layout, kernel):
         return [r for rows in widths[layout].values() for r in rows
                 if r["kernel"] == kernel]
@@ -4815,29 +4847,31 @@ def width_kernel_entries(widths):
                            "bound_share")},
             max_abs_err_k2=max(r["max_abs_err"]
                                for r in width_rows("k2", "d1"))),
-        kernel_entry(
-            "fused_attention_packed (wgmma d = 256)",
-            "fused_attention_wgmma256.cu", "fused_attention.py:227",
-            width_rows("k1", "wgmma256"), "launches_per_frame_batch",
-            sum(row["k1_kernels"].get("wgmma256", 0)
+        *(kernel_entry(
+            f"fused_attention_packed (wgmma d = {d})",
+            f"fused_attention_wgmma{d}.cu", "fused_attention.py:227",
+            width_rows("k1", f"wgmma{d}"), "launches_per_frame_batch",
+            sum(row["k1_kernels"].get(f"wgmma{d}", 0)
                 for row in widths["frame_batches"].values()),
-            "sum over the appearance transformer's 16 bf16 launches (d = "
-            "256) of one flagship frame batch at n_head 1 (attention_widths "
-            "phase), on attn_packed_kernel_wgmma256<BIAS>; the ragged d = "
-            "256 case is checked, not summed; "
-            "device_ms, library_device_ms and the bound as for K1, "
-            "device_ms_k2 K2 at the same shapes",
+            f"sum over the appearance transformer's 16 bf16 launches (d = "
+            f"{d}) of one flagship frame batch at n_head {256 // d} "
+            f"(attention_widths phase), on "
+            f"attn_packed_kernel_wgmma{d}<BIAS>; the ragged d = {d} case is "
+            f"checked, not summed; device_ms, "
+            f"library_device_ms and the bound as for K1, device_ms_k2 K2 at "
+            f"the same shapes",
             summed=lambda r: r["on_path"],
             launches_note="launches over the three frame batches of the "
                           "attention_widths phase (n_head 1, 2, 32); 0 on "
                           "every shipped config (n_head 8)",
             device_ms_k2=sum(
                 r["device_ms"] * r["k1_launches_per_frame_batch"]
-                for r in widths["k2"]["1"]
-                if r["kernel"] == "wgmma256" and "device_ms" in r),
+                for r in widths["k2"][str(256 // d)]
+                if r["kernel"] == f"wgmma{d}" and "device_ms" in r),
             max_abs_err_k2=max(
                 r["max_abs_err"] for rows in widths["k2"].values()
-                for r in rows if r["kernel"] == "wgmma256")),
+                for r in rows if r["kernel"] == f"wgmma{d}"))
+          for d in (128, 256)),
     ]
 
 
@@ -4909,13 +4943,14 @@ def main():
           flush=True)
     build_s = cuda_build.build("fused_attention_packed",
                                "fused_attention_wgmma",
+                               "fused_attention_wgmma128",
                                "fused_attention_wgmma256",
                                "fused_attention_chunked", "conv3x3",
                                "conv3x3_wgmma")
     print(f"built fused_attention_packed, fused_attention_wgmma, "
-          f"fused_attention_wgmma256, fused_attention_chunked, conv3x3 and "
-          f"conv3x3_wgmma (one nvcc each, in parallel) in {build_s:.2f} s",
-          flush=True)
+          f"fused_attention_wgmma128, fused_attention_wgmma256, "
+          f"fused_attention_chunked, conv3x3 and conv3x3_wgmma (one nvcc "
+          f"each, in parallel) in {build_s:.2f} s", flush=True)
 
     report = PhaseClock(card=card, torch=torch.__version__,
                         cuda=torch.version.cuda, build_s=build_s)
@@ -4936,6 +4971,10 @@ def main():
         cuda_build, "fused_attention_wgmma", "attn_packed_kernel",
         "attn_packed_kernel_wgmma", no_spill=("attn_packed_kernel_wgmma",),
         tc_op="HGMMA")
+    report["attention_wgmma128_build"] = build_report(
+        cuda_build, "fused_attention_wgmma128", "attn_packed_kernel",
+        "attn_packed_kernel_wgmma128",
+        no_spill=("attn_packed_kernel_wgmma128",), tc_op="HGMMA")
     report["attention_wgmma256_build"] = build_report(
         cuda_build, "fused_attention_wgmma256", "attn_packed_kernel",
         "attn_packed_kernel_wgmma256",
@@ -5030,12 +5069,16 @@ def main():
             f"on the CUDA-core kernel of fused_attention_packed.cu), each "
             f"with SDPA's, its bound and, for float32, the issue-slot "
             f"estimate; train_B2_device_ms the train step's B = 2 shapes; "
+            f"device_ms_appearance_n_head_2 the appearance half's 16 bf16 "
+            f"launches at n_head 2 (d = 128, on the d = 128 wgmma kernel of "
+            f"fused_attention_wgmma128.cu; attention_widths phase); "
             f"the bound is the largest of bytes, FLOP and exponentials",
             summed=lambda r: r["on_path"],
             sources=[f"synergize_motion_appearance_tpu_torch/csrc/{s}" for s
                      in ("fused_attention_wgmma.cu",
                          "fused_attention_packed.cu",
-                         "fused_attention_chunked.cu")],
+                         "fused_attention_chunked.cu",
+                         "fused_attention_wgmma128.cu")],
             **{f"{key}_{half}": h[key]
                for half, h in report["k1_halves"].items()
                if half != "train_B2" for key in h},

@@ -1,10 +1,13 @@
 // Building blocks of the wgmma attention kernels (fused_attention_wgmma.cu,
-// fused_attention_wgmma256.cu): the layouts' tensor-map coordinates, wgmma
-// with p from registers, the exponential, the split of an f32 softmax
-// weight into bf16 hi + lo, and the host's encoding of a bf16 tensor map.
+// fused_attention_wgmma128.cu, fused_attention_wgmma256.cu): the layouts'
+// tensor-map coordinates, wgmma with p from registers, the exponential, the
+// split of an f32 softmax weight into bf16 hi + lo, the online softmax of a
+// 64-key tile, and the host's encoding of a bf16 tensor map.
 // Each including file gets its own copy (anonymous namespace).
 #pragma once
 
+#include <cfloat>
+#include <cmath>
 #include <cstdint>
 
 #include <cuda.h>
@@ -99,6 +102,82 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = as_u32(h);
   lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// ---------------------------------------------------------------------------
+// the online softmax of one 64-key tile (the d = 128 and d = 256 kernels)
+// ---------------------------------------------------------------------------
+
+// A consumer warpgroup's scores of one 64-key tile, this thread's s: rows g
+// and g + 8 of its warp's 16 (g = lane / 4), columns 2 (lane % 4) and + 1
+// of each n8 tile. S -> p in place, the running max m (log2 units), this
+// thread's share l of each row's sum, and the rescale c that O owes.
+// bias_at(j): this thread's two bias values (times log2(e), -inf past K)
+// of n8 tile j, with BIAS; past: the first masked key of the tile without
+// it.
+template <bool BIAS, typename BiasAt>
+__device__ __forceinline__ void tile_softmax(float (&s)[32], float (&m)[2],
+                                             float (&l)[2], float (&c)[2],
+                                             BiasAt bias_at, int past, int t4,
+                                             float scale_log2) {
+  float mx[2] = {-FLT_MAX, -FLT_MAX};
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 bl = bias_at(j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = fmaf(s[4 * j + e], scale_log2, (e & 1) ? bl.y : bl.x);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+      }
+    }
+  } else {
+    if (past < 64) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * t4 + (e & 1) >= past) s[4 * j + e] = -INFINITY;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    mx[0] *= scale_log2;
+    mx[1] *= scale_log2;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = mx[r];
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float mn = fmaxf(m[r], x);
+    c[r] = ex2(m[r] - mn);  // 1 when the max held
+    m[r] = mn;
+    l[r] *= c[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    const float p =
+        BIAS ? ex2(s[i] - m[r]) : ex2(fmaf(s[i], scale_log2, -m[r]));
+    l[r] += p;
+    s[i] = p;
+  }
+}
+
+// p -> A fragments as bf16 hi and lo: keys 16 kk .. 16 kk + 15 are S's n8
+// tiles 2 kk and 2 kk + 1, rows g and g + 8
+__device__ __forceinline__ void tile_split(const float (&s)[32],
+                                           uint32_t (&ph)[4][4],
+                                           uint32_t (&pl)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], ph[kk][e],
+                 pl[kk][e]);
 }
 
 // ---------------------------------------------------------------------------

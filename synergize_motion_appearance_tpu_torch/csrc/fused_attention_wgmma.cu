@@ -1,5 +1,5 @@
 // Softmax attention on Hopper's warpgroup tensor cores (sm_90a): bfloat16
-// at head widths d = 16, 32, 64 and 128, in both layouts of
+// at head widths d = 16, 32 and 64, in both layouts of
 // csrc/fused_attention_packed.cu.
 //
 // Replaces, for those widths, the same two TPU kernels as
@@ -15,16 +15,11 @@
 // the tensor maps and coordinates the entry builds (`Coords`). The mma.sync
 // kernel of fused_attention_packed.cu keeps the other widths up to 64 (d <=
 // 8, or d not 16, 32 or 64): a TMA box row must hold at least 16 bytes and
-// wgmma's depth is 16; fused_attention_wgmma256.cu d = 256, with the
-// helpers of attention_wgmma.cuh that this file shares;
-// fused_attention_chunked.cu the rest (d = 1, d > 64 but 128 and 256).
-// ops/fused_attention.py::plan picks between them by shape.
-// At d = 128 a head row is 256 bytes, past the widest swizzle (128 bytes):
-// each tile arrives as two 64-column boxes, q.k runs its 8 k16 steps across
-// the two, and p.v is two n64 wgmmas a k16 step (and hi and lo each), one a
-// part, each into its half of O. There the tensor cores, not the
-// exponentials, bound it: 2 x 128 multiply-adds a score for q.k and 4 x 128
-// for p.v (hi and lo) against one exponential.
+// wgmma's depth is 16; fused_attention_wgmma128.cu d = 128 and
+// fused_attention_wgmma256.cu d = 256, with the helpers of
+// attention_wgmma.cuh that this file shares; fused_attention_chunked.cu the
+// rest (d = 1, d > 64 but 128 and 256). ops/fused_attention.py::plan picks
+// between them by shape.
 //
 // What bounds it: per score one exponential on the special-function units
 // (16 per SM per clock, the floor), about seven f32-pipe instructions (the
@@ -40,9 +35,8 @@
 // The design:
 // - A block is one (tile of 64 query rows, head, batch row): one consumer
 //   warpgroup and one producer warp (160 threads), split on a warp-uniform
-//   index. Three blocks share an SM (106-128 registers a thread; two at
-//   d = 128, with a ring of 2 stages), so three warpgroups' softmaxes and
-//   products interleave.
+//   index. Three blocks share an SM (106-128 registers a thread), so three
+//   warpgroups' softmaxes and products interleave.
 // - Copies by TMA (`cp.async.bulk.tensor.3d`), issued by one lane of the
 //   producer warp: the query tile once, then key and value tiles of 64 keys
 //   into a ring of 3 stages, each with a full and an empty `mbarrier`. The
@@ -101,22 +95,15 @@ constexpr int kThreads = 160;  // the consumer warpgroup, the producer warp
 
 // Shared memory of a block, from a base aligned to 1024 bytes (the largest
 // swizzle's period): the query tile, the stages (k tile, then v tile), the
-// stages' bias, the barriers. A tile is kParts parts of kCols columns, each
-// part one TMA box whose rows (at most 128 bytes: the widest swizzle) lie
-// kRowBytes apart: d = 16, 32, 64 one part, d = 128 two of 64 columns.
-// At d = 128 a K+V stage is 32 KiB, so the ring keeps 2 stages (3 would
-// leave one block an SM) and two blocks share an SM.
+// stages' bias, the barriers. A tile is one TMA box whose rows (at most 128
+// bytes: the widest swizzle) lie kRowBytes apart.
 template <int D>
 struct Geometry {
-  static constexpr int kCols = D > 64 ? 64 : D;
-  static constexpr int kParts = D / kCols;
-  static constexpr int kRowBytes = 2 * kCols;
-  static constexpr int kQPart = kRows * kRowBytes;
-  static constexpr int kQBytes = kParts * kQPart;
-  static constexpr int kTilePart = kKeys * kRowBytes;
-  static constexpr int kTileBytes = kParts * kTilePart;
-  static constexpr int kStages = D > 64 ? 2 : 3;  // depth of the k/v ring
-  static constexpr int kBlocks = D > 64 ? 2 : 3;  // blocks an SM
+  static constexpr int kRowBytes = 2 * D;
+  static constexpr int kQBytes = kRows * kRowBytes;
+  static constexpr int kTileBytes = kKeys * kRowBytes;
+  static constexpr int kStages = 3;  // depth of the k/v ring
+  static constexpr int kBlocks = 3;  // blocks an SM
   static constexpr int kStage0 = kQBytes;
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kBias = kStage0 + kStages * kStageBytes;
@@ -125,25 +112,20 @@ struct Geometry {
   // wgmma descriptor: swizzle of 32, 64 or 128 bytes (the box row) is
   // layout type 3, 2 or 1; 8 rows of one core-matrix group lie kRowBytes
   // apart
-  static constexpr int kLayout = kCols == 16 ? 3 : kCols == 32 ? 2 : 1;
+  static constexpr int kLayout = D == 16 ? 3 : D == 32 ? 2 : 1;
   static constexpr uint32_t kGroupBytes = 8 * kRowBytes;
 };
 
-// o (64 x D) += a (64 x 16) * v (16 x D); v's descriptor b at part 0, part
-// p (columns 64p..64p+63 at D = 128) part_step further
+// o (64 x D) += a (64 x 16) * v (16 x D), v's descriptor b
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b,
-                                         uint64_t part_step) {
+                                         const uint32_t (&a)[4], uint64_t b) {
   if constexpr (D == 16) {
     wgmma_rs_n16(o, a, b);
   } else if constexpr (D == 32) {
     wgmma_rs_n32(o, a, b);
-  } else if constexpr (D == 64) {
-    wgmma_rs_n64(o, a, b);
   } else {
-    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&o[0]), a, b);
-    wgmma_rs_n64(*reinterpret_cast<float(*)[32]>(&o[32]), a, b + part_step);
+    wgmma_rs_n64(o, a, b);
   }
 }
 
@@ -151,7 +133,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
 // the kernel
 // ---------------------------------------------------------------------------
 
-// D: head width (16, 32, 64, 128); BIAS: a (B, K) bias is given.
+// D: head width (16, 32, 64); BIAS: a (B, K) bias is given.
 // scale_log2 = log2(e) / sqrt(d).
 template <int D, bool BIAS>
 __global__ void __launch_bounds__(kThreads, Geometry<D>::kBlocks)
@@ -164,7 +146,6 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
   using G = Geometry<D>;
   constexpr int kStages = G::kStages;
   constexpr int KS = D / 16;      // k16 steps of q.k
-  constexpr int PS = G::kCols / 16;  // of them in one part
   constexpr int NS = kKeys / 16;  // k16 steps of p.v
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -199,12 +180,8 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     const int kv_z = b * co.kv_z_b + h * co.kv_z_h;
     if (lane == 0) {
       mbar_expect(qbar, G::kQBytes);
-#pragma unroll
-      for (int p = 0; p < G::kParts; ++p) {
-        tma_load(base + p * G::kQPart, &qmap, qbar,
-                 h * co.q_col_h + p * G::kCols, q0,
-                 b * co.q_z_b + h * co.q_z_h);
-      }
+      tma_load(base, &qmap, qbar, h * co.q_col_h, q0,
+               b * co.q_z_b + h * co.q_z_h);
     }
     for (int t = 0; t < ntiles; ++t) {
       const int s = t % kStages;
@@ -223,13 +200,9 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) {
         mbar_expect(full0 + 8 * s, 2 * G::kTileBytes);
         const uint32_t ks = base + G::kStage0 + s * G::kStageBytes;
-#pragma unroll
-        for (int p = 0; p < G::kParts; ++p) {
-          tma_load(ks + p * G::kTilePart, &kmap, full0 + 8 * s,
-                   kv_col + p * G::kCols, t * kKeys, kv_z);
-          tma_load(ks + G::kTileBytes + p * G::kTilePart, &vmap,
-                   full0 + 8 * s, kv_col + p * G::kCols, t * kKeys, kv_z);
-        }
+        tma_load(ks, &kmap, full0 + 8 * s, kv_col, t * kKeys, kv_z);
+        tma_load(ks + G::kTileBytes, &vmap, full0 + 8 * s, kv_col,
+                 t * kKeys, kv_z);
       } else {
         mbar_arrive(full0 + 8 * s);
       }
@@ -261,11 +234,8 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
                                   G::kGroupBytes, G::kLayout);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      // the next 16 of d: 32 bytes further along each swizzled row, or the
-      // next part's tile
-      const int p = kk / PS, step = 2 * (kk % PS);
-      wgmma_ss_n64(s, dq + p * (G::kQPart >> 4) + step,
-                   dk + p * (G::kTilePart >> 4) + step, kk > 0);
+      // the next 16 of d: 32 bytes further along each swizzled row
+      wgmma_ss_n64(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
     }
   };
   auto issue_pv = [&](int st) {
@@ -276,8 +246,8 @@ attn_packed_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < NS; ++kk) {
       // keys 16 kk .. 16 kk + 15: 16 rows further
       const uint64_t dvk = dv + kk * (16 * G::kRowBytes >> 4);
-      wgmma_pv<D>(o, ph[kk], dvk, G::kTilePart >> 4);
-      wgmma_pv<D>(o, pl[kk], dvk, G::kTilePart >> 4);
+      wgmma_pv<D>(o, ph[kk], dvk);
+      wgmma_pv<D>(o, pl[kk], dvk);
     }
   };
   auto rescale_o = [&]() {
@@ -447,7 +417,7 @@ cudaError_t launch_width(const CUtensorMap& qm, const CUtensorMap& km,
 }  // namespace
 
 // C entry, bound with ctypes: bfloat16 q, k, v and out, optional float32
-// (B, K) bias (null for none), d in {16, 32, 64, 128}, q, k, v and out 16-byte
+// (B, K) bias (null for none), d in {16, 32, 64}, q, k, v and out 16-byte
 // aligned. layout 0, token-major (kernel K1): q, out (B, L, H*d);
 // k, v (B, K, H*d), or a shared (K, H*d) when kv_shared is 1. layout 1,
 // head-split (kernel K2): q, out (B, H, L, d); k, v (B, H, K, d), or a
@@ -462,7 +432,7 @@ extern "C" int samt_attention_wgmma(const void* q, const void* k,
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  if ((d != 16 && d != 32 && d != 64 && d != 128) ||
+  if ((d != 16 && d != 32 && d != 64) ||
       (layout != 0 && layout != 1) ||
       B <= 0 || H <= 0 || L <= 0 || K <= 0 ||
       B > 65535 || H > 65535 || !aligned(q) || !aligned(k) || !aligned(v) ||
@@ -485,11 +455,8 @@ extern "C" int samt_attention_wgmma(const void* q, const void* k,
     case 32:
       err = launch_width<32>(qm, km, vm, bb, out, B, H, L, K, co, sl2, s);
       break;
-    case 64:
-      err = launch_width<64>(qm, km, vm, bb, out, B, H, L, K, co, sl2, s);
-      break;
     default:
-      err = launch_width<128>(qm, km, vm, bb, out, B, H, L, K, co, sl2, s);
+      err = launch_width<64>(qm, km, vm, bb, out, B, H, L, K, co, sl2, s);
   }
   return static_cast<int>(err);
 }

@@ -74,6 +74,7 @@ constexpr int kCols = kD / kParts;
 constexpr int kRowBytes = 2 * kCols;  // a box row: the 128-byte swizzle
 constexpr int kRows = 64;         // query rows of the consumer warpgroup
 constexpr int kKeys = 64;         // keys a tile
+static_assert(kKeys == 64, "tile_softmax and tile_split take 64-key tiles");
 constexpr int kStages = 3;        // K+V stages of the ring
 constexpr int kThreads = 160;     // the consumer warpgroup, the producer warp
 constexpr int kQPart = kRows * kRowBytes;  // the query tile's rows of a part
@@ -151,70 +152,6 @@ struct Rows {
   __device__ __forceinline__ void rescale() {
 #pragma unroll
     for (int i = 0; i < kD / 2; ++i) o[i] *= c[(i >> 1) & 1];
-  }
-  // S -> p in place, the running max and sums, the rescale c O owes.
-  // bias_at(j): this thread's two bias values (times log2(e), -inf past K)
-  // of n8 tile j, with BIAS; past: the first masked key of the tile
-  // without it
-  template <typename BiasAt>
-  __device__ __forceinline__ void softmax(BiasAt bias_at, int past, int t4,
-                                          float scale_log2) {
-    float mx[2] = {-FLT_MAX, -FLT_MAX};
-    if constexpr (BIAS) {
-#pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
-        const float2 bl = bias_at(j);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[4 * j + e] =
-              fmaf(s[4 * j + e], scale_log2, (e & 1) ? bl.y : bl.x);
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
-        }
-      }
-    } else {
-      if (past < kKeys) {
-#pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (8 * j + 2 * t4 + (e & 1) >= past) s[4 * j + e] = -INFINITY;
-      }
-#pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
-      mx[0] *= scale_log2;
-      mx[1] *= scale_log2;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = mx[r];
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      const float mn = fmaxf(m[r], x);
-      c[r] = ex2(m[r] - mn);  // 1 when the max held
-      m[r] = mn;
-      l[r] *= c[r];
-    }
-#pragma unroll
-    for (int i = 0; i < kKeys / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      const float p = BIAS ? ex2(s[i] - m[r])
-                           : ex2(fmaf(s[i], scale_log2, -m[r]));
-      l[r] += p;
-      s[i] = p;
-    }
-  }
-  // p -> A fragments: keys 16 kk .. 16 kk + 15 are S's n8 tiles 2 kk and
-  // 2 kk + 1, rows g and g + 8
-  __device__ __forceinline__ void split() {
-#pragma unroll
-    for (int kk = 0; kk < NS; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1], ph[kk][e],
-                   pl[kk][e]);
   }
   // out: O / row sum, rounded once to bf16; a row whose every key is masked
   // gives 0, as the TPU kernel's (m > -1e29) factor (here in log2 units);
@@ -334,7 +271,8 @@ attn_packed_kernel_wgmma256(const __grid_constant__ CUtensorMap qmap,
   const auto softmax = [&](int t, int st) {
     const float* bs =
         reinterpret_cast<const float*>(smem + kBias + st * kKeys * 4);
-    x.softmax(
+    tile_softmax<BIAS>(
+        x.s, x.m, x.l, x.c,
         [&](int j) {
           return *reinterpret_cast<const float2*>(bs + 8 * j + 2 * t4);
         },
@@ -350,7 +288,7 @@ attn_packed_kernel_wgmma256(const __grid_constant__ CUtensorMap qmap,
   wg_wait<0>();
   hold(x.s);
   softmax(0, 0);
-  x.split();
+  tile_split(x.s, x.ph, x.pl);
   // tile t: q.k of t, then p.v of t - 1, then t's softmax under that p.v
   for (int t = 1; t < ntiles; ++t) {
     const int st = t % kStages;
@@ -371,7 +309,7 @@ attn_packed_kernel_wgmma256(const __grid_constant__ CUtensorMap qmap,
     // stage prev is read: its q.k and p.v are done, and so are all four
     // warps' softmax reads of its bias (each issued that p.v after them)
     if (threadIdx.x == 0) mbar_arrive(empty0 + 8 * prev);
-    x.split();
+    tile_split(x.s, x.ph, x.pl);
   }
   // the last tile's p.v
   x.rescale();

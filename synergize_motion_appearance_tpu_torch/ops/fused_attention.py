@@ -16,10 +16,13 @@ Each layout is a ``torch.library`` custom op
 call in an exported program. On a CUDA tensor the op launches a
 hand-written kernel (given each layout's strides or tensor maps) or
 raises; ``plan`` picks it by dtype and shape, for every head width d >= 1
-(as the JAX package's Pallas kernels take any d): bfloat16 at d = 16, 32,
-64 and 128 runs on Hopper's warpgroup tensor cores
+(as the JAX package's Pallas kernels take any d): bfloat16 at d = 16, 32
+and 64 runs on Hopper's warpgroup tensor cores
 (``attn_packed_kernel_wgmma`` of ``csrc/fused_attention_wgmma.cu``: TMA,
-``wgmma``, warp specialisation), and so does bfloat16 at d = 256
+``wgmma``, warp specialisation), and so do bfloat16 at d = 128
+(``attn_packed_kernel_wgmma128`` of ``csrc/fused_attention_wgmma128.cu``:
+persistent blocks over items of 128 query rows, in two consumer
+warpgroups that take turns on the tensor cores) and at d = 256
 (``attn_packed_kernel_wgmma256`` of ``csrc/fused_attention_wgmma256.cu``:
 a block all 256 output columns of its 64 query rows); the other bfloat16
 widths up to 64 run on ``mma.sync`` (``attn_packed_kernel_tc`` of
@@ -61,8 +64,8 @@ from . import cuda_build
 
 # Kernel launches since the last reset, of either dtype's kernel: by
 # `fused_attention_packed` (K1) and by `fused_attention` (K2); and of both,
-# by the kernel `plan` named ("wgmma", "wgmma256", "mma", "f32",
-# "f32wide", "d1", "chunked").
+# by the kernel `plan` named ("wgmma", "wgmma128", "wgmma256", "mma",
+# "f32", "f32wide", "d1", "chunked").
 launches = 0
 split_launches = 0
 launch_kernels: Counter = Counter()
@@ -138,12 +141,15 @@ def fused_attention_packed_reference(q, k, v, bias=None, *, num_heads: int):
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # head widths of the bfloat16 wgmma kernel (attn_packed_kernel_wgmma<D, ..>):
-# a row of a head is one TMA box row of 32, 64 or 128 bytes (two of 128 at
-# d = 128), swizzled by its own width, and a multiple of wgmma's depth of
-# 16; its query rows per block, at every grid, as the d = 256 kernel's
-# (three blocks share an SM, two at d = 128, one at d = 256)
-WGMMA_WIDTHS = (16, 32, 64, 128)
+# a row of a head is one TMA box row of 32, 64 or 128 bytes, swizzled by
+# its own width, and a multiple of wgmma's depth of 16; its query rows per
+# block, at every grid, as the d = 256 kernel's (three blocks share an SM,
+# one at d = 256)
+WGMMA_WIDTHS = (16, 32, 64)
 WGMMA_ROWS = 64
+# query rows per item of the d = 128 wgmma kernel's persistent blocks:
+# two consumer warpgroups of 64, one block an SM
+WGMMA128_ROWS = 128
 # query rows per block of the d-chunked kernels, by dtype
 # (attn_packed_kernel_chunked_tc: 16 a warp; _f32: one a thread), and of the
 # d = 1 kernel (one a thread, either dtype)
@@ -166,10 +172,11 @@ CHUNKED_ENTRY_KERNELS = {"chunked": 0, "d1": 1, "f32wide": 2}
 
 
 class Plan(NamedTuple):
-    """The kernel a call launches: ``kernel`` is "wgmma", "wgmma256",
-    "mma", "f32", "f32wide", "d1" or "chunked"; ``rows`` its query rows
-    per block (wgmma: always 64, one consumer warpgroup, as wgmma256;
-    f32wide: ``f32wide_rows``; mma; d1; chunked) or per thread (f32); ``nv`` and
+    """The kernel a call launches: ``kernel`` is "wgmma", "wgmma128",
+    "wgmma256", "mma", "f32", "f32wide", "d1" or "chunked"; ``rows`` its
+    query rows per block (wgmma: always 64, one consumer warpgroup, as
+    wgmma256; wgmma128: 128 an item, two; f32wide: ``f32wide_rows``; mma; d1;
+    chunked) or per thread (f32); ``nv`` and
     ``copy_bytes`` the mma.sync variant's P.V width in n8 tiles and bytes
     per cp.async of a key row (0 for the others)."""
     kernel: str
@@ -184,7 +191,8 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
     addresses, for every head width d >= 1 (no fallback: the plan's kernel
     launches or the call raises). bfloat16 where q, k, v and out are
     16-byte aligned (TMA's rule for a tensor map's base): the wgmma kernel
-    where d is in WGMMA_WIDTHS, the d = 256 wgmma kernel at d = 256.
+    where d is in WGMMA_WIDTHS, the d = 128 and d = 256 wgmma kernels at
+    d = 128 and 256.
     Else: d = 1, the CUDA-core d = 1 kernel of either dtype; float32 at
     d = 65..F32WIDE_MAX_D the float32 wide kernel; above 64 the rest (bf16
     not on wgmma, float32 above F32WIDE_MAX_D) the d-chunked kernel of its
@@ -197,6 +205,8 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
             a % 16 == 0 for a in (q_ptr, k_ptr, v_ptr, out_ptr)):
         if d in WGMMA_WIDTHS:
             return Plan("wgmma", WGMMA_ROWS)
+        if d == 128:
+            return Plan("wgmma128", WGMMA128_ROWS)
         if d == 256:
             return Plan("wgmma256", WGMMA_ROWS)
     if d == 1:
@@ -337,9 +347,9 @@ def _launch_cuda(q, k, v, bias, num_heads):
             ctypes.c_float, ctypes.c_void_p]
         args = (*ptrs, B, H, L, K, d, int(split), kv_shared,
                 1.0 / math.sqrt(d), stream)
-    elif p.kernel == "wgmma256":
-        fn = cuda_build.load(
-            "fused_attention_wgmma256").samt_attention_wgmma256
+    elif p.kernel in ("wgmma128", "wgmma256"):
+        fn = getattr(cuda_build.load(f"fused_attention_{p.kernel}"),
+                     f"samt_attention_{p.kernel}")
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p]
         args = (*ptrs, B, H, L, K, int(split), kv_shared,

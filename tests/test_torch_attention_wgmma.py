@@ -29,6 +29,14 @@ on the CPU, and the plan that picks a call's kernel.
   parts, p.v into each part of O), 64-key tiles; held against the Pallas
   kernel and the plain version at the bf16 tolerance; its shared memory
   and blocks an SM.
+- ``attn_packed_kernel_wgmma128`` (``csrc/fused_attention_wgmma128.cu``,
+  bfloat16 at d = 128; the appearance transformer at n_head 2): persistent
+  blocks that walk items of 128 query rows of one head and batch row, each
+  item's rows as two consumer warpgroups' 64, each through the same
+  arithmetic with a head row as two 64-column parts and 64-key tiles; held
+  against the Pallas kernel and the plain version at the bf16 tolerance;
+  the items' cover of every row, its shared memory, threads, register
+  split and blocks an SM.
 
 The tiny config's widths (d = 2 and 8) run the mma.sync kernel in bf16,
 whose emulation is ``test_torch_attention_tc.py``'s; here the plan test
@@ -290,6 +298,130 @@ def test_wgmma256_geometry():
                      0) == port.Plan("wgmma256", 64)
 
 
+WG128_ROWS, WG128_WG_ROWS = 128, 64  # query rows of an item, a warpgroup's
+
+
+def wgmma128_items(B, H, L, grid):
+    """The items of the d = 128 kernel's persistent blocks, as its Item
+    decodes them: item i is (query tile i % nq, head i / nq % H, batch row
+    i / (nq H)), block blk takes items blk, blk + grid, ...; returns
+    {block: [(q0, h, b), ...]}."""
+    nq = -(-L // WG128_ROWS)
+    items = nq * H * B
+    return {blk: [(i % nq * WG128_ROWS, i // nq % H, i // nq // H)
+                  for i in range(blk, items, grid)] for blk in range(grid)}
+
+
+def emulate_wgmma128(q, k, v, bias, num_heads, grid=H100_SMS):
+    """The d = 128 kernel on token-major bf16 inputs: each block's items in
+    turn, each item's 128 rows as two consumer warpgroups' 64 (rows past L
+    dropped), each warpgroup's rows of its head through emulate_wgmma's
+    arithmetic with two 64-column parts and 64-key tiles."""
+    B, L, E = q.shape
+    H = num_heads
+    d = E // H
+    items = wgmma128_items(B, H, L, min(grid, -(-L // WG128_ROWS) * H * B))
+    out = torch.full((B, L, E), float("nan"), dtype=torch.bfloat16)
+    for blk_items in items.values():
+        for q0, h, b in blk_items:
+            cols = slice(h * d, (h + 1) * d)
+            kb = k[..., cols] if k.dim() == 2 else k[b:b + 1, :, cols]
+            vb = v[..., cols] if v.dim() == 2 else v[b:b + 1, :, cols]
+            bb = None if bias is None else bias[b:b + 1]
+            for w in range(WG128_ROWS // WG128_WG_ROWS):
+                r0 = q0 + w * WG128_WG_ROWS
+                r1 = min(r0 + WG128_WG_ROWS, L)
+                if r0 < r1:
+                    out[b, r0:r1, cols] = emulate_wgmma(
+                        q[b:b + 1, r0:r1, cols], kb, vb, bb, 1, keys=WG_KEYS,
+                        cols=64)[0]
+    return out
+
+
+WGMMA128_CASES = [
+    # B, H, L, K, E, bias, shared
+    (2, 2, 200, 300, 256, True, False),   # two items a head, ragged K, bias
+    (2, 2, 130, 129, 256, False, True),   # shared, a one-key last tile
+    (3, 2, 1000, 333, 256, True, True),   # ragged L and K, shared, bias
+    (2, 2, 1, 64, 256, True, False),      # one query row, one whole tile
+    (1, 2, 64, 64, 256, False, False),    # rows of warpgroup 0 only
+    (2, 1, 70, 200, 128, True, True),     # one head, shared, bias
+]
+
+
+@pytest.mark.parametrize("B,H,L,K,E,masked,shared", WGMMA128_CASES, ids=str)
+def test_wgmma128_emulation_matches_pallas_and_plain(B, H, L, K, E, masked,
+                                                     shared):
+    """The d = 128 kernel's blocking (items of 128 rows in two warpgroups
+    of 64, 64-key tiles, a head row as two 64-column parts, scores in log2
+    units, p.v as hi + lo into each part of O), on blocks that take several
+    items each (a grid of 3) and on one item a block: against the Pallas
+    kernel and the plain version at d = 128, the all-masked batch row 0
+    exactly 0."""
+    q, k, v, bias = _inputs(B, L, K, E, masked, shared, seed=L + K + E)
+    assert port.plan(q.dtype, B, H, L, E // H, H100_SMS, 0, 0, 0,
+                     0) == port.Plan("wgmma128", WG128_ROWS)
+    got = emulate_wgmma128(q, k, v, bias, H, grid=3).float()
+    assert torch.equal(got, emulate_wgmma128(q, k, v, bias, H).float())
+    want = _pallas(H, q, k, v, bias)
+    torch.testing.assert_close(got, want, **BF16_TOL)
+    plain = port.fused_attention_packed_reference(q, k, v, bias,
+                                                  num_heads=H).float()
+    torch.testing.assert_close(got, plain, **BF16_TOL)
+    if masked:
+        assert got[0].abs().max().item() == 0.0, "all-masked batch row"
+        assert want[0].abs().max().item() == 0.0
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("B,H,L", [(16, 2, 1024), (2, 2, 1024), (3, 2, 1000),
+                                   (1, 1, 1), (5, 3, 129)], ids=str)
+@pytest.mark.parametrize("grid", [H100_SMS, 7, 1])
+def test_wgmma128_items_cover_each_row_once(B, H, L, grid):
+    """Every (batch row, head, query row) is in exactly one warpgroup of one
+    item of one block, at the card's grid (a frame batch: 256 items on 132
+    blocks; the train step's B = 2: 32 items) and at fewer blocks."""
+    seen = []
+    for blk_items in wgmma128_items(B, H, L, grid).values():
+        for q0, h, b in blk_items:
+            seen += [(b, h, r) for r in range(q0, min(q0 + WG128_ROWS, L))]
+    assert sorted(seen) == [(b, h, r) for b in range(B) for h in range(H)
+                            for r in range(L)]
+
+
+def wgmma128_geometry():
+    """Threads, shared memory (bytes), blocks an SM and the register split
+    of the d = 128 kernel, as csrc/fused_attention_wgmma128.cu computes
+    them: a 128-row query tile of 2 parts of 128 x 128 bytes; two consumer
+    warpgroups' output tiles of 2 parts of 64 x 128 bytes; 4 stages, each a
+    k and a v tile of 64 keys (2 parts each) and the stage's bias; 2
+    barriers a stage, q's 2 and 2 an output tile; 1024 bytes to align the
+    base; 1 KiB a block reserved by the card out of an SM's 233,472 bytes;
+    two consumer warpgroups at 232 registers a thread and a producer
+    warpgroup at 40, out of the 168 a thread the launch bound gives."""
+    q = 2 * 128 * 128
+    outs = 2 * 2 * 64 * 128
+    stages = 4
+    smem = (q + outs + stages * (2 * 2 * 64 * 128 + 64 * 4)
+            + (2 * stages + 2 + 2 * 2) * 8 + 1024)
+    threads = 3 * 128
+    regs = 128 * (2 * 232 + 40)
+    return threads, smem, 233472 // (smem + 1024), regs
+
+
+def test_wgmma128_geometry():
+    """The block fits a block's 232,448 bytes of shared memory and the SM's
+    registers, at the 384 threads, one block an SM and 128 query rows an
+    item that the header note and plan state."""
+    threads, smem, blocks, regs = wgmma128_geometry()
+    assert smem == 198768 <= 232448
+    assert blocks * (smem + 1024) <= 233472
+    assert (threads, blocks) == (384, 1)
+    assert regs <= threads * (65536 // threads // 8 * 8) == 384 * 168
+    assert port.plan(torch.bfloat16, 16, 2, 1024, 128, H100_SMS, 0, 0, 0,
+                     0) == port.Plan("wgmma128", 128)
+
+
 F32_CASES = [
     # B, H, L, K, E, bias, shared
     (2, 8, 24, 100, 32, False, False),    # d = 4 (motion), ragged K
@@ -328,6 +460,7 @@ def test_f32_rows_per_thread_cover_each_row_once(L, R):
     ((torch.bfloat16, 32, True), "wgmma"),    # the appearance transformer
     ((torch.bfloat16, 16, True), "wgmma"),
     ((torch.bfloat16, 64, True), "wgmma"),
+    ((torch.bfloat16, 128, True), "wgmma128"),  # the n_head 2 appearance
     ((torch.bfloat16, 32, False), "mma"),     # a base TMA cannot take
     ((torch.bfloat16, 4, True), "mma"),       # the motion width in bf16
     ((torch.bfloat16, 2, True), "mma"),       # the tiny config's widths

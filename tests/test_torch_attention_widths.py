@@ -16,8 +16,8 @@ outside the shipped d = 4 and 32), on the CPU.
   the plain version at ``chip_smoke.py``'s tolerances (bf16: atol 1e-3,
   rtol 2^-7, one bf16 ulp; float32 2e-5).
 - ``plan`` for every d in 1..512 in both dtypes (no raise; d = 2..64 as
-  before this kernel; bf16 d = 128 on wgmma, d = 256 on the d = 256 wgmma
-  kernel), and the per-kernel counts
+  before this kernel; bf16 d = 128 on the d = 128 wgmma kernel, d = 256 on
+  the d = 256 wgmma kernel), and the per-kernel counts
   that ``chip_smoke.py``'s attention_widths phase expects at n_head 1, 2,
   8 and 32; the flagship generator's layers and parameters at n_head 1, 2
   and 32.
@@ -276,8 +276,8 @@ def test_plan_takes_every_width(dtype):
     """Every d in 1..512 gets a kernel, aligned or not; d = 2..64 the one
     it got before; d = 1 the d = 1 kernel; float32 65..256 the wide
     kernel; the rest past 64 the d-chunked kernel, but bf16 d = 128 and
-    256 at aligned pointers, which run on wgmma and on the d = 256 wgmma
-    kernel."""
+    256 at aligned pointers, which run on the d = 128 and the d = 256 wgmma
+    kernels."""
     for d in range(1, 513):
         for ptr in (4096, 4096 + 8):
             for B, H, L in ((16, 8, 1024), (2, 1, 33)):
@@ -287,7 +287,7 @@ def test_plan_takes_every_width(dtype):
                     assert got == _plan_before(dtype, B, H, L, d, H100_SMS,
                                                4096, ptr, 4096, 4096), d
                 elif dtype == torch.bfloat16 and d == 128 and ptr == 4096:
-                    assert got == port.Plan("wgmma", 64)
+                    assert got == port.Plan("wgmma128", 128)
                 elif dtype == torch.bfloat16 and d == 256 and ptr == 4096:
                     assert got == port.Plan("wgmma256", 64)
                 elif d == 1:
@@ -302,7 +302,7 @@ def test_plan_takes_every_width(dtype):
 
 @pytest.mark.parametrize("case", [
     # (dtype, aligned) -> kernel at d = 128
-    ((torch.bfloat16, True), "wgmma"),
+    ((torch.bfloat16, True), "wgmma128"),
     ((torch.bfloat16, False), "chunked"),   # a base TMA cannot take
     ((torch.float32, True), "f32wide"),
 ], ids=str)
@@ -324,7 +324,7 @@ def test_plan_and_check_refuse_width_0():
 @pytest.mark.parametrize("case", [
     # n_head -> the kernels of one flagship frame batch's 32 K1 launches
     (1, {"f32": 16, "wgmma256": 16}),  # motion d = 32, appearance 256
-    (2, {"f32": 16, "wgmma": 16}),     # motion d = 16, appearance 128
+    (2, {"f32": 16, "wgmma128": 16}),  # motion d = 16, appearance 128
     (8, {"f32": 16, "wgmma": 16}),     # shipped: d = 4 and 32
     (32, {"d1": 16, "mma": 16}),       # motion d = 1, appearance 8
 ], ids=str)

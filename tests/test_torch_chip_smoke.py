@@ -51,10 +51,10 @@ def test_guards_hold_the_new_kernels():
 
 def test_ragged_widths_reach_each_wide_kernel():
     """RAGGED_WIDTHS, at aligned pointers, run the float32 wide kernel
-    (float32 d = 96, 161, 256), the d = 256 wgmma kernel (bf16 d = 256)
-    and the d-chunked kernels (bf16 d = 96, 161, 320, float32 d = 320),
-    so the d-chunked kernels, on no frame batch, are checked and timed
-    there."""
+    (float32 d = 96, 128, 161, 256), the d = 128 and d = 256 wgmma kernels
+    (bf16 d = 128, 256) and the d-chunked kernels (bf16 d = 96, 161, 320,
+    float32 d = 320), so the d-chunked kernels, on no frame batch, are
+    checked and timed there."""
     import pytest
 
     torch = pytest.importorskip("torch")
@@ -69,7 +69,9 @@ def test_ragged_widths_reach_each_wide_kernel():
             got.setdefault(kernel, set()).add(
                 (str(dtype).split(".")[1], E // H))
     assert got == {
-        "f32wide": {("float32", 96), ("float32", 161), ("float32", 256)},
+        "f32wide": {("float32", 96), ("float32", 128), ("float32", 161),
+                    ("float32", 256)},
+        "wgmma128": {("bfloat16", 128)},
         "wgmma256": {("bfloat16", 256)},
         "chunked": {("bfloat16", 96), ("bfloat16", 161), ("bfloat16", 320),
                     ("float32", 320)}}
@@ -125,12 +127,13 @@ def _widths_report(torch, fa):
 
 
 def test_width_kernel_entries_from_the_phase_report():
-    """width_kernel_entries builds the d-chunked, float32 wide, d = 1 and
-    d = 256 wgmma entries of the kernels line from the attention_widths
-    report: each with the contract's keys, its launches on the phase's
-    frame batches (the d-chunked kernels on none), its times summed over
-    its frame batch's 16 launches (the d-chunked kernels' over one call
-    at each ragged shape they run), and the keys the speed guards read."""
+    """width_kernel_entries builds the d-chunked, float32 wide, d = 1,
+    d = 128 and d = 256 wgmma entries of the kernels line from the
+    attention_widths report: each with the contract's keys, its launches
+    on the phase's frame batches (the d-chunked kernels on none), its
+    times summed over its frame batch's 16 launches (the d-chunked
+    kernels' over one call at each ragged shape they run), and the keys
+    the speed guards read."""
     import pytest
 
     torch = pytest.importorskip("torch")
@@ -144,6 +147,7 @@ def test_width_kernel_entries_from_the_phase_report():
         "fused_attention_packed (d-chunked)",
         "fused_attention_packed (f32 wide)",
         "fused_attention_packed (d = 1)",
+        "fused_attention_packed (wgmma d = 128)",
         "fused_attention_packed (wgmma d = 256)"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -153,6 +157,7 @@ def test_width_kernel_entries_from_the_phase_report():
     assert launches == {"fused_attention_packed (d-chunked)": 0,
                         "fused_attention_packed (f32 wide)": 16,
                         "fused_attention_packed (d = 1)": 16,
+                        "fused_attention_packed (wgmma d = 128)": 16,
                         "fused_attention_packed (wgmma d = 256)": 16}
     # the ragged bf16 d = 96, 161, 320 and float32 d = 320, one call each
     assert entries["fused_attention_packed (d-chunked)"]["ms"] == (
@@ -162,9 +167,66 @@ def test_width_kernel_entries_from_the_phase_report():
     assert wide["device_ms_d128"] == pytest.approx(16 * 0.1)
     assert wide["device_ms_k2"] == pytest.approx(16 * 0.1)
     assert wide["max_abs_err"] == pytest.approx(256e-6)
+    for width in (128, 256):
+        wg = entries[f"fused_attention_packed (wgmma d = {width})"]
+        assert wg["device_ms"] == pytest.approx(16 * 0.1)
+        assert wg["device_ms_k2"] == pytest.approx(16 * 0.1)
+        assert wg["max_abs_err"] == pytest.approx(width * 1e-6)
     d1 = entries["fused_attention_packed (d = 1)"]
     assert d1["device_ms"] == pytest.approx(1.6)
     assert d1["device_ms_bf16"] == pytest.approx(1.6)
     for name, key, _ in chip_smoke.PREVIOUS_MS:
         if name in entries:
             assert key in entries[name], (name, key)
+
+
+def _fake_widths_ranks(outcomes, calls):
+    """A run_ranks that plays ``outcomes`` in turn for attention_widths:
+    "ok" writes a report, "lost" writes the profiler-loss note and fails,
+    "fail" fails without one."""
+    import json
+
+    def run_ranks(fn, world, args, timeout):
+        out_path = args[0]
+        outcome = outcomes[len(calls)]
+        calls.append(outcome)
+        if outcome == "ok":
+            with open(out_path, "w") as f:
+                json.dump({"seconds": 1.0}, f)
+            return
+        if outcome == "lost":
+            with open(out_path + ".lost", "w") as f:
+                f.write(chip_smoke.PROFILER_LOST + " in 3 sessions")
+        raise AssertionError("ranks exited with [1]")
+    return run_ranks
+
+
+def test_widths_phase_reruns_once_after_a_profiler_loss(monkeypatch,
+                                                        tmp_path):
+    """attention_widths_phase runs the phase once more in a fresh process
+    when the first process's profiler lost device activity, and returns
+    that run's report."""
+    calls = []
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "run_ranks",
+                        _fake_widths_ranks(["lost", "ok"], calls))
+    assert chip_smoke.attention_widths_phase(0, "card") == {"seconds": 1.0}
+    assert calls == ["lost", "ok"]
+    assert not (tmp_path / "build" / "chip_smoke_widths").exists()
+
+
+def test_widths_phase_fails_on_other_faults_and_a_second_loss(monkeypatch,
+                                                              tmp_path):
+    """Any failure but a profiler loss fails the phase at once, and so
+    does a second loss."""
+    import pytest
+
+    monkeypatch.setattr(chip_smoke, "ROOT", str(tmp_path))
+    for outcomes, ran in ((["fail", "ok"], ["fail"]),
+                          (["lost", "lost", "ok"], ["lost", "lost"])):
+        calls = []
+        monkeypatch.setattr(chip_smoke, "run_ranks",
+                            _fake_widths_ranks(outcomes, calls))
+        with pytest.raises(AssertionError, match="ranks exited"):
+            chip_smoke.attention_widths_phase(0, "card")
+        assert calls == ran
