@@ -24,11 +24,12 @@ each launch held against the plain version first:
   attn_packed_kernel_chunked_f32<16, 64> that served them before it.
 
 Each kernel is forced through fused_attention_packed by replacing plan
-for the call. Times are the profiler's device time per call
-(chip_smoke.device_ms), summed over the frame batch's launches of each
-half; the two kernels of a width are timed in turn, twice (a, b, b, a),
-within one process. Prints the card's name and power limit, one line per
-shape, and as its last line one JSON object of the sums.
+for the call (chip_smoke.forced_kernel). Times are the profiler's device
+time per call (chip_smoke.device_ms), summed over the frame batch's
+launches of each half; the two kernels of a width are timed in turn,
+twice (a, b, b, a), within one process. Prints the card's name and power
+limit, one line per shape, and as its last line one JSON object of the
+sums.
 
     python3 chip_attention_choice.py
 """
@@ -36,19 +37,10 @@ import json
 import os
 import sys
 from collections import Counter
-from unittest import mock
 
 import torch
 
 import chip_smoke as cs
-
-
-def forced(fa, p, H):
-    """fused_attention_packed on kernel plan ``p`` whatever plan picks."""
-    def call(q, k, v, bias):
-        with mock.patch.object(fa, "plan", return_value=p):
-            return fa.fused_attention_packed(q, k, v, bias, num_heads=H)
-    return call
 
 
 def candidates(fa, dtype, B, H, L, d, sms):
@@ -98,7 +90,7 @@ def main():
                                                       num_heads=H)
             calls = {}
             for p in plans:
-                call = forced(fa, p, H)
+                call = cs.forced_kernel(fa, p, H)
                 cs.assert_attention_close(torch, call(q, k, v, bias), ref,
                                           with_bias)
                 calls[p.kernel] = lambda call=call: call(q, k, v, bias)

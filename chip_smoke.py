@@ -68,16 +68,22 @@ at the flagship 256x256 width with seeded random weights:
   shape of a flagship frame batch at n_head 1, 2 and 32 (head widths 1 to
   256: the d = 128 wgmma kernel at bf16 d = 128, the d = 256 wgmma kernel
   at bf16 d = 256, the float32 wide kernel at float32 d = 128 and 256,
-  the d = 1 kernel at d = 1) and at ragged d = 96, 128, 161, 256 and 320
-  (the d-chunked kernels, timed there), against their plain versions in
-  both dtypes, timed against the bound and SDPA (float32 too above
-  d = 64); one flagship frame batch at each n_head with its 32 K1
-  launches counted by the kernel plan names (at n_head 1 the appearance
-  transformer's 16 on the d = 256 wgmma kernel, at n_head 2 on the
-  d = 128 one), and one in float32 at n_head 1 (its 16 on the float32
-  wide kernel); the tiny config with motion d = 1 and
-  appearance d = 128 on the card against the CPU (d = 1 and wide
-  kernels);
+  the d = 1 kernel at d = 1) and at ragged d = 72, 96, 112, 128, 160,
+  161, 224, 248, 256, 320, 384, 448 and 512 (every instantiation of the
+  wgmma designs and of the float32 wide kernel; the d-chunked kernels at
+  bf16 161 and above 256 and at float32 512, timed there), against their
+  plain versions in both dtypes, timed against the
+  bound and SDPA (float32 too above d = 64); at TIMED_WIDTHS (one
+  appearance launch of a frame batch at bf16 d = 96 and 192, float32
+  d = 320) the kernel plan picks against the d-chunked kernel forced
+  through plan, in turns, and SDPA, K2 from a transposed view; one
+  flagship frame batch at each n_head with its 32 K1 launches counted by
+  the kernel plan names (at n_head 1 the appearance transformer's 16 on
+  the d = 256 wgmma kernel, at n_head 2 on the d = 128 one), one at
+  appearance d = 96 (its 16 on the d = 128 design at D = 96), and one in
+  float32 at n_head 1 (its 16 on the float32 wide kernel); the tiny
+  config with motion d = 1 and appearance d = 128, and at appearance
+  d = 320, on the card against the CPU (d = 1 and wide kernels);
 - train_options (after the train profile): the flagship Trainer with a
   fixed GAN weight (use_adaptive_weight false) and weight decay on its
   three optimizers, 3 timed steps (K1 and K3 as the train path, no
@@ -156,10 +162,12 @@ CACHE_SIZE = 256                   # frames of the flagship's img_size
 # kernel) and at n_head 1 (d = 256, the d = 256 wgmma kernel), the
 # appearance transformer's 16 float32 launches at n_head 1 (d = 256, the
 # float32 wide kernel), the motion transformer's 16 launches at n_head 32
-# in bf16 (d = 1, the d = 1 kernel), K3 per train step and K4 over K3's
-# forward shapes, both bf16 on the wgmma kernel (their calls are short
-# enough that per-call event times measure the host). On a card at that
-# power limit none may be more than 10% slower now.
+# in bf16 (d = 1, the d = 1 kernel), one call at each TIMED_WIDTHS shape
+# (bf16 d = 96 and 192 on the wgmma designs at D = 96 and 192, float32
+# d = 320 on the float32 wide kernel at C = 384), K3 per train step and K4
+# over K3's forward shapes, both bf16 on the wgmma kernel (their calls are
+# short enough that per-call event times measure the host). On a card at
+# that power limit none may be more than 10% slower now.
 PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
                ("fused_attention_packed", "device_ms_motion", 1.17),
                ("fused_attention_packed", "device_ms_appearance_n_head_2",
@@ -167,6 +175,11 @@ PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
                ("fused_attention_packed (wgmma d = 256)", "device_ms", 0.762),
                ("fused_attention_packed (f32 wide)", "device_ms", 6.40),
                ("fused_attention_packed (d = 1)", "device_ms_bf16", 2.83),
+               ("fused_attention_packed (wgmma d = 96)", "device_ms", 0.0382),
+               ("fused_attention_packed (wgmma d = 192)", "device_ms",
+                0.0873),
+               ("fused_attention_packed (f32 wide d = 320)", "device_ms",
+                0.827),
                ("conv3x3", "device_ms", 2.97),
                ("conv3x3_nhwc", "device_ms", 1.16)]
 
@@ -310,19 +323,20 @@ def exp_rate(torch):
             "exp_per_s": EXP_PER_SM_CLOCK * sms * mhz * 1e6}
 
 
-def attention_cases(B, L=1024, H=8):
+def attention_cases(B, L=1024, H=8, E_app=256):
     """(name, B, L, E, H, K, shared context, bias, launches per frame
     batch) for the 32 attention launches of one frame batch at the
-    flagship config (n_head H: 8 as shipped): 4 motion and 4 appearance
-    passes, each 2 layers of self-attention over the L tokens and
-    cross-attention against the first 256*idx codebook entries; only the
-    first appearance layer carries a key bias."""
+    flagship config (n_head H: 8 as shipped; the appearance transformer's
+    width E_app: 256 as shipped): 4 motion and 4 appearance passes, each 2
+    layers of self-attention over the L tokens and cross-attention
+    against the first 256*idx codebook entries; only the first appearance
+    layer carries a key bias."""
     cases = [("motion_self", 32, H, L, False, False, 8)]
     cases += [(f"motion_cross_K{256 * i}", 32, H, 256 * i, True, False, 2)
               for i in range(1, 5)]
-    cases += [("app_self_bias", 256, H, L, False, True, 4),
-              ("app_self", 256, H, L, False, False, 4)]
-    cases += [(f"app_cross_K{256 * i}", 256, H, 256 * i, True, False, 2)
+    cases += [("app_self_bias", E_app, H, L, False, True, 4),
+              ("app_self", E_app, H, L, False, False, 4)]
+    cases += [(f"app_cross_K{256 * i}", E_app, H, 256 * i, True, False, 2)
               for i in range(1, 5)]
     return [(n, B, L, E, H, K, sh, bi, per) for n, E, H, K, sh, bi, per
             in cases]
@@ -506,7 +520,8 @@ def check_attention(torch, fa, B, rate, L=1024, cases=None):
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = []
-    if cases is None:
+    main_cases = cases is None
+    if main_cases:
         cases = attention_cases(B, L) + RAGGED_ATTENTION
     for name, bb, ll, E, H, K, shared, with_bias, per_batch in cases:
         d = E // H
@@ -574,7 +589,38 @@ def check_attention(torch, fa, B, rate, L=1024, cases=None):
                   + attention_note(row),
                   flush=True)
             del q, k, v, bias, out, ref
+    if main_cases:
+        rows.append(check_bf16_bias(torch, fa, gen, B, L))
     return rows
+
+
+def check_bf16_bias(torch, fa, gen, B, L):
+    """K1 at the biased appearance shape (bf16, d = 32) with a bf16 bias:
+    the wrapper casts it to float32, as the JAX package does, so the
+    output is bit for bit the call's with that bias in float32, and within
+    K1's tolerance of the plain version. A checked row, not timed."""
+    name, bb, ll, E, H, K, shared, _, _ = attention_cases(B, L)[5]
+    assert name == "app_self_bias"
+    q, k, v = (torch.randn(bb, n, E, generator=gen, device="cuda").to(
+        torch.bfloat16) for n in (ll, K, K))
+    bias = random_bias(torch, gen, bb, K).to(torch.bfloat16)
+    before = fa.launch_kernels.copy()
+    with torch.no_grad():
+        out = fa.fused_attention_packed(q, k, v, bias, num_heads=H)
+        kernel = launched_kernel(fa, before)
+        want = fa.fused_attention_packed(q, k, v, bias.float(), num_heads=H)
+        ref = fa.fused_attention_packed_reference(q, k, v, bias.float(),
+                                                  num_heads=H)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), "bf16 bias: not the float32 bias's output"
+    assert_attention_close(torch, out, ref, True)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"  K1 {name} with a bf16 bias: {kernel}, bit for bit the float32 "
+          f"bias's output, max_abs_err {err:.3e}", flush=True)
+    return {"case": name + "_bf16_bias", "dtype": "bfloat16", "B": bb,
+            "L": ll, "K": K, "E": E, "H": H, "d": E // H, "kernel": kernel,
+            "shared_kv": shared, "bias": True, "launches_per_frame_batch": 0,
+            "calls": 1, "on_path": False, "max_abs_err": err}
 
 
 def check_captured_attention(torch, fa, captured,
@@ -618,7 +664,8 @@ def check_attention_split(torch, fa, B, rate, L=1024, cases=None):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(2345)
-    if cases is None:
+    main_cases = cases is None
+    if main_cases:
         cases = attention_cases(B, L) + [("ragged_K1000_bias", B, L, 256, 8,
                                           1000, False, True, 0)]
     rows = []
@@ -665,7 +712,41 @@ def check_attention_split(torch, fa, B, rate, L=1024, cases=None):
                   + attention_note(row),
                   flush=True)
             del q, k, v, bias, out, ref
+    if main_cases:
+        rows.append(check_transposed_split(torch, fa, gen, B, L))
     return rows
+
+
+def check_transposed_split(torch, fa, gen, B, L):
+    """K2 on the head-split view of token-major tensors, x.view(B, L, H,
+    d).transpose(1, 2), at the biased appearance shape (bf16, d = 32): not
+    contiguous, so the launch copies it; bit for bit the call on the
+    contiguous copies, and within K1's tolerance of the plain version. A
+    checked row, not timed."""
+    name, bb, ll, E, H, K, shared, _, _ = attention_cases(B, L)[5]
+    d = E // H
+    q, k, v = (torch.randn(bb, n, E, generator=gen, device="cuda").to(
+        torch.bfloat16).view(bb, n, H, d).transpose(1, 2)
+        for n in (ll, K, K))
+    assert not q.is_contiguous()
+    bias = random_bias(torch, gen, bb, K)
+    before = fa.launch_kernels.copy()
+    with torch.no_grad():
+        out = fa.fused_attention(q, k, v, bias)
+        kernel = launched_kernel(fa, before)
+        want = fa.fused_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), bias)
+        ref = fa.fused_attention_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want), "transposed input: not the copy's output"
+    assert_attention_close(torch, out, ref, True)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"  K2 {name} from a transposed view: {kernel}, bit for bit the "
+          f"contiguous call's output, max_abs_err {err:.3e}", flush=True)
+    return {"case": name + "_transposed", "dtype": "bfloat16", "B": bb,
+            "H": H, "L": ll, "K": K, "d": d, "kernel": kernel,
+            "shared_kv": shared, "bias": True,
+            "k1_launches_per_frame_batch": 0, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -1014,7 +1095,7 @@ def check_conv3x3_nhwc(torch, k3, fwd_convs, B):
 
 
 def build_report(cuda_build, library, kernel, tc_kernel, no_spill=(),
-                 tc_op="HMMA"):
+                 tc_op="HMMA", instances=None):
     """ptxas's registers, shared memory and spills for each kernel of
     csrc/<library>.cu, ptxas's notes on it (such as a serialized wgmma),
     and the tensor-core (HMMA: mma.sync; HGMMA: wgmma) and ldmatrix (LDSM)
@@ -1024,7 +1105,8 @@ def build_report(cuda_build, library, kernel, tc_kernel, no_spill=(),
     of ``no_spill`` must spill nothing and keep no stack frame (an array
     that ptxas could not keep in registers); with HGMMA, no wgmma of it may
     be serialized (ptxas's C7512 and C7520), and no setmaxnreg of it
-    ignored (C7508: the roles' paths reconverge)."""
+    ignored (C7508: the roles' paths reconverge). ``instances``: {name
+    substring: count} of the instantiations the library must hold."""
     import re
 
     kernels, name = {}, None
@@ -1072,6 +1154,10 @@ def build_report(cuda_build, library, kernel, tc_kernel, no_spill=(),
                                for c in ("C7508", "C7512", "C7520")), (
                     f"serialized wgmma or ignored setmaxnreg in {name}: "
                     f"{k['notes']}")
+    for part, count in (instances or {}).items():
+        got = sum(part in name and "ptxas" in k
+                  for name, k in kernels.items())
+        assert got == count, f"{library}: {got} instantiations of {part}"
     return kernels
 
 
@@ -1957,32 +2043,66 @@ HEAD_WIDTHS = {f"n_head_{h}": {"g": {"n_head": h}} for h in HEAD_COUNTS}
 HEAD_WIDTHS["tiny_d1_d128"] = {"g": {
     "n_head": 4, "embed_dim_motion": 4, "dim_embd_motion": 4,
     "embed_dim_app": 512, "dim_embd_app": 512}}
-# (name, B, L, E, H, K, shared context, bias, 0): widths off the column
-# chunks of the d-chunked kernel (bf16) and of the float32 wide kernel
-# (d = 161 also off 16-byte rows: both kernels' element-wise copies),
-# d = 128 and 256 (the d = 128 and d = 256 wgmma kernels in bf16, the wide
-# kernel in float32) on a shared codebook, and d = 320, past the wide
-# kernel (the d-chunked kernel in both dtypes); L and K off the query and
-# key tiles, each with a bias that masks every key of batch row 0;
-# checked, and timed where the d-chunked kernels run them (on no frame
-# batch)
+# the flagship at n_head 2 with a 192-wide appearance transformer
+# (appearance d = 96: the d = 128 wgmma design at D = 96), and the tiny
+# config at n_head 1 with a 320-wide one (appearance d = 320: the float32
+# wide kernel at C = 384)
+HEAD_WIDTHS["app_d96"] = {"g": {"n_head": 2, "embed_dim_app": 192,
+                                "dim_embd_app": 192}}
+HEAD_WIDTHS["tiny_d320"] = {"g": {"n_head": 1, "embed_dim_app": 320,
+                                  "dim_embd_app": 320}}
+# (name, B, L, E, H, K, shared context, bias, 0): a width for each
+# instantiation of the d = 128 and d = 256 wgmma designs in bf16 (D = 96
+# at d = 72 and 96, D = 128 on 4-d maps at 112, on 3-d maps at 128; D =
+# 160, 224 and 256 on 4-d maps at 160, 224 and 248, on 3-d maps at 256;
+# D = 192 at TIMED_WIDTHS) and of the float32 wide kernel (C = 128 to
+# 512 at d = 72 to 448); d = 161, off 16-byte rows (the d-chunked kernel
+# in bf16 and both kernels' element-wise copies); bf16 above 256 and
+# float32 d = 512, past the wide kernel (the d-chunked kernels, K1 and K2
+# both, d = 512 on a shared codebook); L and K off the query and key
+# tiles, each with a bias that masks every key of batch row 0; checked,
+# and timed where the d-chunked kernels run them (on no frame batch)
 RAGGED_WIDTHS = [
     ("ragged_L1000_K700_d96", 4, 1000, 192, 2, 700, False, True, 0),
+    ("ragged_L1000_K700_d72", 4, 1000, 144, 2, 700, False, True, 0),
+    ("ragged_L1000_K700_d112", 4, 1000, 224, 2, 700, False, True, 0),
+    ("ragged_L900_K333_d160", 3, 900, 160, 1, 333, False, True, 0),
     ("ragged_L900_K333_d161", 3, 900, 322, 2, 333, True, True, 0),
+    ("ragged_L900_K333_d224", 3, 900, 224, 1, 333, True, True, 0),
+    ("ragged_L1000_K333_d248", 3, 1000, 248, 1, 333, True, True, 0),
     ("ragged_L1000_K333_d128", 3, 1000, 256, 2, 333, True, True, 0),
     ("ragged_L1000_K333_d256", 3, 1000, 256, 1, 333, True, True, 0),
     ("ragged_L1000_K333_d320", 3, 1000, 320, 1, 333, True, True, 0),
+    ("ragged_L1000_K333_d384", 3, 1000, 384, 1, 333, True, True, 0),
+    ("ragged_L1000_K333_d448", 3, 1000, 448, 1, 333, False, True, 0),
+    ("ragged_L1000_K333_d512", 3, 1000, 512, 1, 333, True, True, 0),
+]
+# (name, B, L, E, H, K, shared context, bias, dtype): one appearance
+# launch of a flagship frame batch (B 16, L = K = 1024, its key bias on)
+# at widths the d-chunked kernels served before: bf16 d = 96 (E 192 at
+# n_head 2: the d = 128 wgmma design at D = 96), bf16 d = 192 (E 384 at
+# n_head 2: the d = 256 design at D = 192) and float32 d = 320 (E 320 at
+# n_head 1: the float32 wide kernel at C = 384); checked in both layouts,
+# timed against the d-chunked kernel and SDPA
+TIMED_WIDTHS = [
+    ("frame_E192_H2_d96", FRAME_BATCH, 1024, 192, 2, 1024, False, True,
+     "bfloat16"),
+    ("frame_E384_H2_d192", FRAME_BATCH, 1024, 384, 2, 1024, False, True,
+     "bfloat16"),
+    ("frame_E320_H1_d320", FRAME_BATCH, 1024, 320, 1, 1024, False, True,
+     "float32"),
 ]
 WIDTHS_TIMEOUT = 300  # seconds for the phase's process
 
 
-def head_width_kernels(torch, fa, H, sms):
+def head_width_kernels(torch, fa, H, sms, E_app=256):
     """The kernel that plan names for each of the 32 attention calls of
-    one flagship frame batch at n_head H (the motion calls in float32, the
-    appearance ones in bfloat16, pointers aligned), counted: a Counter."""
+    one flagship frame batch at n_head H and appearance width E_app (the
+    motion calls in float32, the appearance ones in bfloat16, pointers
+    aligned), counted: a Counter."""
     want = Counter()
-    for name, B, L, E, hh, K, _, _, per in attention_cases(FRAME_BATCH,
-                                                           H=H):
+    for name, B, L, E, hh, K, _, _, per in attention_cases(
+            FRAME_BATCH, H=H, E_app=E_app):
         dtype = torch.float32 if name.startswith("motion") else \
             torch.bfloat16
         want[fa.plan(dtype, B, hh, L, E // hh, sms, 0, 0, 0, 0).kernel] += per
@@ -2007,6 +2127,100 @@ def width_halves(rows, weight="launches_per_frame_batch"):
     for h in halves.values():
         h["bound_share"] = h["bound_ms"] / h["device_ms"]
     return {key: dict(h) for key, h in halves.items()}
+
+
+def forced_kernel(fa, p, num_heads=None):
+    """K1 (num_heads given) or K2 on kernel plan ``p``, whatever plan
+    picks: the plan replaced for the call."""
+    def call(q, k, v, bias):
+        with mock.patch.object(fa, "plan", return_value=p):
+            if num_heads is None:
+                return fa.fused_attention(q, k, v, bias)
+            return fa.fused_attention_packed(q, k, v, bias,
+                                             num_heads=num_heads)
+    return call
+
+
+def timed_widths(torch, fa, rate, card):
+    """At each TIMED_WIDTHS shape, in its dtype: K1 on the kernel plan
+    picks and on the d-chunked kernel forced through plan, each held
+    against the plain version; K2 on plan's kernel from the head-split
+    view of the same tensors (x.view(B, L, H, d).transpose(1, 2)), held
+    against its plain version; the profiler's device time of plan's
+    kernel and of the d-chunked one in turns (a, b, b, a), SDPA's, K2's
+    (on contiguous head-split copies), the events' and the plain
+    version's as attention_times takes them, and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(3456)
+    rows = []
+    for name, B, L, E, H, K, _, _, dtype_name in TIMED_WIDTHS:
+        dtype = getattr(torch, dtype_name)
+        d = E // H
+        q, k, v = (torch.randn(B, n, E, generator=gen, device="cuda").to(
+            dtype) for n in (L, K, K))
+        bias = random_bias(torch, gen, B, K)
+        heads = [t.view(B, -1, H, d).transpose(1, 2) for t in (q, k, v)]
+        chunked = forced_kernel(fa, fa.Plan("chunked",
+                                            fa.CHUNKED_ROWS[dtype]), H)
+        before = fa.launch_kernels.copy()
+        with torch.no_grad():
+            out = fa.fused_attention_packed(q, k, v, bias, num_heads=H)
+            kernel = launched_kernel(fa, before)
+            out_chunked = chunked(q, k, v, bias)
+            out_k2 = fa.fused_attention(*heads, bias)
+            ref = fa.fused_attention_packed_reference(q, k, v, bias,
+                                                      num_heads=H)
+            ref_k2 = fa.fused_attention_reference(*heads, bias)
+        torch.cuda.synchronize()
+        for got, want in ((out, ref), (out_chunked, ref), (out_k2, ref_k2)):
+            assert_attention_close(torch, got, want, True)
+        row = {"case": name, "dtype": dtype_name, "B": B, "L": L, "K": K,
+               "E": E, "H": H, "d": d, "kernel": kernel, "calls": 1,
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "max_abs_err_chunked": (out_chunked.float() - ref.float())
+               .abs().max().item(),
+               "max_abs_err_k2": (out_k2.float() - ref_k2.float()).abs()
+               .max().item()}
+        del out, out_chunked, out_k2, ref, ref_k2
+        qh, kh, vh = (t.contiguous() for t in heads)
+        mask = bias.to(dtype)[:, None, None, :]
+
+        def new():
+            return fa.fused_attention_packed(q, k, v, bias, num_heads=H)
+
+        with torch.no_grad():
+            row.update(attention_times(
+                torch, new,
+                lambda: fa.fused_attention_packed_reference(
+                    q, k, v, bias, num_heads=H),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=mask)))
+            turns = [device_ms(torch, f) for f in
+                     (new, lambda: chunked(q, k, v, bias),
+                      lambda: chunked(q, k, v, bias), new)]
+            row["device_ms_k2"] = device_ms(
+                torch, lambda: fa.fused_attention(qh, kh, vh, bias))
+        row["device_ms_turns"] = turns
+        row["device_ms"] = (turns[0] + turns[3]) / 2
+        row["chunked_device_ms"] = (turns[1] + turns[2]) / 2
+        row["chunked_over_kernel"] = row["chunked_device_ms"] / row[
+            "device_ms"]
+        row.update(attention_bound(q, k, v, bias, B * H * L * K, d, rate))
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        print(f"  timed width {name} {dtype_name} d {d}: {kernel} "
+              f"{row['device_ms']:.4f} ms device (turns "
+              + " / ".join(f"{t:.4f}" for t in turns)
+              + f"), d-chunked {row['chunked_device_ms']:.4f} "
+              f"({row['chunked_over_kernel']:.2f}x), SDPA "
+              f"{row['library_device_ms']:.4f}, K2 {row['device_ms_k2']:.4f}"
+              f", bound {row['bound_ms']:.4f} ({row['bound_kind']}, share "
+              f"{row['bound_share']:.3f}); max_abs_err {row['max_abs_err']:.3e}"
+              f" (d-chunked {row['max_abs_err_chunked']:.3e}, K2 "
+              f"{row['max_abs_err_k2']:.3e}) on {card}", flush=True)
+        del q, k, v, bias, heads, qh, kh, vh, mask
+    return rows
 
 
 def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
@@ -2053,6 +2267,8 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
                                              cases=RAGGED_WIDTHS)
     report["k2"]["ragged"] = check_attention_split(
         torch, fa, FRAME_BATCH, rate, cases=RAGGED_WIDTHS)
+    report["timed"] = timed_widths(torch, fa, rate, card)
+    torch.cuda.empty_cache()
     for H in HEAD_COUNTS:
         row, _ = ablation_inference(torch, configs, ReenactmentPipeline,
                                     seeded_nets, fa, f"n_head_{H}", seed)
@@ -2070,6 +2286,20 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
               f"{row['frames_per_s']:.2f} frames/s (one frame batch of "
               f"{FRAME_BATCH}), K1 {row['k1_launches']} launches by kernel "
               f"{row['k1_kernels']} on {card}", flush=True)
+    # appearance d = 96 (n_head 2, E 192): the appearance half on the
+    # d = 128 wgmma design at D = 96
+    row, _ = ablation_inference(torch, configs, ReenactmentPipeline,
+                                seeded_nets, fa, "app_d96", seed)
+    row["k1_kernels"] = dict(fa.launch_kernels)
+    want = head_width_kernels(torch, fa, 2, sms, E_app=192)
+    assert fa.launch_kernels == want == {"f32": 16, "wgmma128": 16}, (
+        fa.launch_kernels, want)
+    report["frame_batch_app_d96"] = row
+    torch.cuda.empty_cache()
+    print(f"attention widths: flagship-256 bf16 at appearance d = 96: "
+          f"{row['frames_per_s']:.2f} frames/s (one frame batch of "
+          f"{FRAME_BATCH}), K1 {row['k1_launches']} launches by kernel "
+          f"{row['k1_kernels']} on {card}", flush=True)
     # a float32 generator at n_head 1: the appearance half at d = 256
     row, _ = ablation_inference(torch, configs, ReenactmentPipeline,
                                 seeded_nets, fa, "n_head_1", seed,
@@ -2091,9 +2321,20 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
                               "mean_diff_levels": float(diff.mean()),
                               "k1_launches": launches,
                               "k1_kernels": kernels}
-    report["seconds"] = time.perf_counter() - t0
     print(f"attention widths: tiny f32 (motion d = 1, appearance d = 128) "
-          f"card vs CPU max |diff| {diff.max()} levels, K1 {kernels}; phase "
+          f"card vs CPU max |diff| {diff.max()} levels, K1 {kernels}",
+          flush=True)
+    diff, launches = tiny_frames(
+        torch, ablation_cfg(configs.get("tiny"), "tiny_d320"),
+        ReenactmentPipeline, seeded_nets, fa, seed, 6)
+    kernels = dict(fa.launch_kernels)
+    assert set(kernels) == {"f32", "f32wide"}, kernels
+    report["tiny_d320"] = {"max_diff_levels": int(diff.max()),
+                           "mean_diff_levels": float(diff.mean()),
+                           "k1_launches": launches, "k1_kernels": kernels}
+    report["seconds"] = time.perf_counter() - t0
+    print(f"attention widths: tiny f32 (appearance d = 320) card vs CPU max "
+          f"|diff| {diff.max()} levels, K1 {kernels}; phase "
           f"{report['seconds']:.1f} s on {card}", flush=True)
     return report
 
@@ -4770,14 +5011,70 @@ def serving_two_device(torch, configs, ReenactmentPipeline, seeded_nets,
     return report
 
 
+# the kernels-line entries of the TIMED_WIDTHS shapes: (name, source, the
+# width timed, where the launches come from)
+TIMED_ENTRIES = [
+    ("fused_attention_packed (wgmma d = 96)", "fused_attention_wgmma128.cu",
+     96, ("frame_batch_app_d96", "wgmma128")),
+    ("fused_attention_packed (wgmma d = 192)", "fused_attention_wgmma256.cu",
+     192, None),
+    ("fused_attention_packed (f32 wide d = 320)",
+     "fused_attention_chunked.cu", 320, ("tiny_d320", "f32wide")),
+]
+
+
+def widths_note(rows):
+    """The dtypes and head widths of ``rows``, as "bfloat16 d = 161 and
+    320, float32 d = 512"."""
+    by = {}
+    for r in rows:
+        by.setdefault(r["dtype"], set()).add(r["d"])
+    notes = []
+    for dtype, ds in sorted(by.items()):
+        ds = [str(d) for d in sorted(ds)]
+        listed = ", ".join(ds[:-1]) + " and " + ds[-1] if len(ds) > 1 \
+            else ds[0]
+        notes.append(f"{dtype} d = {listed}")
+    return ", ".join(notes)
+
+
 def width_kernel_entries(widths):
     """The kernels-line entries of the kernels that only the
     attention_widths phase (``widths``, its report) runs on the card: the
-    d-chunked kernels, the float32 wide kernel, the d = 1 kernel and the
-    d = 128 and d = 256 wgmma kernels."""
+    d-chunked kernels, the float32 wide kernel, the d = 1 kernel, the
+    d = 128 and d = 256 wgmma kernels, and the instantiations timed at
+    TIMED_WIDTHS (TIMED_ENTRIES)."""
     def width_rows(layout, kernel):
         return [r for rows in widths[layout].values() for r in rows
                 if r["kernel"] == kernel]
+
+    def ragged(kernel):
+        return widths_note(r for r in widths["k1"]["ragged"]
+                           if r["kernel"] == kernel)
+
+    def timed_entry(name, source, d, launched):
+        rows = [r for r in widths["timed"] if r["d"] == d]
+        return kernel_entry(
+            name, source, "fused_attention.py:227", rows, "calls",
+            widths[launched[0]]["k1_kernels"][launched[1]] if launched
+            else 0,
+            f"one call at {rows[0]['case']} ({rows[0]['dtype']}, B "
+            f"{rows[0]['B']}, L = K = {rows[0]['L']}, H {rows[0]['H']}, "
+            f"bias on: one appearance launch of a flagship frame batch at "
+            f"that width; attention_widths phase) on plan's kernel "
+            f"({rows[0]['kernel']}); device_ms the mean of its two turns "
+            f"beside the d-chunked kernel forced through plan "
+            f"(chunked_device_ms), device_ms_k2 K2 at the same shape; "
+            f"library_device_ms and the bound as for K1",
+            summed=lambda r: True,
+            launches_note=(f"{launched[1]} launches in the {launched[0]} "
+                           f"run of the attention_widths phase" if launched
+                           else "no frame batch of the phase runs this "
+                           "width; 0 on every shipped config"),
+            **{key: rows[0][key] for key in (
+                "device_ms_turns", "chunked_device_ms",
+                "chunked_over_kernel", "device_ms_k2",
+                "max_abs_err_chunked", "max_abs_err_k2", "bound_share")})
 
     return [
         kernel_entry(
@@ -4786,15 +5083,15 @@ def width_kernel_entries(widths):
             width_rows("k1", "chunked"), "calls",
             sum(row["k1_kernels"].get("chunked", 0)
                 for row in widths["frame_batches"].values()),
-            "sum over one call at each ragged shape it takes in the "
-            "attention_widths phase (bf16 d = 96, 161 and 320, float32 "
-            "d = 320; chiprun_out/chip_smoke.json has each); device_ms, "
-            "library_device_ms and the bound as for K1",
+            f"sum over one call at each ragged shape it takes in the "
+            f"attention_widths phase ({ragged('chunked')}; "
+            f"chiprun_out/chip_smoke.json has each); device_ms, "
+            f"library_device_ms and the bound as for K1",
             summed=lambda r: "device_ms" in r,
             launches_note="launches over the three frame batches of the "
                           "attention_widths phase (n_head 1, 2, 32): "
                           "none takes its widths (bf16 above 64 where the "
-                          "wgmma kernels do not run, float32 above 256); "
+                          "wgmma kernels do not run, float32 above 511); "
                           "0 on every shipped config (n_head 8)",
             max_abs_err_k2=max(r["max_abs_err"]
                                for r in width_rows("k2", "chunked"))),
@@ -4803,13 +5100,13 @@ def width_kernel_entries(widths):
             "fused_attention_chunked.cu", "fused_attention.py:227",
             width_rows("k1", "f32wide"), "launches_per_frame_batch",
             widths["frame_batch_float32"]["k1_kernels"]["f32wide"],
-            "sum over the appearance transformer's 16 float32 launches "
-            "(d = 256) of one flagship frame batch at n_head 1 "
-            "(attention_widths phase), on attn_packed_kernel_f32wide<256>; "
-            "the d = 128 ones at n_head 2 (<128>) in the _d128 keys, K2 "
-            "at the same shapes in the _k2 keys; the ragged float32 d = "
-            "96, 161 and 256 cases are checked, not summed; device_ms, "
-            "library_device_ms and the bound as for K1",
+            f"sum over the appearance transformer's 16 float32 launches "
+            f"(d = 256) of one flagship frame batch at n_head 1 "
+            f"(attention_widths phase), on attn_packed_kernel_f32wide<256>; "
+            f"the d = 128 ones at n_head 2 (<128>) in the _d128 keys, K2 "
+            f"at the same shapes in the _k2 keys; the ragged "
+            f"{ragged('f32wide')} cases are checked, not summed; device_ms, "
+            f"library_device_ms and the bound as for K1",
             summed=lambda r: r["d"] == 256,
             launches_note="launches in the float32 frame batch at n_head 1 "
                           "of the attention_widths phase; 0 on every "
@@ -4856,8 +5153,10 @@ def width_kernel_entries(widths):
             f"sum over the appearance transformer's 16 bf16 launches (d = "
             f"{d}) of one flagship frame batch at n_head {256 // d} "
             f"(attention_widths phase), on "
-            f"attn_packed_kernel_wgmma{d}<BIAS>; the ragged d = {d} case is "
-            f"checked, not summed; device_ms, "
+            f"attn_packed_kernel_wgmma{d}<{d}, false, BIAS>; the ragged "
+            f"{ragged(f'wgmma{d}')} cases (with TIMED_WIDTHS, every "
+            f"instantiation of the design) are checked, not summed; "
+            f"device_ms, "
             f"library_device_ms and the bound as for K1, device_ms_k2 K2 at "
             f"the same shapes",
             summed=lambda r: r["on_path"],
@@ -4872,6 +5171,7 @@ def width_kernel_entries(widths):
                 r["max_abs_err"] for rows in widths["k2"].values()
                 for r in rows if r["kernel"] == f"wgmma{d}"))
           for d in (128, 256)),
+        *(timed_entry(*entry) for entry in TIMED_ENTRIES),
     ]
 
 
@@ -4971,20 +5271,25 @@ def main():
         cuda_build, "fused_attention_wgmma", "attn_packed_kernel",
         "attn_packed_kernel_wgmma", no_spill=("attn_packed_kernel_wgmma",),
         tc_op="HGMMA")
+    # <D, M4, BIAS>: D = 96 and 128 (d = 128 on 3-d maps, 104..120 on 4-d
+    # ones); D = 160, 192, 224 and 256 (the same at 256)
     report["attention_wgmma128_build"] = build_report(
         cuda_build, "fused_attention_wgmma128", "attn_packed_kernel",
         "attn_packed_kernel_wgmma128",
-        no_spill=("attn_packed_kernel_wgmma128",), tc_op="HGMMA")
+        no_spill=("attn_packed_kernel_wgmma128",), tc_op="HGMMA",
+        instances={"attn_packed_kernel_wgmma128": 6})
     report["attention_wgmma256_build"] = build_report(
         cuda_build, "fused_attention_wgmma256", "attn_packed_kernel",
         "attn_packed_kernel_wgmma256",
         no_spill=("attn_packed_kernel_wgmma256",),
-        tc_op="HGMMA")
+        tc_op="HGMMA", instances={"attn_packed_kernel_wgmma256": 10})
+    # the wide kernel at C = 128, 256, 384 and 512
     report["attention_chunked_build"] = build_report(
         cuda_build, "fused_attention_chunked", "attn_packed_kernel",
         "attn_packed_kernel_chunked_tc",
         no_spill=("attn_packed_kernel_chunked",
-                  "attn_packed_kernel_f32wide"))
+                  "attn_packed_kernel_f32wide"),
+        instances={"attn_packed_kernel_f32wide": 4})
     rate = exp_rate(torch)
     report["exp_rate"] = rate
     print(f"exponentials: {EXP_PER_SM_CLOCK} per SM per clock x "

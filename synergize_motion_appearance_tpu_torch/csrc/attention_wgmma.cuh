@@ -2,7 +2,9 @@
 // fused_attention_wgmma128.cu, fused_attention_wgmma256.cu): the layouts'
 // tensor-map coordinates, wgmma with p from registers, the exponential, the
 // split of an f32 softmax weight into bf16 hi + lo, the online softmax of a
-// 64-key tile, and the host's encoding of a bf16 tensor map.
+// 64-key tile, the 64-byte swizzle of a 32-column tail part, and the
+// host's encoding of bf16 tensor maps: 3-d maps of whole token rows, and
+// 4-d maps of head rows for widths whose boxes run past d.
 // Each including file gets its own copy (anonymous namespace).
 #pragma once
 
@@ -61,6 +63,23 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// a head row past its full 64-column parts: a 32-column part (the 64-byte
+// swizzle) where D % 64 = 32. wgmma descriptors of such a part: layout type
+// 2, 8-row groups 512 bytes apart
+constexpr int kTailLayout = 2;
+constexpr uint32_t kTailGroupBytes = 8 * 64;
+
+// make_desc of such a part. A function of its own, so that make_desc keeps
+// the arguments it has at every other call of a file (the compiler folds
+// them into it before it is inlined: with other arguments at some calls,
+// the d = 256 kernel's SASS changed, two instructions of its first q.k)
+__device__ __forceinline__ uint64_t make_tail_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(kTailGroupBytes >> 4) << 32) |
+         (static_cast<uint64_t>(kTailLayout) << 62);
 }
 
 // d (64 x 64) += a (64 x 16, registers) * b (16 x 64, shared, MN-major)
@@ -237,6 +256,80 @@ inline bool layout_maps(const void* q, const void* k, const void* v, int B,
                 2LL * d * L, q_rows) &&
          encode(km, k, d, d, K, planes, 2 * d, 2LL * d * K, kv_rows) &&
          encode(vm, v, d, d, K, planes, 2 * d, 2LL * d * K, kv_rows);
+}
+
+// A 4-d bf16 map whose innermost extent is one head row of d columns:
+// (d, heads, rows, planes), byte strides of a head, a row and a plane, read
+// in boxes of box_cols x 1 x box_rows x 1 (64 columns: the 128-byte
+// swizzle; 32: the 64-byte one). TMA zero-fills the columns past d on a
+// load and clips them on a store, so a box that runs past the head row
+// never reads or writes the next head's columns (a 3-d map's rows hold
+// all H heads). Every stride must be a multiple of 16 bytes: d % 8 = 0.
+inline bool encode4(CUtensorMap* map, const void* ptr, int d, int box_cols,
+                    long long heads, long long rows, long long planes,
+                    long long head_bytes, long long row_bytes,
+                    long long plane_bytes, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(planes)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(head_bytes),
+                                 static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(plane_bytes)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 4-d maps (encode4) and coordinates of a call in either layout, as
+// layout_maps' 3-d ones: a box is at (column, head coordinate, row, plane)
+// = (c, h * col_h, row, b * z_b + h * z_h). Token-major: (d, H, rows, B)
+// (col_h 1); head-split: (d, 1, rows, B * H) (col_h 0). box_cols: 64 or
+// 32; q's boxes are q_rows rows, k's and v's kv_rows; out, where om is
+// given, as q's layout in boxes of o_rows rows.
+inline bool layout_maps4(const void* q, const void* k, const void* v,
+                         const void* out, int B, int H, int L, int K, int d,
+                         int layout, int kv_shared, int box_cols, int q_rows,
+                         int kv_rows, int o_rows, CUtensorMap* qm,
+                         CUtensorMap* km, CUtensorMap* vm, CUtensorMap* om,
+                         Coords* co) {
+  const long long E = static_cast<long long>(H) * d;
+  const long long kv_planes =
+      layout == 0 ? (kv_shared ? 1 : B)
+                  : (kv_shared ? H : static_cast<long long>(B) * H);
+  const long long q_planes = layout == 0 ? B : static_cast<long long>(B) * H;
+  const long long heads = layout == 0 ? H : 1;
+  const long long row_bytes = layout == 0 ? 2 * E : 2LL * d;
+  if (layout == 0) {
+    *co = Coords{1, 1, 0, 1, kv_shared ? 0 : 1, 0, L * E, E, d};
+  } else {
+    *co = Coords{0, H, 1, 0, kv_shared ? 0 : H, 1, E * L,
+                 static_cast<long long>(d), static_cast<long long>(L) * d};
+  }
+  return encode4(qm, q, d, box_cols, heads, L, q_planes, 2LL * d, row_bytes,
+                 row_bytes * L, q_rows) &&
+         encode4(km, k, d, box_cols, heads, K, kv_planes, 2LL * d, row_bytes,
+                 row_bytes * K, kv_rows) &&
+         encode4(vm, v, d, box_cols, heads, K, kv_planes, 2LL * d, row_bytes,
+                 row_bytes * K, kv_rows) &&
+         (om == nullptr ||
+          encode4(om, out, d, box_cols, heads, L, q_planes, 2LL * d,
+                  row_bytes, row_bytes * L, o_rows));
+}
+
+// byte offset of (row, byte c of the row) in a box of 64-byte rows
+// swizzled by 64 bytes (16-byte chunk c / 16 of row r at chunk c / 16 ^
+// (r / 2) % 4), the box at a 512-byte boundary
+__device__ __forceinline__ int swizzled64(int row, int c) {
+  return row * 64 + ((((c >> 4) ^ ((row >> 1) & 3)) << 4) | (c & 15));
 }
 
 }  // namespace

@@ -1,22 +1,21 @@
 // Softmax attention at the head widths the other attention kernels do not
 // take, in both layouts, on three kernels:
-// - float32 at d = 65..256: `attn_packed_kernel_f32wide<C>` (plan kernel
+// - float32 at d = 65..511: `attn_packed_kernel_f32wide<C>` (plan kernel
 //   "f32wide"), a block all output columns of its query rows, so q.k and
 //   every exponential run once a head;
 // - d = 1, either dtype: `attn_packed_kernel_chunked_f32<1, 1, T>` (plan
 //   kernel "d1"), one query row a thread on the CUDA cores, bf16 loads
 //   widened to f32 (the name says its arithmetic);
-// - the rest (plan kernel "chunked"): bfloat16 at 65..127, 129..255 and
-//   above 256, or at 128 and 256 with a pointer TMA cannot take, on
-//   `attn_packed_kernel_chunked_tc`; float32 above 256 on
+// - the rest (plan kernel "chunked"): bfloat16 above 64 at d % 8 != 0,
+//   at a pointer TMA cannot take or above 256, on
+//   `attn_packed_kernel_chunked_tc`; float32 above 511 on
 //   `attn_packed_kernel_chunked_f32<16, 64, float>`, whose blocks of 64
-//   output columns each repeat their head's q.k (the f32 wide kernel's
-//   q tile, 64 rows of d floats in shared memory, leaves no room past
-//   d = 256).
+//   output columns each repeat their head's q.k.
 // No shipped config reaches these widths; a generator at n_head 32 (d = 1
 // in the motion transformer) or a float32 one at n_head 1 or 2 (d = 256,
-// 128 in the appearance transformer) does. bfloat16 d = 256 and 128 at
-// aligned pointers run the wgmma kernels (PERF.md section 6 has the times).
+// 128 in the appearance transformer) does. bfloat16 at d = 65..256 with
+// d % 8 = 0 at aligned pointers runs the wgmma kernels (PERF.md section 6
+// has the times).
 //
 // Replaces, for those widths, the same two TPU kernels as
 // fused_attention_packed.cu (synergize_motion_appearance_tpu/ops/
@@ -32,21 +31,27 @@
 // The float32 wide kernel. f32 is exact FMAs on the CUDA cores (no TF32),
 // so the bound is the FMAs: 2d a score, q.k and p.v, at 128 a clock an SM.
 // A block owns all d columns of R query rows of one head (256 threads; d
-// rounded up to C = 128 or 256, R = 16384 / C), so q.k and every
-// exponential run once a head. q is staged once, times scale * log2(e);
-// keys come in super-tiles of C: k in depth chunks, v in key chunks, each
-// about 32 KiB, through a 2-slot ring filled by `cp.async` (16 bytes a
-// thread where d and the pointers allow, else 4), each chunk landing while
-// the one before it is used. Each thread holds an 8 x 8 register tile of
-// the R x C scores and one of O, so each float4 it reads from shared
-// memory feeds 16 FMAs: one byte a FMA, which is the rate at which shared
-// memory returns data to an SM's threads (128 bytes a clock), so the two
-// bind together. The lanes of a row (a warp at C = 256, a half-warp at
-// 128) take its max and sum by shuffles; p goes through shared memory (C
-// keys x R rows). 206.0 KiB of shared memory at C = 256, 202.0 at C =
-// 128: one block an SM. Padding columns cost FMAs (d = 160: three eighths
-// of them). Unrolled, the q.k loop took ptxas past 255 registers into a
-// spill; rolled, 250 and no spill, at the same time.
+// rounded up to C = 128, 256, 384 or 512; R = 16384 / C up to 256, else
+// 32), so q.k and every exponential run once a head. q is staged once
+// (up to C = 256 times scale * log2(e); past it each score is scaled after
+// q.k, in one FMA with the bias: the pre-scaled q's rounding moved the
+// output by up to 3e-5 at d = 384); keys come in super-tiles of C (512
+// past 256): k in depth chunks, v in key chunks, each about 32 KiB,
+// through a 2-slot ring filled by `cp.async` (16 bytes a thread where d
+// and the pointers allow, else 4), each chunk landing while the one before
+// it is used. Each thread holds an 8 x 8 register tile of the scores and
+// one of O (8 x 6 at C = 384), so each float4 it reads from shared memory
+// feeds 16 FMAs: one byte a FMA, which is the rate at which shared memory
+// returns data to an SM's threads (128 bytes a clock), so the two bind
+// together. The lanes of a row (a warp at C = 256, a half-warp at 128)
+// take its max and sum by shuffles; past 256 a row's 64 lanes are two
+// warps, whose maxima and sums meet in shared memory (two more barriers a
+// super-tile). p goes through shared memory (keys x R rows). 206.0 KiB of
+// shared memory at C = 256, 202.0 at 128, 217.5 at 512, 201.5 at 384: one
+// block an SM. Padding columns cost FMAs (d = 160: three eighths of
+// them), in p.v only: the q.k loop stops at d. Unrolled, the q.k loop took
+// ptxas past 255 registers into a spill; rolled, 250 and no spill, at the
+// same time (247 at C = 384, 255 at 512, no spill).
 //
 // The d-chunked kernels (a simple design that is right; no shipped config
 // runs them): a block owns a tile of query rows of one head and one chunk
@@ -451,42 +456,51 @@ attn_packed_kernel_chunked_f32(const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// float32, d = 65..256: one block all columns of its rows
+// float32, d = 65..511: one block all columns of its rows
 // ---------------------------------------------------------------------------
 
 constexpr int kWideThreads = 256;
-constexpr int kWideMaxD = 256;
+constexpr int kWideMaxD = 511;
 
-// C: d rounded up to 128 or 256. A block owns R query rows and takes keys
-// in super-tiles of KS; q (R x C) and p (KS x R) each fill 64 KiB. k comes
-// in depth chunks of DK columns of the KS keys, v in chunks of VK keys of
-// all C columns, each about 32 KiB, through a 2-slot ring. Each thread
-// holds an 8 x 8 register tile of the R x KS scores (rows rg + TR i, keys
-// kg + TK j) and one of O (rows rg + TR i, the two float4 columns
-// 4 kg + C/2 n): each float4 a thread reads from shared memory feeds 16
-// FMAs, one byte a FMA, the rate at which shared memory returns data.
-// Rows are padded by 4 floats: 8 consecutive rows at one float4 fall in
-// distinct banks.
+// C: d rounded up to 128, 256, 384 or 512. A block owns R query rows and
+// takes keys in super-tiles of KS: up to C = 256, R = 16384 / C and KS =
+// C, so that q (R x C) and p (KS x R) each fill 64 KiB; past it (WIDE), R
+// = 32 and KS = 512, q 64 KiB at most and p 72 KiB. k comes in depth
+// chunks of DK columns of the KS keys, v in chunks of VK keys of all C
+// columns (VK dividing KS), each about 32 KiB, through a 2-slot ring.
+// Each thread holds an 8 x 8 register tile of the R x KS scores (rows rg +
+// TR i, keys kg + TK j) and one of O (rows rg + TR i, 4 columns at 4 kg
+// and W2 at 4 TK + W2 kg: 4 at C = 512 and up to 256, 2 at 384): each
+// float4 a thread reads from shared memory feeds 16 FMAs, one byte a FMA,
+// the rate at which shared memory returns data. A row's TK lanes are one
+// warp (or a half-warp) up to C = 256, two warps past it. Rows are padded
+// by 4 floats: 8 consecutive rows at one float4 fall in distinct banks.
 template <int C>
 struct Wide {
-  static constexpr int kRows = 16384 / C;  // R
-  static constexpr int kKeys = C;          // KS
-  static constexpr int kDk = 8192 / C;     // DK
-  static constexpr int kVk = 8192 / C;     // VK
+  static constexpr bool kWide = C > 256;
+  static constexpr int kRows = kWide ? 32 : 16384 / C;  // R
+  static constexpr int kKeys = kWide ? 512 : C;         // KS
+  static constexpr int kDk = kWide ? 16 : 8192 / C;     // DK
   static constexpr int kTr = kRows / 8;    // row groups
   static constexpr int kTk = kKeys / 8;    // key groups (lanes of a row)
   static constexpr int kQs = C + 4;        // row strides, floats
   static constexpr int kKs = kDk + 4;
   static constexpr int kPs = kRows + 4;
+  static constexpr int kVk = kWide ? 16 : 8192 / C;  // VK
+  static constexpr int kW2 = (C - 4 * kTk) / kTk;  // O's second columns
   static constexpr int kSlot = kKeys * kKs > kVk * kQs ? kKeys * kKs
                                                        : kVk * kQs;
   // q, p, two slots; each row's running max, running sum, rescale and
-  // 1 / sum
+  // 1 / sum, and past 256 each of its two warps' max and sum
   static constexpr int kFloats =
-      kRows * kQs + kKeys * kPs + 2 * kSlot + 4 * kRows;
+      kRows * kQs + kKeys * kPs + 2 * kSlot + (kWide ? 8 : 4) * kRows;
   static constexpr int kSmem = 4 * kFloats;
   static_assert(kTr * kTk == kWideThreads, "a thread a score tile");
-  static_assert(kTr * (C / 8) == kWideThreads, "a thread an O tile");
+  static_assert(kTk * (4 + kW2) == C && (kW2 == 4 || kW2 == 2),
+                "a thread an O tile");
+  static_assert(kSmem <= 232448, "shared memory of a block");
+  static_assert(kTk <= 32 || kTk == 64, "a row's lanes: a warp, or two");
+  static_assert(kKeys % kVk == 0, "v chunks stay in their super-tile");
 };
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
@@ -559,6 +573,8 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
   float* const lrow = mrow + R;       // each row's running sum
   float* const corr = lrow + R;       // each row's rescale this super-tile
   float* const linv = corr + R;       // each row's 1 / sum
+  float* const mpart = linv + R;      // past 256: each warp's max, then
+  float* const spart = mpart + 2 * R;  // sum, of each row ([warp][row])
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -607,12 +623,13 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
     mrow[tid] = -FLT_MAX;
     lrow[tid] = 0.f;
   }
+  constexpr int NO = 4 + G::kW2;  // O columns a thread
   float s[8][8];  // scores of the super-tile, then its p
-  float o[8][8];  // O: rows rg + TR i, columns 4 kg + C/2 (e / 4)
+  float o[8][NO];  // O: rows rg + TR i, columns 4 kg .. and 4 TK + W2 kg ..
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[i][e] = 0.f;
+    for (int e = 0; e < NO; ++e) o[i][e] = 0.f;
 
   int n = 0;  // the slot of the current unit
   for (int t = 0; t < tiles; ++t) {
@@ -622,7 +639,7 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
       cp_async_wait<1>();  // this unit (and q) landed; the next may not
       __syncthreads();
       const float* slot = slots + n * G::kSlot;
-      if (t == 0 && i == 0) {  // scores in log2 units from here on
+      if (!G::kWide && t == 0 && i == 0) {  // scores in log2 units
         for (int x = tid; x < R * G::kQs; x += kWideThreads) {
           qs[x] *= scale_log2;
         }
@@ -660,7 +677,74 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
           }
         }
       } else {
-        if (i == nkd) {
+        if (i == nkd && G::kWide) {
+          // online softmax over the super-tile, a row's 64 lanes in two
+          // warps: the scores to log2 units (one FMA with the bias: q
+          // scaled before q.k, rounded to float32, moved the output by up
+          // to 3e-5 at d = 384), each warp's max of each row through shared
+          // memory, then p, O's rescale in this thread's registers, and
+          // each warp's sum; one thread a row updates the running max and
+          // sum after the second barrier (no thread reads them again this
+          // super-tile)
+          float bl[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int key = k0 + kg + G::kTk * j;
+            bl[j] = key >= K ? -INFINITY
+                             : (biasb ? __ldg(biasb + key) * kLog2e : 0.f);
+          }
+          const int wh = kg / 32;  // which of the row's two warps
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            float mx = -FLT_MAX;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              s[x][j] = fmaf(s[x][j], scale_log2, bl[j]);
+              mx = fmaxf(mx, s[x][j]);
+            }
+#pragma unroll
+            for (int off = 1; off < 32; off *= 2) {
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            }
+            if (kg % 32 == 0) mpart[wh * R + rg + G::kTr * x] = mx;
+          }
+          __syncthreads();  // both warps' maxima written
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            const int row = rg + G::kTr * x;
+            const float mo = mrow[row];
+            const float mn = fmaxf(mo, fmaxf(mpart[row], mpart[R + row]));
+            const float c = ex2(mo - mn);  // 1 when the max held
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              s[x][j] = ex2(s[x][j] - mn);
+              sum += s[x][j];
+            }
+#pragma unroll
+            for (int off = 1; off < 32; off *= 2) {
+              sum += __shfl_xor_sync(0xffffffffu, sum, off);
+            }
+            if (kg % 32 == 0) spart[wh * R + row] = sum;
+#pragma unroll
+            for (int e = 0; e < NO; ++e) o[x][e] *= c;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float* const pp = ps + (kg + G::kTk * j) * G::kPs + 8 * rg;
+            *reinterpret_cast<float4*>(pp) =
+                make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+            *reinterpret_cast<float4*>(pp + 4) =
+                make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+          }
+          __syncthreads();  // p and the sums written, mrow read
+          if (tid < R) {
+            const float mo = mrow[tid];
+            const float mn = fmaxf(mo, fmaxf(mpart[tid], mpart[R + tid]));
+            mrow[tid] = mn;
+            lrow[tid] = lrow[tid] * ex2(mo - mn) + spart[tid] + spart[R + tid];
+          }
+        } else if (i == nkd) {
           // online softmax over the super-tile: each row's max and sum
           // over its TK lanes (one warp or half-warp); the running max and
           // sum, and the rescale of O (below), kept in shared memory. The
@@ -718,33 +802,35 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
           for (int x = 0; x < 8; ++x) {
             const float c = corr[rg + G::kTr * x];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) o[x][e] *= c;
+            for (int e = 0; e < NO; ++e) o[x][e] *= c;
           }
         }
         // O += p.v over this chunk's VK keys
         const float* pr = ps + ((i - nkd) * G::kVk) * G::kPs + 8 * rg;
         const float* vr = slot + 4 * kg;
+        const float* vr2 = slot + 4 * G::kTk + G::kW2 * kg;
 #pragma unroll 8
         for (int j = 0; j < G::kVk; ++j) {
           const float4 p0 = *reinterpret_cast<const float4*>(pr + j * G::kPs);
           const float4 p1 =
               *reinterpret_cast<const float4*>(pr + j * G::kPs + 4);
           const float4 w0 = *reinterpret_cast<const float4*>(vr + j * G::kQs);
-          const float4 w1 =
-              *reinterpret_cast<const float4*>(vr + j * G::kQs + C / 2);
+          float w[NO] = {w0.x, w0.y, w0.z, w0.w};
+          if constexpr (G::kW2 == 4) {
+            const float4 w1 =
+                *reinterpret_cast<const float4*>(vr2 + j * G::kQs);
+            w[4] = w1.x, w[5] = w1.y, w[6] = w1.z, w[7] = w1.w;
+          } else {
+            const float2 w1 =
+                *reinterpret_cast<const float2*>(vr2 + j * G::kQs);
+            w[4] = w1.x, w[5] = w1.y;
+          }
           const float pv[8] = {p0.x, p0.y, p0.z, p0.w,
                                p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-          for (int x = 0; x < 8; ++x) {
-            o[x][0] = fmaf(pv[x], w0.x, o[x][0]);
-            o[x][1] = fmaf(pv[x], w0.y, o[x][1]);
-            o[x][2] = fmaf(pv[x], w0.z, o[x][2]);
-            o[x][3] = fmaf(pv[x], w0.w, o[x][3]);
-            o[x][4] = fmaf(pv[x], w1.x, o[x][4]);
-            o[x][5] = fmaf(pv[x], w1.y, o[x][5]);
-            o[x][6] = fmaf(pv[x], w1.z, o[x][6]);
-            o[x][7] = fmaf(pv[x], w1.w, o[x][7]);
-          }
+          for (int x = 0; x < 8; ++x)
+#pragma unroll
+            for (int e = 0; e < NO; ++e) o[x][e] = fmaf(pv[x], w[e], o[x][e]);
         }
       }
       __syncthreads();  // the slot (and p) read
@@ -772,19 +858,24 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
     if (row >= L) continue;
     const float inv = linv[rg + G::kTr * x];
     float* op = ob + static_cast<long long>(row) * st.q_row;
+    // columns 4 kg .. + 3, then 4 TK + W2 kg .. + W2 - 1
 #pragma unroll
     for (int hn = 0; hn < 2; ++hn) {
-      const int c = 4 * kg + (C / 2) * hn;
+      const int n = hn ? G::kW2 : 4;
+      const int c = hn ? 4 * G::kTk + G::kW2 * kg : 4 * kg;
       if (c >= d) continue;
-      const float rv[4] = {o[x][4 * hn] * inv, o[x][4 * hn + 1] * inv,
-                           o[x][4 * hn + 2] * inv, o[x][4 * hn + 3] * inv};
-      if (vec) {
+      float rv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rv[e] = e < n ? o[x][4 * hn + e] * inv : 0.f;
+      if (vec && n == 4) {
         *reinterpret_cast<float4*>(op + c) =
             make_float4(rv[0], rv[1], rv[2], rv[3]);
+      } else if (vec) {
+        *reinterpret_cast<float2*>(op + c) = make_float2(rv[0], rv[1]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          if (c + e < d) op[c + e] = rv[e];
+          if (e < n && c + e < d) op[c + e] = rv[e];
         }
       }
     }
@@ -816,7 +907,7 @@ int launch_wide(const float* q, const float* k, const float* v,
 // 0 the d-chunked kernels (any d >= 1: attn_packed_kernel_chunked_tc for
 // bfloat16, attn_packed_kernel_chunked_f32<16, 64> for float32); 1 the
 // d = 1 kernel attn_packed_kernel_chunked_f32<1, 1, T> (d = 1, either
-// dtype); 2 attn_packed_kernel_f32wide (float32, d = 65..256). Returns the
+// dtype); 2 attn_packed_kernel_f32wide (float32, d = 65..511). Returns the
 // CUDA error of the launch (0 on success), cudaErrorInvalidValue for what
 // the kernel named does not take.
 extern "C" int samt_attention_chunked(const void* q, const void* k,
@@ -857,10 +948,17 @@ extern "C" int samt_attention_chunked(const void* q, const void* k,
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
     auto* of = static_cast<float*>(out);
-    return d <= 128 ? launch_wide<128>(qf, kf, vf, bb, of, B, H, L, K, d, st,
-                                       sl2, vec, s)
-                    : launch_wide<256>(qf, kf, vf, bb, of, B, H, L, K, d, st,
-                                       sl2, vec, s);
+    if (d <= 128)
+      return launch_wide<128>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
+                              vec, s);
+    if (d <= 256)
+      return launch_wide<256>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
+                              vec, s);
+    if (d <= 384)
+      return launch_wide<384>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
+                              vec, s);
+    return launch_wide<512>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2, vec,
+                            s);
   }
   if (kernel == 1) {
     const dim3 grid((L + kThreads - 1) / kThreads, H, B);

@@ -1,8 +1,9 @@
 // Softmax attention on Hopper's warpgroup tensor cores (sm_90a): bfloat16
-// at head width d = 128 (the appearance transformer at n_head 2), in both
-// layouts of csrc/fused_attention_wgmma.cu.
+// at head width d = 128 (the appearance transformer at n_head 2) and at
+// d = 65..127 with d % 8 = 0, in both layouts of
+// csrc/fused_attention_wgmma.cu.
 //
-// Replaces, at that width, the same two TPU kernels as
+// Replaces, at those widths, the same two TPU kernels as
 // fused_attention_wgmma.cu (synergize_motion_appearance_tpu/ops/
 // fused_attention.py: `_attn_kernel_packed` at :227, kernel K1 of the port,
 // token-major; `_attn_kernel` at :56, kernel K2, head-split), and computes
@@ -14,9 +15,26 @@
 // as rejected); 0 for a row whose every key is masked; the output rounded
 // once to bf16. A shared (K, E) codebook is a tensor map whose batch extent
 // is 1, read at plane 0: never broadcast in memory.
-// ops/fused_attention.py::plan sends bf16 d = 128 here where q, k, v and
-// out are 16-byte aligned; fused_attention_chunked.cu keeps d = 128 at
-// other pointers, and its float32 wide kernel float32 d = 128.
+// ops/fused_attention.py::plan sends bf16 d = 65..128 with d % 8 = 0 here
+// where q, k, v and out are 16-byte aligned; fused_attention_chunked.cu
+// keeps these widths at other pointers, and its float32 wide kernel
+// float32.
+//
+// The column count D (d rounded up to 32: 96 or 128) is a template
+// parameter: a head row is D / 64 full parts of 64 columns (TMA boxes
+// with the 128-byte swizzle) and, at D = 96, one part of 32 columns (the
+// 64-byte swizzle, wgmma descriptors of layout type 2; q.k's last two k16
+// steps and one n32 p.v product a k16 step). At d = D = 128 the maps are
+// 3-d, of whole token rows (the kernel as it was, SASS unchanged); at
+// every other width they are 4-d, of head rows (attention_wgmma.cuh::
+// encode4), so that TMA zero-fills q's, k's and v's columns past d and
+// clips the output's: a 3-d box past d would read, and store into, the
+// next head's columns. A head row is then 2d bytes, a TMA stride, hence
+// d % 8 = 0. The scale is 1/sqrt(d) of the true d. At d = 96 (a frame
+// batch's appearance launch, B 16, L = K = 1024) the kernel takes 0.81x
+// SDPA's time and 0.13x the d-chunked kernel's on an H100 at 700 W
+// (chip_smoke.py's timed widths, PERF.md section 6); padding D to 128
+// instead took 1.12x the time (chip_attention_cols.py).
 //
 // What bounds it: the tensor cores, and the softmax that has to fit under
 // them. Per score q.k takes 128 multiply-adds and p.v 2 x 128 (hi and lo)
@@ -92,9 +110,7 @@
 
 namespace {
 
-constexpr int kD = 128;
-constexpr int kParts = 2;             // 64-column boxes of a head row
-constexpr int kCols = kD / kParts;
+constexpr int kCols = 64;             // columns of a full part (TMA box)
 constexpr int kRowBytes = 2 * kCols;  // a box row: the 128-byte swizzle
 constexpr int kConsumers = 2;         // consumer warpgroups
 constexpr int kWgRows = 64;           // query rows of a consumer warpgroup
@@ -109,25 +125,34 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr uint32_t kGroupBytes = 8 * kRowBytes;  // 8-row core-matrix groups
 
-// Shared memory of a block, from a base aligned to 1024 bytes (the
-// swizzle's period): the query tile (two 128-row parts), the output tiles
-// (each consumer warpgroup's 64 rows, two 64-row parts, kWgOBytes apart),
-// the stages (k tile, then v tile, each two 64-key parts), the stages'
-// bias, the barriers (full and empty of each stage, q's full and empty,
-// each output tile's staged and read).
-constexpr int kQPart = kRows * kRowBytes;
-constexpr int kQBytes = kParts * kQPart;
-constexpr int kOPart = kWgRows * kRowBytes;
-constexpr int kWgOBytes = kParts * kOPart;
-constexpr int kO0 = kQBytes;
-constexpr int kTilePart = kKeys * kRowBytes;
-constexpr int kTileBytes = kParts * kTilePart;
-constexpr int kStageBytes = 2 * kTileBytes;
-constexpr int kStage0 = kO0 + kConsumers * kWgOBytes;
-constexpr int kBias = kStage0 + kStages * kStageBytes;
-constexpr int kBars = kBias + kStages * kKeys * 4;
-constexpr int kSmem = kBars + (2 * kStages + 2 + 2 * kConsumers) * 8 + 1024;
-static_assert(kSmem <= 232448, "shared memory of a block");
+// The block's shared memory at D columns (d rounded up to 32: 96 or 128),
+// from a base aligned to 1024 bytes (the swizzle's period): the query tile
+// (each full part 128 rows of 64 columns, then a 32-column tail part where
+// D % 64 = 32), the output tiles (each consumer warpgroup's 64 rows, its
+// parts kOPart apart), the stages (k tile, then v tile, each 64 keys in
+// parts), the stages' bias, the barriers (full and empty of each stage,
+// q's full and empty, each output tile's staged and read). Every part
+// starts at a multiple of 1024 bytes.
+template <int D>
+struct Geo {
+  static_assert(D == 96 || D == 128, "the d = 128 design takes D 96, 128");
+  static constexpr int kFull = D / 64;       // full 64-column parts
+  static constexpr bool kTail = D % 64 != 0;  // and a 32-column part
+  static constexpr int kQPart = kRows * kRowBytes;
+  static constexpr int kQBytes = kRows * 2 * D;
+  static constexpr int kOPart = kWgRows * kRowBytes;
+  static constexpr int kWgOBytes = kWgRows * 2 * D;
+  static constexpr int kO0 = kQBytes;
+  static constexpr int kTilePart = kKeys * kRowBytes;
+  static constexpr int kTileBytes = kKeys * 2 * D;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStage0 = kO0 + kConsumers * kWgOBytes;
+  static constexpr int kBias = kStage0 + kStages * kStageBytes;
+  static constexpr int kBars = kBias + kStages * kKeys * 4;
+  static constexpr int kSmem =
+      kBars + (2 * kStages + 2 + 2 * kConsumers) * 8 + 1024;
+  static_assert(kSmem <= 232448, "shared memory of a block");
+};
 static_assert(128 * (kConsumers * kConsumerRegs + kProducerRegs) <=
                   kThreads * (65536 / kThreads / 8 * 8),
               "the register split fits the launch bound's registers");
@@ -153,8 +178,8 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 }
 
 // TMA store of the box at src (shared) to the map's coordinates, in this
-// thread's bulk group; the wait until this thread's groups have read their
-// shared memory (.read) or are done
+// thread's bulk group (3-d and 4-d maps); the wait until this thread's
+// groups have read their shared memory (.read) or are done
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           uint32_t src, int c0, int c1,
                                           int c2) {
@@ -162,6 +187,15 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
       "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -204,22 +238,29 @@ __device__ __forceinline__ int swizzled(int row, int c) {
   return row * kRowBytes + ((((c >> 4) ^ (row & 7)) << 4) | (c & 15));
 }
 
-// half p of O (columns 64p .. 64p + 63)
-__device__ __forceinline__ float (&half(float (&o)[kD / 2], int p))[32] {
+// part p of O (columns 64p .. 64p + 63), and the 32-column tail part
+template <int N>
+__device__ __forceinline__ float (&half(float (&o)[N], int p))[32] {
   return *reinterpret_cast<float(*)[32]>(&o[32 * p]);
+}
+template <int N>
+__device__ __forceinline__ float (&tail(float (&o)[N]))[16] {
+  return *reinterpret_cast<float(*)[16]>(&o[N - 16]);
 }
 
 // A consumer warpgroup's 64 query rows of an item: q's A fragments, S (then
-// p), O in two halves, p's A fragments, the running max (log2 units), this
+// p), O in its parts, p's A fragments, the running max (log2 units), this
 // thread's share of each row's sum and the rescale O owes. A thread holds
 // rows g and g + 8 of its warp's 16 (g = lane / 4), columns 2 (lane % 4)
 // and + 1 of each n8 tile, and the same elements of q and p as A fragments.
-template <bool BIAS>
+template <int D, bool BIAS>
 struct Rows {
+  using G = Geo<D>;
   static constexpr int NS = kKeys / 16;  // k16 steps of p.v
-  uint32_t qa[kD / 16][4];  // q, k16 step kk of q.k
+  static constexpr int KF = 4 * G::kFull;  // k16 steps of q.k in full parts
+  uint32_t qa[D / 16][4];  // q, k16 step kk of q.k
   float s[kKeys / 2];
-  float o[kD / 2];
+  float o[D / 2];
   uint32_t ph[NS][4], pl[NS][4];  // p as bf16 hi and lo
   float m[2] = {-FLT_MAX, -FLT_MAX};
   float l[2] = {0.f, 0.f};
@@ -227,45 +268,62 @@ struct Rows {
 
   __device__ __forceinline__ Rows() {
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;  // (q.k overwrites it)
   }
   // q's fragments from the swizzled query tile at q: row r (g of this
   // warp's 16) and r + 8 of warpgroup w's 64, bytes 4 t4 and 4 t4 + 16 of
-  // each k16 step's 32
+  // each k16 step's 32 (the tail part's rows are 64 bytes, its swizzle 64)
   __device__ __forceinline__ void load_q(const uint8_t* q, int w, int tid) {
     const int r = w * kWgRows + (tid / 32) * 16 + (tid % 32) / 4;
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
+    for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         qa[kk][e] = *reinterpret_cast<const uint32_t*>(
-            q + kk / 4 * kQPart +
-            swizzled(r + 8 * (e & 1),
-                     32 * (kk % 4) + 4 * (tid % 4) + 16 * (e >> 1)));
+            kk < KF ? q + kk / 4 * G::kQPart +
+                          swizzled(r + 8 * (e & 1),
+                                   32 * (kk % 4) + 4 * (tid % 4) +
+                                       16 * (e >> 1))
+                    : q + G::kFull * G::kQPart +
+                          swizzled64(r + 8 * (e & 1),
+                                     32 * (kk - KF) + 4 * (tid % 4) +
+                                         16 * (e >> 1)));
   }
-  // issues S = q.k^T: 8 k16 steps, q from registers, k's 32 bytes further
-  // along its swizzled rows each, part 1 kTilePart bytes after part 0 (dk)
+  // issues S = q.k^T over the full parts: 4 k16 steps a part, q from
+  // registers, k's 32 bytes further along its swizzled rows each, part p
+  // p kTilePart bytes after part 0 (dk)
   __device__ __forceinline__ void qk(uint64_t dk) {
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
+    for (int kk = 0; kk < KF; ++kk)
       wgmma_rs_kmajor_n64(s, qa[kk],
-                          dk + kk / 4 * (kTilePart >> 4) + 2 * (kk % 4),
+                          dk + kk / 4 * (G::kTilePart >> 4) + 2 * (kk % 4),
                           kk > 0);
   }
-  // issues O += p.v: keys 16 kk .. 16 kk + 15 are 16 rows further, half p
-  // one part further; successive wgmmas go to different halves
-  __device__ __forceinline__ void pv(uint64_t dv) {
+  // and over the tail part (dkt): 2 k16 steps of its 64-byte rows
+  __device__ __forceinline__ void qk_tail(uint64_t dkt) {
+#pragma unroll
+    for (int kk = KF; kk < D / 16; ++kk)
+      wgmma_rs_kmajor_n64(s, qa[kk], dkt + 2 * (kk - KF), 1);
+  }
+  // issues O += p.v: keys 16 kk .. 16 kk + 15 are 16 rows further, part p
+  // one part further, the tail part at dvt; successive wgmmas go to
+  // different parts
+  __device__ __forceinline__ void pv(uint64_t dv, uint64_t dvt) {
 #pragma unroll
     for (int kk = 0; kk < NS; ++kk) {
       const uint64_t dvk = dv + kk * (16 * kRowBytes >> 4);
 #pragma unroll
-      for (int p = 0; p < kParts; ++p)
-        wgmma_rs_n64(half(o, p), ph[kk], dvk + p * (kTilePart >> 4));
+      for (int p = 0; p < G::kFull; ++p)
+        wgmma_rs_n64(half(o, p), ph[kk], dvk + p * (G::kTilePart >> 4));
+      if constexpr (G::kTail)
+        wgmma_rs_n32(tail(o), ph[kk], dvt + kk * (16 * 64 >> 4));
 #pragma unroll
-      for (int p = 0; p < kParts; ++p)
-        wgmma_rs_n64(half(o, p), pl[kk], dvk + p * (kTilePart >> 4));
+      for (int p = 0; p < G::kFull; ++p)
+        wgmma_rs_n64(half(o, p), pl[kk], dvk + p * (G::kTilePart >> 4));
+      if constexpr (G::kTail)
+        wgmma_rs_n32(tail(o), pl[kk], dvt + kk * (16 * 64 >> 4));
     }
   }
   __device__ __forceinline__ void hold_all() {
@@ -276,10 +334,10 @@ struct Rows {
   }
   __device__ __forceinline__ void rescale() {
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] *= c[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) o[i] *= c[(i >> 1) & 1];
   }
   // O / row sum, rounded once to bf16, into this warpgroup's swizzled
-  // output tile at ob (two parts); a row whose every key is masked gives
+  // output tile at ob (its parts); a row whose every key is masked gives
   // 0, as the TPU kernel's (m > -1e29) factor (here in log2 units). row:
   // this thread's row g of the 64
   __device__ __forceinline__ void stage_out(uint32_t ob, int row, int t4) {
@@ -291,13 +349,17 @@ struct Rows {
       const bool keep = !BIAS || m[r] > -1e29f * kLog2e;
       const float inv = keep ? 1.f / den : 0.f;
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         const uint32_t v = as_u32(__floats2bfloat162_rn(
             o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv));
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
-                         ob + j / 8 * kOPart +
-                         swizzled(row + 8 * r, 16 * (j % 8) + 4 * t4)),
-                     "r"(v)
+        const uint32_t at =
+            j < 8 * G::kFull
+                ? ob + j / 8 * G::kOPart +
+                      swizzled(row + 8 * r, 16 * (j % 8) + 4 * t4)
+                : ob + G::kFull * G::kOPart +
+                      swizzled64(row + 8 * r, 16 * (j - 8 * G::kFull) +
+                                                  4 * t4);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(v)
                      : "memory");
       }
     }
@@ -312,16 +374,39 @@ struct Item {
       : q0(i % nq * kRows), h(i / nq % H), b(i / nq / H) {}
 };
 
+// The tensor maps of a launch: q, k, v and out in boxes of 64 columns
+// (3-d maps of the whole token row at d = D = 128; else 4-d maps whose
+// innermost extent is the head row, encode4), and the 32-column boxes of
+// the tail part where D % 64 = 32.
+struct Maps {
+  CUtensorMap q, k, v, o, qt, kt, vt, ot;
+};
+
+// a box of the map at column c of head h's row, row `row`, plane z: 3-d
+// maps take the column within the token row, 4-d ones the column within
+// the head row and the head coordinate (Coords' col_h)
+template <bool M4>
+__device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col_h, int c,
+                                         int row, int z) {
+  if constexpr (M4)
+    tma_load_4d(dst, map, bar, c, col_h, row, z);
+  else
+    tma_load(dst, map, bar, col_h + c, row, z);
+}
+
 // The producer warpgroup's first warp: lane 0 issues the copies, all lanes
 // stage the bias. Each item's query tile goes into the q buffer once
 // both consumer warpgroups hold the last item's in registers, its key
 // tiles into the ring's stages, counted across items.
-template <bool BIAS>
+template <int D, bool M4, bool BIAS>
 __device__ __forceinline__ void produce(
     const CUtensorMap* qmap, const CUtensorMap* kmap, const CUtensorMap* vmap,
-    const float* __restrict__ bias, uint8_t* smem, uint32_t base, int L,
-    int K, int H, int items, const Coords& co) {
-  const uint32_t full0 = base + kBars;
+    const CUtensorMap* qtail, const CUtensorMap* ktail,
+    const CUtensorMap* vtail, const float* __restrict__ bias, uint8_t* smem,
+    uint32_t base, int L, int K, int H, int items, const Coords& co) {
+  using G = Geo<D>;
+  const uint32_t full0 = base + G::kBars;
   const uint32_t empty0 = full0 + 8 * kStages;
   const uint32_t qfull = empty0 + 8 * kStages;
   const uint32_t qempty = qfull + 8;
@@ -336,12 +421,15 @@ __device__ __forceinline__ void produce(
     const int kv_z = it.b * co.kv_z_b + it.h * co.kv_z_h;
     if (lane == 0) {
       if (j > 0) mbar_wait(qempty, (j - 1) & 1);
-      mbar_expect(qfull, kQBytes);
+      mbar_expect(qfull, G::kQBytes);
 #pragma unroll
-      for (int p = 0; p < kParts; ++p)
-        tma_load(base + p * kQPart, qmap, qfull,
-                 it.h * co.q_col_h + p * kCols, it.q0,
-                 it.b * co.q_z_b + it.h * co.q_z_h);
+      for (int p = 0; p < G::kFull; ++p)
+        load_box<M4>(base + p * G::kQPart, qmap, qfull, it.h * co.q_col_h,
+                     p * kCols, it.q0, it.b * co.q_z_b + it.h * co.q_z_h);
+      if constexpr (G::kTail)
+        load_box<M4>(base + G::kFull * G::kQPart, qtail, qfull,
+                     it.h * co.q_col_h, G::kFull * kCols, it.q0,
+                     it.b * co.q_z_b + it.h * co.q_z_h);
     }
     for (int t = 0; t < ntiles; ++t, ++g) {
       const int s = g % kStages;
@@ -349,18 +437,25 @@ __device__ __forceinline__ void produce(
       // the copies first, then the bias under them; the stage is full once
       // the copies' bytes have landed and all 32 lanes have arrived
       if (lane == 0) {
-        mbar_expect_tx(full0 + 8 * s, 2 * kTileBytes);
-        const uint32_t ks = base + kStage0 + s * kStageBytes;
+        mbar_expect_tx(full0 + 8 * s, 2 * G::kTileBytes);
+        const uint32_t ks = base + G::kStage0 + s * G::kStageBytes;
 #pragma unroll
-        for (int p = 0; p < kParts; ++p) {
-          tma_load(ks + p * kTilePart, kmap, full0 + 8 * s,
-                   kv_col + p * kCols, t * kKeys, kv_z);
-          tma_load(ks + kTileBytes + p * kTilePart, vmap, full0 + 8 * s,
-                   kv_col + p * kCols, t * kKeys, kv_z);
+        for (int p = 0; p < G::kFull; ++p) {
+          load_box<M4>(ks + p * G::kTilePart, kmap, full0 + 8 * s, kv_col,
+                       p * kCols, t * kKeys, kv_z);
+          load_box<M4>(ks + G::kTileBytes + p * G::kTilePart, vmap,
+                       full0 + 8 * s, kv_col, p * kCols, t * kKeys, kv_z);
+        }
+        if constexpr (G::kTail) {
+          const int pt = G::kFull * G::kTilePart;
+          load_box<M4>(ks + pt, ktail, full0 + 8 * s, kv_col,
+                       G::kFull * kCols, t * kKeys, kv_z);
+          load_box<M4>(ks + G::kTileBytes + pt, vtail, full0 + 8 * s, kv_col,
+                       G::kFull * kCols, t * kKeys, kv_z);
         }
       }
       if constexpr (BIAS) {
-        float* bs = reinterpret_cast<float*>(smem + kBias + s * kKeys * 4);
+        float* bs = reinterpret_cast<float*>(smem + G::kBias + s * kKeys * 4);
         const float* bb = bias + static_cast<long long>(it.b) * K;
 #pragma unroll
         for (int c = lane; c < kKeys; c += 32) {
@@ -383,11 +478,12 @@ __device__ __forceinline__ void produce(
 // warpgroups' threads are done with it, the q buffer once they hold q in
 // registers. The output leaves by TMA from this warpgroup's output tile,
 // which the next item's output waits to have been read.
-template <bool BIAS>
+template <int D, bool BIAS>
 __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
                                         int K, int H, int items,
                                         float scale_log2, int w) {
-  const uint32_t full0 = base + kBars;
+  using G = Geo<D>;
+  const uint32_t full0 = base + G::kBars;
   const uint32_t empty0 = full0 + 8 * kStages;
   const uint32_t qfull = empty0 + 8 * kStages;
   const uint32_t qempty = qfull + 8;
@@ -400,11 +496,21 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
   const int nq = (L + kRows - 1) / kRows;
   const int ntiles = (K + kKeys - 1) / kKeys;
   const auto dk = [&](int st) {
-    return make_desc(base + kStage0 + st * kStageBytes, kGroupBytes, 1);
+    return make_desc(base + G::kStage0 + st * G::kStageBytes, kGroupBytes,
+                     1);
   };
   const auto dv = [&](int st) {
-    return make_desc(base + kStage0 + st * kStageBytes + kTileBytes,
+    return make_desc(base + G::kStage0 + st * G::kStageBytes + G::kTileBytes,
                      kGroupBytes, 1);
+  };
+  // the tail part of stage st's k and v tiles (64-byte rows)
+  const auto dkt = [&](int st) {
+    return make_tail_desc(base + G::kStage0 + st * G::kStageBytes +
+                          G::kFull * G::kTilePart);
+  };
+  const auto dvt = [&](int st) {
+    return make_tail_desc(base + G::kStage0 + st * G::kStageBytes +
+                          G::kTileBytes + G::kFull * G::kTilePart);
   };
   // warpgroup 0 takes the first turn
   if (w == 0) bar_arrive(mine);
@@ -413,17 +519,27 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
   for (int i = blockIdx.x; i < items; i += gridDim.x, ++j) {
     const Item it(i, nq, H);
     const bool last_item = i + static_cast<int>(gridDim.x) >= items;
-    Rows<BIAS> x;
+    Rows<D, BIAS> x;
     // tile t's softmax, its bias from stage st
     const auto softmax = [&](int t, int st) {
       const float* bs =
-          reinterpret_cast<const float*>(smem + kBias + st * kKeys * 4);
+          reinterpret_cast<const float*>(smem + G::kBias + st * kKeys * 4);
       tile_softmax<BIAS>(
           x.s, x.m, x.l, x.c,
           [&](int jj) {
             return *reinterpret_cast<const float2*>(bs + 8 * jj + 2 * t4);
           },
           K - t * kKeys, t4, scale_log2);
+    };
+    const auto qk = [&](int st) {
+      x.qk(dk(st));
+      if constexpr (G::kTail) x.qk_tail(dkt(st));
+    };
+    const auto pv = [&](int st) {
+      if constexpr (G::kTail)
+        x.pv(dv(st), dvt(st));
+      else
+        x.pv(dv(st), 0);
     };
     mbar_wait(qfull, j & 1);
     x.load_q(smem, w, tid);
@@ -434,7 +550,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
     mbar_wait(full0 + 8 * (g % kStages), (g / kStages) & 1);
     bar_sync(mine);
     wg_fence();
-    x.qk(dk(g % kStages));
+    qk(g % kStages);
     wg_commit();
     bar_arrive(other);
     wg_wait<0>();
@@ -449,11 +565,11 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
       mbar_wait(full0 + 8 * st, ((g + t) / kStages) & 1);
       bar_sync(mine);
       wg_fence();
-      x.qk(dk(st));
+      qk(st);
       wg_commit();
       x.rescale();  // q.k does not touch O
       wg_fence();
-      x.pv(dv(prev));
+      pv(prev);
       wg_commit();
       bar_arrive(other);
       wg_wait<1>();
@@ -471,7 +587,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
     x.rescale();
     bar_sync(mine);
     wg_fence();
-    x.pv(dv((g - 1) % kStages));
+    pv((g - 1) % kStages);
     wg_commit();
     if (w == 0 || !last_item) bar_arrive(other);
     wg_wait<0>();
@@ -480,7 +596,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
     // the last item's output has left this warpgroup's output tile; this
     // one's goes to it, visible to TMA, and to the storer warp
     if (j > 0) mbar_wait(oempty0 + 8 * w, (j - 1) & 1);
-    x.stage_out(base + kO0 + w * kWgOBytes, row, t4);
+    x.stage_out(base + G::kO0 + w * G::kWgOBytes, row, t4);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     mbar_arrive(ofull0 + 8 * w);
   }
@@ -488,11 +604,15 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint32_t base, int L,
 
 // The producer warpgroup's second warp: lane 0 stores each item's output
 // tiles by TMA, each once its consumer warpgroup has staged it, and hands
-// the tile back once TMA has read it.
+// the tile back once TMA has read it. TMA clips rows past L (and, on a 4-d
+// map, columns past d).
+template <int D, bool M4>
 __device__ __forceinline__ void store_out(const CUtensorMap* omap,
+                                          const CUtensorMap* otail,
                                           uint32_t base, int L, int H,
                                           int items, const Coords& co) {
-  const uint32_t ofull0 = base + kBars + 8 * (2 * kStages + 2);
+  using G = Geo<D>;
+  const uint32_t ofull0 = base + G::kBars + 8 * (2 * kStages + 2);
   const uint32_t oempty0 = ofull0 + 8 * kConsumers;
   const int nq = (L + kRows - 1) / kRows;
   if (threadIdx.x % 32 != 0) return;
@@ -502,10 +622,21 @@ __device__ __forceinline__ void store_out(const CUtensorMap* omap,
     for (int w = 0; w < kConsumers; ++w) {
       mbar_wait(ofull0 + 8 * w, j & 1);
 #pragma unroll
-      for (int p = 0; p < kParts; ++p)
-        tma_store(omap, base + kO0 + w * kWgOBytes + p * kOPart,
-                  it.h * co.q_col_h + p * kCols, it.q0 + w * kWgRows,
-                  it.b * co.q_z_b + it.h * co.q_z_h);
+      for (int p = 0; p < G::kFull; ++p) {
+        if constexpr (M4)
+          tma_store_4d(omap, base + G::kO0 + w * G::kWgOBytes + p * G::kOPart,
+                       p * kCols, it.h * co.q_col_h, it.q0 + w * kWgRows,
+                       it.b * co.q_z_b + it.h * co.q_z_h);
+        else
+          tma_store(omap, base + G::kO0 + w * G::kWgOBytes + p * G::kOPart,
+                    it.h * co.q_col_h + p * kCols, it.q0 + w * kWgRows,
+                    it.b * co.q_z_b + it.h * co.q_z_h);
+      }
+      if constexpr (G::kTail)
+        tma_store_4d(otail,
+                     base + G::kO0 + w * G::kWgOBytes + G::kFull * G::kOPart,
+                     G::kFull * kCols, it.h * co.q_col_h, it.q0 + w * kWgRows,
+                     it.b * co.q_z_b + it.h * co.q_z_h);
       bulk_commit();
       bulk_wait_read();
       mbar_arrive(oempty0 + 8 * w);
@@ -515,22 +646,31 @@ __device__ __forceinline__ void store_out(const CUtensorMap* omap,
 }
 
 // scale_log2 = log2(e) / sqrt(d). A persistent block: items (tile of 128
-// query rows, head, batch row) blockIdx.x, + gridDim.x, ...
-template <bool BIAS>
+// query rows, head, batch row) blockIdx.x, + gridDim.x, ... D: d rounded up
+// to 32; M4: the maps are 4-d (encode4), as every width but d = 128 needs.
+// The tail part's maps (qtail, ktail, vtail, otail) are read where D % 64
+// = 32 only.
+template <int D, bool M4, bool BIAS>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_packed_kernel_wgmma128(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
                             const __grid_constant__ CUtensorMap omap,
                             const float* __restrict__ bias, int L, int K,
-                            int H, int items, Coords co, float scale_log2) {
+                            int H, int items, Coords co, float scale_log2,
+                            const __grid_constant__ CUtensorMap qtail,
+                            const __grid_constant__ CUtensorMap ktail,
+                            const __grid_constant__ CUtensorMap vtail,
+                            const __grid_constant__ CUtensorMap otail) {
+  using G = Geo<D>;
+  static_assert(M4 || D == 128, "a 3-d map takes d = D = 128 only");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - raw);
 
   if (threadIdx.x == 0) {
-    const uint32_t full0 = base + kBars;
+    const uint32_t full0 = base + G::kBars;
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 32);  // the producer's lanes
       mbar_init(full0 + 8 * (kStages + s), 128 * kConsumers);  // each thread
@@ -553,25 +693,24 @@ attn_packed_kernel_wgmma128(const __grid_constant__ CUtensorMap qmap,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kProducerRegs));
     if (threadIdx.x / 32 == 4 * kConsumers)
-      produce<BIAS>(&qmap, &kmap, &vmap, bias, smem, base, L, K, H, items,
-                    co);
+      produce<D, M4, BIAS>(&qmap, &kmap, &vmap, &qtail, &ktail, &vtail, bias,
+                           smem, base, L, K, H, items, co);
     else if (threadIdx.x / 32 == 4 * kConsumers + 1)
-      store_out(&omap, base, L, H, items, co);
+      store_out<D, M4>(&omap, &otail, base, L, H, items, co);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         kConsumerRegs));
-    consume<BIAS>(smem, base, L, K, H, items, scale_log2, wg);
+    consume<D, BIAS>(smem, base, L, K, H, items, scale_log2, wg);
   }
 }
 
-template <bool BIAS>
-cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
-                   const CUtensorMap& vm, const CUtensorMap& om,
-                   const float* bias, int B, int H, int L, int K,
-                   const Coords& co, float scale_log2, cudaStream_t stream) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(attn_packed_kernel_wgmma128<BIAS>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+template <int D, bool M4, bool BIAS>
+cudaError_t launch(const Maps& mp, const float* bias, int B, int H, int L,
+                   int K, const Coords& co, float scale_log2,
+                   cudaStream_t stream) {
+  const auto kernel = attn_packed_kernel_wgmma128<D, M4, BIAS>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<D>::kSmem);
   if (err != cudaSuccess) return err;
   int dev, sms;
   cudaError_t e = cudaGetDevice(&dev);
@@ -582,48 +721,75 @@ cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
                           H * B;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
   const int grid = static_cast<int>(items < sms ? items : sms);
-  attn_packed_kernel_wgmma128<BIAS><<<grid, kThreads, kSmem, stream>>>(
-      qm, km, vm, om, bias, L, K, H,
-      static_cast<int>(items), co, scale_log2);
+  kernel<<<grid, kThreads, Geo<D>::kSmem, stream>>>(
+      mp.q, mp.k, mp.v, mp.o, bias, L, K, H, static_cast<int>(items), co,
+      scale_log2, mp.qt, mp.kt, mp.vt, mp.ot);
   return cudaGetLastError();
+}
+
+template <int D, bool M4>
+cudaError_t launch_d(const Maps& mp, const float* bias, int B, int H, int L,
+                     int K, const Coords& co, float scale_log2,
+                     cudaStream_t stream) {
+  return bias ? launch<D, M4, true>(mp, bias, B, H, L, K, co, scale_log2,
+                                    stream)
+              : launch<D, M4, false>(mp, bias, B, H, L, K, co, scale_log2,
+                                     stream);
 }
 
 }  // namespace
 
-// C entry, bound with ctypes: bfloat16 q, k, v and out at d = 128, optional
-// float32 (B, K) bias (null for none), q, k, v and out 16-byte aligned;
-// layouts as samt_attention_wgmma's (0 token-major, kernel K1; 1
-// head-split, kernel K2; kv_shared 1 for a context shared by the batch).
+// C entry, bound with ctypes: bfloat16 q, k, v and out at d = 65..128 with
+// d % 8 = 0, optional float32 (B, K) bias (null for none), q, k, v and out
+// 16-byte aligned; layouts as samt_attention_wgmma's (0 token-major,
+// kernel K1; 1 head-split, kernel K2; kv_shared 1 for a context shared by
+// the batch). d = 128 runs on 3-d maps of whole token rows, the other
+// widths on 4-d maps of head rows, in D = d rounded up to 32 columns.
 // Returns the CUDA error of the launch (0 on success),
 // cudaErrorInvalidValue for what the kernel does not take or a tensor map
 // that cannot be encoded.
 extern "C" int samt_attention_wgmma128(const void* q, const void* k,
                                        const void* v, const void* bias,
                                        void* out, int B, int H, int L, int K,
-                                       int layout, int kv_shared, float scale,
-                                       void* stream) {
+                                       int d, int layout, int kv_shared,
+                                       float scale, void* stream) {
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  CUtensorMap qm, km, vm, om;
-  Coords co;
-  // out as q's layout, in boxes of a warpgroup's 64 rows
-  const long long E = static_cast<long long>(H) * kD;
   if ((layout != 0 && layout != 1) || B <= 0 || H <= 0 || L <= 0 || K <= 0 ||
-      B > 65535 || H > 65535 || !aligned(q) || !aligned(k) || !aligned(v) ||
-      !aligned(out) ||
-      !layout_maps(q, k, v, B, H, L, K, kD, layout, kv_shared, kRows, kKeys,
-                   &qm, &km, &vm, &co) ||
-      !(layout == 0
-            ? encode(&om, out, kD, E, L, B, 2 * E, 2 * E * L, kWgRows)
-            : encode(&om, out, kD, kD, L, static_cast<long long>(B) * H,
-                     2 * kD, 2LL * kD * L, kWgRows))) {
+      B > 65535 || H > 65535 || d < 65 || d > 128 || d % 8 != 0 ||
+      !aligned(q) || !aligned(k) || !aligned(v) || !aligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Maps mp;
+  Coords co;
+  bool ok;
+  if (d == 128) {
+    // out as q's layout, in boxes of a warpgroup's 64 rows
+    const long long E = static_cast<long long>(H) * d;
+    ok = layout_maps(q, k, v, B, H, L, K, d, layout, kv_shared, kRows, kKeys,
+                     &mp.q, &mp.k, &mp.v, &co) &&
+         (layout == 0
+              ? encode(&mp.o, out, d, E, L, B, 2 * E, 2 * E * L, kWgRows)
+              : encode(&mp.o, out, d, d, L, static_cast<long long>(B) * H,
+                       2 * d, 2LL * d * L, kWgRows));
+  } else {
+    ok = layout_maps4(q, k, v, out, B, H, L, K, d, layout, kv_shared, kCols,
+                      kRows, kKeys, kWgRows, &mp.q, &mp.k, &mp.v, &mp.o,
+                      &co) &&
+         (d > 96 ||
+          layout_maps4(q, k, v, out, B, H, L, K, d, layout, kv_shared, 32,
+                       kRows, kKeys, kWgRows, &mp.qt, &mp.kt, &mp.vt, &mp.ot,
+                       &co));
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const float* bb = static_cast<const float*>(bias);
   const float sl2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 128)
+    return static_cast<int>(
+        launch_d<128, false>(mp, bb, B, H, L, K, co, sl2, s));
   return static_cast<int>(
-      bias ? launch<true>(qm, km, vm, om, bb, B, H, L, K, co, sl2, s)
-           : launch<false>(qm, km, vm, om, bb, B, H, L, K, co, sl2, s));
+      d > 96 ? launch_d<128, true>(mp, bb, B, H, L, K, co, sl2, s)
+             : launch_d<96, true>(mp, bb, B, H, L, K, co, sl2, s));
 }

@@ -7,8 +7,9 @@ Counterparts of ``synergize_motion_appearance_tpu/ops/fused_attention.py``'s
   codebook, never broadcast in memory). Returns (B, L, E).
 - ``fused_attention``: head-split q (B, H, L, d); k, v (B, H, K, d), or one
   (1, H, K, d) context shared by the batch. Returns (B, H, L, d).
-Both take an optional (B, K) float32 additive bias where -1e30 masks a key,
-and return q's dtype.
+Both take an optional (B, K) additive bias where -1e30 masks a key, cast to
+float32 as the JAX package casts it, take inputs of any strides (the CUDA
+launch makes them contiguous), and return q's dtype.
 
 Each layout is a ``torch.library`` custom op
 (``torch.ops.samt.fused_attention_packed``,
@@ -19,22 +20,23 @@ raises; ``plan`` picks it by dtype and shape, for every head width d >= 1
 (as the JAX package's Pallas kernels take any d): bfloat16 at d = 16, 32
 and 64 runs on Hopper's warpgroup tensor cores
 (``attn_packed_kernel_wgmma`` of ``csrc/fused_attention_wgmma.cu``: TMA,
-``wgmma``, warp specialisation), and so do bfloat16 at d = 128
-(``attn_packed_kernel_wgmma128`` of ``csrc/fused_attention_wgmma128.cu``:
-persistent blocks over items of 128 query rows, in two consumer
-warpgroups that take turns on the tensor cores) and at d = 256
-(``attn_packed_kernel_wgmma256`` of ``csrc/fused_attention_wgmma256.cu``:
-a block all 256 output columns of its 64 query rows); the other bfloat16
-widths up to 64 run on ``mma.sync`` (``attn_packed_kernel_tc`` of
-``csrc/fused_attention_packed.cu``, in the variant ``tc_plan`` and
-``copy_bytes`` pick), float32 up to 64 on the CUDA cores
-(``attn_packed_kernel``, ``f32_rows`` query rows a thread). The kernels
-of ``csrc/fused_attention_chunked.cu`` take the rest: float32 at d =
-65..256 ``attn_packed_kernel_f32wide`` (CUDA cores, a block all output
-columns of its query rows), d = 1 in either dtype the CUDA-core
+``wgmma``, warp specialisation), and so does bfloat16 at d = 65..256 with
+d % 8 = 0, in D = d rounded up to 32 columns: d = 65..128 on
+``attn_packed_kernel_wgmma128<D, ..>`` of
+``csrc/fused_attention_wgmma128.cu`` (persistent blocks over items of 128
+query rows, in two consumer warpgroups that take turns on the tensor
+cores), d = 129..256 on ``attn_packed_kernel_wgmma256<D, ..>`` of
+``csrc/fused_attention_wgmma256.cu`` (a block all D output columns of its
+64 query rows); the other bfloat16 widths up to 64 run on ``mma.sync``
+(``attn_packed_kernel_tc`` of ``csrc/fused_attention_packed.cu``, in the
+variant ``tc_plan`` and ``copy_bytes`` pick), float32 up to 64 on the
+CUDA cores (``attn_packed_kernel``, ``f32_rows`` query rows a thread).
+The kernels of ``csrc/fused_attention_chunked.cu`` take the rest: float32
+at d = 65..511 ``attn_packed_kernel_f32wide`` (CUDA cores, a block all
+output columns of its query rows), d = 1 in either dtype the CUDA-core
 ``attn_packed_kernel_chunked_f32<1, 1, T>``, and the d-chunked kernels
 (a block a chunk of at most 64 output columns) bfloat16 above 64 where
-the wgmma kernels do not run and float32 above 256. On a CPU
+the wgmma kernels do not run and float32 above 511. On a CPU
 tensor it runs the plain PyTorch version
 (``fused_attention_packed_reference``, ``fused_attention_reference``),
 which the tests hold against the JAX package and the on-card check holds
@@ -150,6 +152,12 @@ WGMMA_ROWS = 64
 # query rows per item of the d = 128 wgmma kernel's persistent blocks:
 # two consumer warpgroups of 64, one block an SM
 WGMMA128_ROWS = 128
+# the widths of the d = 128 and d = 256 wgmma designs
+# (attn_packed_kernel_wgmma128<D, ..> and _wgmma256<D, ..>): bf16 d =
+# 65..128 and 129..256 with d % 8 = 0 (a head row's bytes a multiple of 16,
+# the stride TMA takes), at D = wgmma_cols(d) columns
+WGMMA128_MIN_D = 65
+WGMMA256_MAX_D = 256
 # query rows per block of the d-chunked kernels, by dtype
 # (attn_packed_kernel_chunked_tc: 16 a warp; _f32: one a thread), and of the
 # d = 1 kernel (one a thread, either dtype)
@@ -157,14 +165,27 @@ CHUNKED_ROWS = {torch.bfloat16: 64, torch.float32: 128}
 D1_ROWS = 128
 # the float32 wide kernel (attn_packed_kernel_f32wide<C>) takes d above 64
 # up to F32WIDE_MAX_D: all columns of its query rows, d rounded up to C =
-# 128 or 256 and 16384 / C rows a block, so that q fills 64 KiB of shared
-# memory (at 64 rows of d floats, no room is left beyond 256)
-F32WIDE_MAX_D = 256
+# 128, 256, 384 or 512; 16384 / C rows a block up to 256, so that q fills
+# 64 KiB of shared memory, and 32 past it, with 512-key super-tiles (the
+# JAX package's Pallas kernels reach E = 511 at L = K = 1024)
+F32WIDE_MAX_D = 511
+
+
+def f32wide_cols(d: int) -> int:
+    """The float32 wide kernel's column count C at head width d."""
+    return -(-d // 128) * 128
 
 
 def f32wide_rows(d: int) -> int:
     """Query rows per block of the float32 wide kernel at head width d."""
-    return 16384 // (128 if d <= 128 else 256)
+    return 16384 // f32wide_cols(d) if d <= 256 else 32
+
+
+def wgmma_cols(d: int) -> int:
+    """The column count D of the d = 128 / 256 wgmma designs at head
+    width d: d rounded up to 32 (a 64-column TMA box a full part, a
+    32-column one for the rest)."""
+    return -(-d // 32) * 32
 
 
 # C entry samt_attention_chunked's kernel argument, by plan kernel
@@ -191,23 +212,24 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
     addresses, for every head width d >= 1 (no fallback: the plan's kernel
     launches or the call raises). bfloat16 where q, k, v and out are
     16-byte aligned (TMA's rule for a tensor map's base): the wgmma kernel
-    where d is in WGMMA_WIDTHS, the d = 128 and d = 256 wgmma kernels at
-    d = 128 and 256.
+    where d is in WGMMA_WIDTHS; at d % 8 = 0 the d = 128 wgmma design at
+    d = 65..128 and the d = 256 one at d = 129..256, each at
+    ``wgmma_cols(d)`` columns.
     Else: d = 1, the CUDA-core d = 1 kernel of either dtype; float32 at
     d = 65..F32WIDE_MAX_D the float32 wide kernel; above 64 the rest (bf16
-    not on wgmma, float32 above F32WIDE_MAX_D) the d-chunked kernel of its
-    dtype; at d = 2..64 the mma.sync kernel's ``tc_plan`` variant
-    (bfloat16) or the CUDA-core kernel at ``f32_rows`` rows a thread
-    (float32)."""
+    at d % 8 != 0, at other pointers or above 256, float32 above
+    F32WIDE_MAX_D) the d-chunked kernel of its dtype; at d = 2..64 the
+    mma.sync kernel's ``tc_plan`` variant (bfloat16) or the CUDA-core
+    kernel at ``f32_rows`` rows a thread (float32)."""
     if d < 1:
         raise ValueError(f"head width d={d}: no kernel takes it")
     if dtype == torch.bfloat16 and all(
             a % 16 == 0 for a in (q_ptr, k_ptr, v_ptr, out_ptr)):
         if d in WGMMA_WIDTHS:
             return Plan("wgmma", WGMMA_ROWS)
-        if d == 128:
+        if d % 8 == 0 and WGMMA128_MIN_D <= d <= 128:
             return Plan("wgmma128", WGMMA128_ROWS)
-        if d == 256:
+        if d % 8 == 0 and 128 < d <= WGMMA256_MAX_D:
             return Plan("wgmma256", WGMMA_ROWS)
     if d == 1:
         return Plan("d1", D1_ROWS)
@@ -319,8 +341,6 @@ def _check_cuda(q, k, v, bias, num_heads):
     tensors = [q, k, v] + ([bias] if bias is not None else [])
     if any(t.device != q.device for t in tensors):
         raise ValueError("q, k, v and bias must be on one CUDA device")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("q, k, v and bias must be contiguous")
     if bias is not None and bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
     return B, H, L, K, d
@@ -328,9 +348,14 @@ def _check_cuda(q, k, v, bias, num_heads):
 
 def _launch_cuda(q, k, v, bias, num_heads):
     """Launches the kernel ``plan`` picks, in the token-major layout
-    (num_heads given) or the head-split one (num_heads None)."""
+    (num_heads given) or the head-split one (num_heads None), on
+    contiguous copies of inputs with other strides (the kernels read rows
+    at the layouts' strides, as the conv ops' launches do)."""
     global launches, split_launches
     B, H, L, K, d = _check_cuda(q, k, v, bias, num_heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if bias is not None:
+        bias = bias.contiguous()
     out = torch.empty_like(q)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     p = plan(q.dtype, B, H, L, d, sms, q.data_ptr(), k.data_ptr(),
@@ -341,18 +366,12 @@ def _launch_cuda(q, k, v, bias, num_heads):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if p.kernel == "wgmma":
-        fn = cuda_build.load("fused_attention_wgmma").samt_attention_wgmma
+    if p.kernel in ("wgmma", "wgmma128", "wgmma256"):
+        fn = getattr(cuda_build.load(f"fused_attention_{p.kernel}"),
+                     f"samt_attention_{p.kernel}")
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p]
         args = (*ptrs, B, H, L, K, d, int(split), kv_shared,
-                1.0 / math.sqrt(d), stream)
-    elif p.kernel in ("wgmma128", "wgmma256"):
-        fn = getattr(cuda_build.load(f"fused_attention_{p.kernel}"),
-                     f"samt_attention_{p.kernel}")
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        args = (*ptrs, B, H, L, K, int(split), kv_shared,
                 1.0 / math.sqrt(d), stream)
     elif p.kernel in CHUNKED_ENTRY_KERNELS:
         fn = cuda_build.load(
@@ -460,10 +479,20 @@ _packed_op.register_autograd(_backward, setup_context=_setup_context)
 _split_op.register_autograd(_backward, setup_context=_setup_context)
 
 
+def _f32_bias(bias):
+    """The bias as the kernels take it: float32, as the JAX package casts
+    it (``bias.astype(jnp.float32)``, its ops/fused_attention.py:126,
+    290)."""
+    return bias if bias is None or bias.dtype == torch.float32 else \
+        bias.float()
+
+
 def fused_attention(q, k, v, bias: Optional[torch.Tensor] = None):
     """Softmax attention in head-split layout (see the module docstring):
-    q (B, H, L, d); k, v (B, H, K, d) or a shared (1, H, K, d)."""
+    q (B, H, L, d); k, v (B, H, K, d) or a shared (1, H, K, d); any
+    strides."""
     _check_split(q, k, v, bias)
+    bias = _f32_bias(bias)
     if _PLAIN_CPU.get() and q.device.type == "cpu":
         return fused_attention_reference(q, k, v, bias)
     return torch.ops.samt.fused_attention(q, k, v, bias)
@@ -472,8 +501,9 @@ def fused_attention(q, k, v, bias: Optional[torch.Tensor] = None):
 def fused_attention_packed(q, k, v, bias: Optional[torch.Tensor] = None, *,
                            num_heads: int):
     """Softmax attention in token-major layout (see the module docstring).
-    Heads are split and merged inside the kernel."""
+    Heads are split and merged inside the kernel. Any strides."""
     _check(q, k, v, bias, num_heads)
+    bias = _f32_bias(bias)
     if _PLAIN_CPU.get() and q.device.type == "cpu":
         return fused_attention_packed_reference(q, k, v, bias,
                                                 num_heads=num_heads)

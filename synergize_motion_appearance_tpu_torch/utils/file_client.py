@@ -2,8 +2,8 @@
 utils/file_client.py:5-167; the port's copy of the JAX package's).
 
 ``disk`` always works. ``lmdb`` needs the lmdb package, and raises a
-RuntimeError that names it when that is absent. ``memcached`` raises, as
-in the JAX package.
+RuntimeError that names it when that is absent. ``memcached`` raises
+ImportError, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -55,9 +55,12 @@ class LmdbBackend(BaseStorageBackend):
 
 class MemcachedBackend(BaseStorageBackend):
     def __init__(self, server_list_cfg, client_cfg, sys_path=None):
-        raise RuntimeError("the memcached io backend is not available (the "
-                           "reference's mc client is not ported); use "
-                           "'disk'")
+        # ImportError, as the JAX package's backend raises (its
+        # utils/file_client.py:58-63), so that a caller catching it catches
+        # this one too
+        raise ImportError("the memcached io backend is not available (the "
+                          "reference's mc client is not ported); use "
+                          "'disk'")
 
 
 class FileClient:

@@ -1,16 +1,20 @@
 """The float32 wide kernel and the d = 1 kernel of
 ``csrc/fused_attention_chunked.cu`` (kernels K1 and K2 at float32 d =
-65..256 and at d = 1 in either dtype), on the CPU.
+65..511 and at d = 1 in either dtype), on the CPU.
 
 - ``attn_packed_kernel_f32wide<C>``'s arithmetic emulated in torch: d
-  zero-padded to C = 128 or 256 columns, q times scale * log2(e) first,
-  keys in super-tiles of C (-inf past K), a running max from -FLT_MAX
-  rescaling the sum and the accumulator once a super-tile, exp2, f32
-  weights, 0 for an all-masked row. Held against the JAX package's Pallas
-  kernels in interpret mode and the plain version at d = 65, 96, 128,
-  160 and 256, ragged L and K over two super-tiles, a shared context, in
-  both layouts, at ``chip_smoke.py``'s float32 tolerance (2e-5). Above
-  256 float32 stays on the d-chunked kernel, emulated at d = 320.
+  zero-padded to C = 128, 256, 384 or 512 columns, q times scale *
+  log2(e) first up to 256 (past it each score times it after q.k, in one
+  FMA with the bias), keys in super-tiles of C up to 256 and of 512 past it
+  (-inf past K), a running max from -FLT_MAX rescaling the sum and the
+  accumulator once a super-tile (past 256 each row's max and sum taken
+  over its two warps' keys, kg < 32 and kg >= 32 of the 64 key groups,
+  and p.v in chunks of 16 keys), exp2, f32 weights, 0 for an all-masked
+  row. Held against the JAX package's Pallas kernels in interpret mode
+  and the plain version at d = 65, 96, 128, 160, 256, 257, 320, 384, 400
+  and 511, ragged L and K over two super-tiles, a shared context, in both
+  layouts, at ``chip_smoke.py``'s float32 tolerance (2e-5). Above 511
+  float32 stays on the d-chunked kernel, emulated at d = 512.
 - The d = 1 kernel in bfloat16: bf16 q, k and v widened to f32, the
   float32 d = 1 kernel's arithmetic, one rounding, at one bf16 ulp.
 - ``plan``'s routing of these widths, and the pairs that
@@ -44,8 +48,17 @@ from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 def wide_columns(d):
     """The padded width C of the kernel instance that takes d (its rows
-    per block are 16384 / C, its keys per super-tile C)."""
-    return 128 if d <= 128 else 256
+    per block are 16384 / C up to 256 and 32 past it, its keys per
+    super-tile C up to 256 and 512 past it)."""
+    return -(-d // 128) * 128
+
+
+def super_tile(C):
+    """Keys a super-tile of the instance at C."""
+    return C if C <= 256 else 512
+
+
+WIDE_V_KEYS = 16  # keys a v chunk past C = 256
 
 
 def emulate_f32wide(q, k, v, bias, num_heads):
@@ -57,31 +70,53 @@ def emulate_f32wide(q, k, v, bias, num_heads):
     d = E // H
     K = k.shape[-2]
     C = wide_columns(d)
+    KS = super_tile(C)
+    # past 256 a row's keys kg + 64 j lie in two warps: kg < 32 and >= 32
+    second = torch.arange(KS) % 64 >= 32
 
     def pad(t):  # zero past d, up to C columns
         return torch.nn.functional.pad(t, (0, C - d))
 
     sl2 = torch.tensor(1 / math.sqrt(d), dtype=torch.float32) * LOG2E
-    qh = pad(_heads(q, B, H, L, d)) * sl2  # q staged times scale_log2
+    qh = pad(_heads(q, B, H, L, d))
+    if C <= 256:
+        qh = qh * sl2  # q staged times scale_log2
     kh, vh = pad(_heads(k, B, H, K, d)), pad(_heads(v, B, H, K, d))
     m = torch.full((B, H, L), -FLT_MAX)
     l = torch.zeros(B, H, L)
     acc = torch.zeros(B, H, L, C)
-    for k0 in range(0, K, C):  # super-tiles of C keys
-        n = min(C, K - k0)
-        kt = torch.zeros(B, H, C, C)  # zero past K
+    for k0 in range(0, K, KS):  # super-tiles of KS keys
+        n = min(KS, K - k0)
+        kt = torch.zeros(B, H, KS, C)  # zero past K
         kt[:, :, :n] = kh[:, :, k0:k0 + n]
-        vt = torch.zeros(B, H, C, C)
+        vt = torch.zeros(B, H, KS, C)
         vt[:, :, :n] = vh[:, :, k0:k0 + n]
-        bl = torch.full((B, C), -math.inf)
+        bl = torch.full((B, KS), -math.inf)
         bl[:, :n] = 0.0 if bias is None else bias[:, k0:k0 + n] * LOG2E
-        s = qh @ kt.transpose(-1, -2) + bl[:, None, None, :]
-        m_new = torch.maximum(m, s.amax(-1))
+        if C <= 256:
+            s = qh @ kt.transpose(-1, -2) + bl[:, None, None, :]
+            m_new = torch.maximum(m, s.amax(-1))
+            c = torch.exp2(m - m_new)
+            m = m_new
+            p = torch.exp2(s - m[..., None])
+            l = l * c + p.sum(-1)
+            acc = acc * c[..., None] + p @ vt
+            continue
+        # the scores to log2 units in one FMA with the bias; each warp's
+        # max of the row (from -FLT_MAX), then both warps' sums
+        s = torch.addcmul(bl[:, None, None, :], qh @ kt.transpose(-1, -2),
+                          sl2)
+        parts = (s[..., ~second], s[..., second])
+        m_new = torch.maximum(m, torch.maximum(
+            *(torch.clamp(x.amax(-1), min=-FLT_MAX) for x in parts)))
         c = torch.exp2(m - m_new)
         m = m_new
         p = torch.exp2(s - m[..., None])
-        l = l * c + p.sum(-1)
-        acc = acc * c[..., None] + p @ vt
+        l = l * c + p[..., ~second].sum(-1) + p[..., second].sum(-1)
+        acc = acc * c[..., None]
+        for j0 in range(0, KS, WIDE_V_KEYS):  # v chunks, in order
+            j1 = j0 + WIDE_V_KEYS
+            acc = acc + p[..., j0:j1] @ vt[:, :, j0:j1]
     o = acc / l[..., None]
     if bias is not None:
         keep = m > torch.tensor(-1e29, dtype=torch.float32) * LOG2E
@@ -115,6 +150,11 @@ WIDE_CASES = [
     (128, 1, 2, 17, 200, True, False),  # C = 128, two super-tiles
     (160, 1, 2, 16, 270, True, True),   # C = 256, ragged K
     (256, 1, 2, 19, 260, True, False),  # two super-tiles of 256
+    (257, 1, 2, 18, 70, True, True),    # C = 384, one column past 256
+    (320, 1, 2, 20, 600, True, False),  # C = 384, two super-tiles of 512
+    (384, 2, 1, 17, 530, False, True),  # C = 384, shared, a short tile
+    (400, 1, 2, 9, 100, True, False),   # C = 512, 112 zero columns
+    (511, 1, 2, 12, 520, True, True),   # C = 512, d % 4 = 3
 ]
 
 
@@ -125,7 +165,8 @@ def test_f32wide_emulation_matches_pallas_and_plain(d, H, B, L, K, masked,
     q, k, v, bias = _inputs(B, H, L, K, d, masked, shared, seed=d + K,
                             split=split)
     assert port.plan(torch.float32, B, H, L, d, H100_SMS, 0, 0, 0,
-                     0) == port.Plan("f32wide", 16384 // wide_columns(d))
+                     0) == port.Plan("f32wide", 16384 // wide_columns(d)
+                                     if d <= 256 else 32)
     got = emulate_f32wide(*(_token_major(q, k, v) if split else (q, k, v)),
                           bias, H)
     if split:
@@ -142,20 +183,27 @@ def test_f32wide_emulation_matches_pallas_and_plain(d, H, B, L, K, masked,
 
 
 def test_f32_above_256_stays_on_the_d_chunked_kernel():
-    """float32 d = 320: past the wide kernel's q tile, plan keeps the
-    d-chunked kernel (<16, 64>: five 64-column blocks, each repeating
-    q.k), whose arithmetic matches the Pallas kernel and the plain
-    version."""
-    d, H, B, L, K = 320, 1, 2, 17, 90
-    assert port.plan(torch.float32, B, H, L, d, H100_SMS, 0, 0, 0,
-                     0) == port.Plan("chunked", 128)
-    q, k, v, bias = _inputs(B, H, L, K, d, True, True, seed=11)
-    got = emulate_chunked(q, k, v, bias, H)
-    torch.testing.assert_close(got, _pallas(H, q, k, v, bias), **F32_TOL)
-    torch.testing.assert_close(
-        got, port.fused_attention_packed_reference(q, k, v, bias,
-                                                   num_heads=H), **F32_TOL)
-    assert got[0].abs().max().item() == 0.0
+    """float32 above 256: d = 320 now runs the wide kernel at C = 384 (32
+    rows a block, 512-key super-tiles), whose arithmetic matches the
+    Pallas kernel and the plain version; only above F32WIDE_MAX_D = 511
+    (d = 512 here) plan keeps the d-chunked kernel (<16, 64>: eight
+    64-column blocks, each repeating q.k), whose arithmetic matches
+    them too."""
+    for d, K, want, emulate in (
+            (320, 90, port.Plan("f32wide", 32), emulate_f32wide),
+            (512, 40, port.Plan("chunked", 128), emulate_chunked)):
+        H, B, L = 1, 2, 17
+        assert port.plan(torch.float32, B, H, L, d, H100_SMS, 0, 0, 0,
+                         0) == want
+        q, k, v, bias = _inputs(B, H, L, K, d, True, True, seed=11)
+        got = emulate(q, k, v, bias, H)
+        torch.testing.assert_close(got, _pallas(H, q, k, v, bias),
+                                   **F32_TOL)
+        torch.testing.assert_close(
+            got, port.fused_attention_packed_reference(q, k, v, bias,
+                                                       num_heads=H),
+            **F32_TOL)
+        assert got[0].abs().max().item() == 0.0
 
 
 D1_CASES = [
@@ -196,15 +244,16 @@ def test_d1_bf16_emulation_matches_pallas_and_plain(H, B, L, K, masked,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_plan_routes_d1_and_f32_wide_at_any_address(dtype):
-    """d = 1 goes to the d = 1 kernel and float32 65..256 to the wide
+    """d = 1 goes to the d = 1 kernel and float32 65..511 to the wide
     kernel at every address (neither reads through TMA), and the C
     entry's kernel argument names each."""
     for ptr in (4096, 4096 + 4, 4096 + 2 * (dtype == torch.bfloat16)):
         for B, H, L in ((16, 32, 1024), (1, 1, 1)):
             assert port.plan(dtype, B, H, L, 1, H100_SMS, ptr, ptr, ptr,
                              ptr) == port.Plan("d1", 128)
-            for d in (65, 97, 128, 129, 200, 256):
-                want = (port.Plan("f32wide", 128 if d <= 128 else 64)
+            for d in (65, 97, 128, 129, 200, 256, 257, 320, 385, 511):
+                want = (port.Plan("f32wide", 128 if d <= 128 else
+                                  64 if d <= 256 else 32)
                         if dtype == torch.float32
                         else port.plan(dtype, B, H, L, d, H100_SMS, ptr,
                                        ptr, ptr, ptr))
@@ -212,7 +261,10 @@ def test_plan_routes_d1_and_f32_wide_at_any_address(dtype):
                                  ptr) == want
                 if dtype == torch.bfloat16:
                     assert want.kernel != "f32wide"
-    assert port.F32WIDE_MAX_D == 256
+    assert port.F32WIDE_MAX_D == 511
+    assert [port.f32wide_cols(d) for d in (65, 128, 129, 256, 257, 384,
+                                           385, 511)] == [
+        128, 128, 256, 256, 384, 384, 512, 512]
     assert port.CHUNKED_ENTRY_KERNELS == {"chunked": 0, "d1": 1,
                                           "f32wide": 2}
 
@@ -238,3 +290,45 @@ def test_choice_times_each_new_kernel_against_the_one_it_replaced():
         (32, "app", torch.bfloat16), (1, "app", torch.bfloat16),
         (1, "app", torch.float32), (2, "app", torch.float32)]
 
+
+
+def wide_geometry(C):
+    """attn_packed_kernel_f32wide<C>'s Wide<C>, as the source computes it:
+    rows R, keys a super-tile KS, depth and key chunks DK and VK, row and
+    key groups TR and TK, O's second column group W2, shared bytes."""
+    wide = C > 256
+    R, KS = (32, 512) if wide else (16384 // C, C)
+    DK = 16 if wide else 8192 // C
+    VK = 16 if wide else 8192 // C
+    TR, TK = R // 8, KS // 8
+    W2 = (C - 4 * TK) // TK
+    qs, ks, ps = C + 4, DK + 4, R + 4
+    slot = max(KS * ks, VK * qs)
+    smem = 4 * (R * qs + KS * ps + 2 * slot + (8 if wide else 4) * R)
+    return dict(R=R, KS=KS, DK=DK, VK=VK, TR=TR, TK=TK, W2=W2, smem=smem)
+
+
+@pytest.mark.parametrize("C", [128, 256, 384, 512])
+def test_f32wide_threads_cover_rows_keys_and_columns_once(C):
+    """Each of the 256 threads holds rows rg + TR i and keys kg + TK j of
+    the scores, and rows rg + TR i and columns 4 kg .. + 3 and 4 TK + W2 kg
+    .. + W2 - 1 of O: every (row, key) and (row, column) of a block once;
+    a v chunk never crosses its super-tile; the block fits the SM's
+    shared memory (one block an SM)."""
+    g = wide_geometry(C)
+    scores, outs = [], []
+    for tid in range(256):
+        rg, kg = tid // g["TK"], tid % g["TK"]
+        rows = [rg + g["TR"] * i for i in range(8)]
+        scores += [(r, kg + g["TK"] * j) for r in rows for j in range(8)]
+        cols = [4 * kg + e for e in range(4)] + [
+            4 * g["TK"] + g["W2"] * kg + e for e in range(g["W2"])]
+        outs += [(r, c) for r in rows for c in cols]
+    assert sorted(scores) == [(r, k) for r in range(g["R"])
+                              for k in range(g["KS"])]
+    assert sorted(outs) == [(r, c) for r in range(g["R"]) for c in range(C)]
+    assert g["KS"] % g["VK"] == 0 and g["VK"] % 8 == 0
+    assert g["smem"] <= 232448
+    # a row's key groups: one warp (or half) up to 256, two warps past it
+    assert g["TK"] == (64 if C > 256 else C // 8)
+    assert port.f32wide_rows(C) == g["R"] and port.f32wide_cols(C) == C

@@ -274,10 +274,10 @@ def _plan_before(dtype, B, H, L, d, sms, q_ptr, k_ptr, v_ptr, out_ptr):
                          ids=["f32", "bf16"])
 def test_plan_takes_every_width(dtype):
     """Every d in 1..512 gets a kernel, aligned or not; d = 2..64 the one
-    it got before; d = 1 the d = 1 kernel; float32 65..256 the wide
-    kernel; the rest past 64 the d-chunked kernel, but bf16 d = 128 and
-    256 at aligned pointers, which run on the d = 128 and the d = 256 wgmma
-    kernels."""
+    it got before; d = 1 the d = 1 kernel; float32 65..511 the wide
+    kernel; bf16 at aligned pointers and d % 8 = 0 the d = 128 wgmma
+    design at 65..128 and the d = 256 one at 129..256; the rest past 64
+    the d-chunked kernel."""
     for d in range(1, 513):
         for ptr in (4096, 4096 + 8):
             for B, H, L in ((16, 8, 1024), (2, 1, 33)):
@@ -286,15 +286,18 @@ def test_plan_takes_every_width(dtype):
                 if 2 <= d <= 64:
                     assert got == _plan_before(dtype, B, H, L, d, H100_SMS,
                                                4096, ptr, 4096, 4096), d
-                elif dtype == torch.bfloat16 and d == 128 and ptr == 4096:
+                elif (dtype == torch.bfloat16 and d % 8 == 0
+                      and 64 < d <= 128 and ptr == 4096):
                     assert got == port.Plan("wgmma128", 128)
-                elif dtype == torch.bfloat16 and d == 256 and ptr == 4096:
+                elif (dtype == torch.bfloat16 and d % 8 == 0
+                      and 128 < d <= 256 and ptr == 4096):
                     assert got == port.Plan("wgmma256", 64)
                 elif d == 1:
                     assert got == port.Plan("d1", 128)
-                elif dtype == torch.float32 and d <= 256:
-                    assert got == port.Plan("f32wide",
-                                            128 if d <= 128 else 64), d
+                elif dtype == torch.float32 and d <= 511:
+                    assert got == port.Plan(
+                        "f32wide", 128 if d <= 128 else
+                        64 if d <= 256 else 32), d
                 else:
                     assert got == port.Plan("chunked",
                                             port.CHUNKED_ROWS[dtype]), d

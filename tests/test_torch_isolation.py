@@ -1,6 +1,6 @@
 """The port stands alone: no module of synergize_motion_appearance_tpu_torch,
 and none of the card scripts (chip_smoke.py, chip_dp_spread.py,
-chip_attention_choice.py), imports JAX, flax, the JAX package or tools/.
+chip_attention_choice.py, chip_attention_cols.py), imports JAX, flax, the JAX package or tools/.
 Checked on the source with ``ast``, without importing anything. And the
 port imports as on the card's machine, which has none of JAX, OpenCV, PIL,
 imageio, PyYAML and lmdb: checked in a Python that hides them."""
@@ -15,7 +15,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "synergize_motion_appearance_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "chip_dp_spread.py",
-                             "chip_attention_choice.py")]
+                             "chip_attention_choice.py",
+                             "chip_attention_cols.py")]
 FORBIDDEN = {"jax", "jaxlib", "flax", "synergize_motion_appearance_tpu",
              "tools"}
 

@@ -253,8 +253,19 @@ def test_file_client_backends_raise_as_jax(monkeypatch):
         fc.FileClient("lmdb", db_paths="x.lmdb")
     with pytest.raises(ImportError, match="memcached"):
         jfc.FileClient("memcached", server_list_cfg="", client_cfg="")
-    with pytest.raises(RuntimeError, match="memcached"):
+    with pytest.raises(ImportError, match="memcached"):
         fc.FileClient("memcached", server_list_cfg="", client_cfg="")
+
+
+def test_memcached_backend_raises_the_jax_backends_type():
+    """The memcached backend, absent in both packages, raises the same
+    exception type in the port as in the JAX package."""
+    raised = []
+    for mod in (jfc, fc):
+        with pytest.raises(Exception) as info:
+            mod.MemcachedBackend(server_list_cfg="", client_cfg="")
+        raised.append(type(info.value))
+    assert raised == [ImportError, ImportError]
 
 
 def test_video_round_trip_matches_jax(tmp_path):
