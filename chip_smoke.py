@@ -68,22 +68,24 @@ at the flagship 256x256 width with seeded random weights:
   shape of a flagship frame batch at n_head 1, 2 and 32 (head widths 1 to
   256: the d = 128 wgmma kernel at bf16 d = 128, the d = 256 wgmma kernel
   at bf16 d = 256, the float32 wide kernel at float32 d = 128 and 256,
-  the d = 1 kernel at d = 1) and at ragged d = 72, 96, 112, 128, 160,
-  161, 224, 248, 256, 320, 384, 448 and 512 (every instantiation of the
-  wgmma designs and of the float32 wide kernel; the d-chunked kernels at
-  bf16 161 and above 256 and at float32 512, timed there), against their
-  plain versions in both dtypes, timed against the
-  bound and SDPA (float32 too above d = 64); at TIMED_WIDTHS (one
-  appearance launch of a frame batch at bf16 d = 96 and 192, float32
-  d = 320) the kernel plan picks against the d-chunked kernel forced
-  through plan, in turns, and SDPA, K2 from a transposed view; one
-  flagship frame batch at each n_head with its 32 K1 launches counted by
-  the kernel plan names (at n_head 1 the appearance transformer's 16 on
-  the d = 256 wgmma kernel, at n_head 2 on the d = 128 one), one at
-  appearance d = 96 (its 16 on the d = 128 design at D = 96), and one in
-  float32 at n_head 1 (its 16 on the float32 wide kernel); the tiny
-  config with motion d = 1 and appearance d = 128, and at appearance
-  d = 320, on the card against the CPU (d = 1 and wide kernels);
+  the d = 1 kernel at d = 1) and at ragged d = 72 to 1032
+  (RAGGED_WIDTHS: every instantiation of the wgmma designs and of the
+  float32 wide kernel; the d-chunked kernels at bf16 161 and above 512
+  and at float32 1032, timed there), against their plain versions in
+  both dtypes, timed against the bound and SDPA (float32 too above
+  d = 64); at TIMED_WIDTHS (one appearance launch of a frame batch at
+  bf16 d = 96, 192 and 384, float32 d = 320 and 640) the kernel plan
+  picks against the d-chunked kernel forced through plan, in turns, and
+  SDPA, K2 from a transposed view; one flagship frame batch at each
+  n_head with its 32 K1 launches counted by the kernel plan names (at
+  n_head 1 the appearance transformer's 16 on the d = 256 wgmma kernel,
+  at n_head 2 on the d = 128 one), one at appearance d = 96 (its 16 on
+  the d = 128 design at D = 96), one at appearance d = 384 (its 16 on the
+  d = 512 design, its 32 captured inputs held against the plain
+  version), and one in float32 at n_head 1 (its 16 on the float32 wide
+  kernel); the tiny config with motion d = 1 and appearance d = 128, and
+  at appearance d = 320 and 640, on the card against the CPU (d = 1 and
+  wide kernels);
 - train_options (after the train profile): the flagship Trainer with a
   fixed GAN weight (use_adaptive_weight false) and weight decay on its
   three optimizers, 3 timed steps (K1 and K3 as the train path, no
@@ -164,7 +166,9 @@ CACHE_SIZE = 256                   # frames of the flagship's img_size
 # float32 wide kernel), the motion transformer's 16 launches at n_head 32
 # in bf16 (d = 1, the d = 1 kernel), one call at each TIMED_WIDTHS shape
 # (bf16 d = 96 and 192 on the wgmma designs at D = 96 and 192, float32
-# d = 320 on the float32 wide kernel at C = 384), K3 per train step and K4
+# d = 320 on the float32 wide kernel at C = 384, bf16 d = 384 on the
+# d = 512 wgmma design at W = 192, float32 d = 640 on the wide kernel at
+# C = 640), K3 per train step and K4
 # over K3's forward shapes, both bf16 on the wgmma kernel (their calls are
 # short enough that per-call event times measure the host). On a card at
 # that power limit none may be more than 10% slower now.
@@ -180,6 +184,9 @@ PREVIOUS_MS = [("fused_attention_packed", "device_ms_bf16", 2.41),
                 0.0873),
                ("fused_attention_packed (f32 wide d = 320)", "device_ms",
                 0.827),
+               ("fused_attention_packed (wgmma d = 384)", "device_ms", 0.107),
+               ("fused_attention_packed (f32 wide d = 640)", "device_ms",
+                0.802),
                ("conv3x3", "device_ms", 2.97),
                ("conv3x3_nhwc", "device_ms", 1.16)]
 
@@ -1898,13 +1905,13 @@ def ablation_tiny(torch, configs, ReenactmentPipeline, seeded_nets, Trainer,
 
 
 def ablation_inference(torch, configs, ReenactmentPipeline, seeded_nets, fa,
-                       name, seed, dtype=None):
+                       name, seed, dtype=None, capture=False):
     """Variant ``name``'s flagship-256 networks in one frame batch (bf16,
     or ``dtype``) of FRAME_BATCH uint8 frames (relative motion, hull-area
     scaling): a
     warm-up batch, whose attention inputs are captured for the variants
-    of NEW_K1_INPUTS, then a timed one with the kernel counts reset just
-    before it. Frames finite (the generator's output), K1 as the config
+    of NEW_K1_INPUTS (and with ``capture``), then a timed one with the
+    kernel counts reset just before it. Frames finite (the generator's output), K1 as the config
     says. Returns the row and the captured inputs."""
     cfg = ablation_cfg(configs.get("flagship_256"), name)
     g, me = seeded_nets(cfg, seed)
@@ -1915,14 +1922,14 @@ def ablation_inference(torch, configs, ReenactmentPipeline, seeded_nets, fa,
     src = frames(1, 256, seed + 20)
     drv = frames(FRAME_BATCH, 256, seed + 21)
     captured, launch_k1 = [], fa.fused_attention_packed
-    if name in NEW_K1_INPUTS:
-        def capture(q, k, v, bias=None, *, num_heads):
+    if capture or name in NEW_K1_INPUTS:
+        def capture_k1(q, k, v, bias=None, *, num_heads):
             captured.append((q.clone(), k.clone(), v.clone(),
                              None if bias is None else bias.clone(),
                              num_heads))
             return launch_k1(q, k, v, bias, num_heads=num_heads)
 
-        fa.fused_attention_packed = capture
+        fa.fused_attention_packed = capture_k1
     try:
         pipe.animate(src, drv)
     finally:
@@ -2051,17 +2058,27 @@ HEAD_WIDTHS["app_d96"] = {"g": {"n_head": 2, "embed_dim_app": 192,
                                 "dim_embd_app": 192}}
 HEAD_WIDTHS["tiny_d320"] = {"g": {"n_head": 1, "embed_dim_app": 320,
                                   "dim_embd_app": 320}}
+# the flagship at n_head 1 with a 384-wide appearance transformer
+# (appearance d = 384: the d = 512 wgmma design at W = 192), and the tiny
+# config at n_head 1 with a 640-wide one (appearance d = 640: the float32
+# wide kernel at C = 640)
+HEAD_WIDTHS["app_d384"] = {"g": {"n_head": 1, "embed_dim_app": 384,
+                                 "dim_embd_app": 384}}
+HEAD_WIDTHS["tiny_d640"] = {"g": {"n_head": 1, "embed_dim_app": 640,
+                                  "dim_embd_app": 640}}
 # (name, B, L, E, H, K, shared context, bias, 0): a width for each
-# instantiation of the d = 128 and d = 256 wgmma designs in bf16 (D = 96
-# at d = 72 and 96, D = 128 on 4-d maps at 112, on 3-d maps at 128; D =
-# 160, 224 and 256 on 4-d maps at 160, 224 and 248, on 3-d maps at 256;
-# D = 192 at TIMED_WIDTHS) and of the float32 wide kernel (C = 128 to
-# 512 at d = 72 to 448); d = 161, off 16-byte rows (the d-chunked kernel
-# in bf16 and both kernels' element-wise copies); bf16 above 256 and
-# float32 d = 512, past the wide kernel (the d-chunked kernels, K1 and K2
-# both, d = 512 on a shared codebook); L and K off the query and key
-# tiles, each with a bias that masks every key of batch row 0; checked,
-# and timed where the d-chunked kernels run them (on no frame batch)
+# instantiation of the d = 128, d = 256 and d = 512 wgmma designs in bf16
+# (D = 96 at d = 72 and 96, D = 128 on 4-d maps at 112, on 3-d maps at
+# 128; D = 160, 224 and 256 on 4-d maps at 160, 224 and 248, on 3-d maps
+# at 256; D = 192 at TIMED_WIDTHS; W = 160 at d = 264, 288 and 320, 192
+# at 384, 224 at 448, 256 at 504 and 512) and of the float32 wide kernel
+# (C = 128 to 1024 at d = 72 to 1024); d = 161, off 16-byte rows (the
+# d-chunked kernel in bf16 and both kernels' element-wise copies); bf16
+# above 512 and float32 d = 1032, past the wide kernel (the d-chunked
+# kernels, K1 and K2 both); d = 512 on a shared codebook; L and K off the
+# query and key tiles, each with a bias that masks every key of batch row
+# 0; checked, and timed where the d-chunked kernels run them (on no frame
+# batch)
 RAGGED_WIDTHS = [
     ("ragged_L1000_K700_d96", 4, 1000, 192, 2, 700, False, True, 0),
     ("ragged_L1000_K700_d72", 4, 1000, 144, 2, 700, False, True, 0),
@@ -2076,20 +2093,36 @@ RAGGED_WIDTHS = [
     ("ragged_L1000_K333_d384", 3, 1000, 384, 1, 333, True, True, 0),
     ("ragged_L1000_K333_d448", 3, 1000, 448, 1, 333, False, True, 0),
     ("ragged_L1000_K333_d512", 3, 1000, 512, 1, 333, True, True, 0),
+    ("ragged_L1000_K333_d264", 3, 1000, 264, 1, 333, False, True, 0),
+    ("ragged_L900_K333_d288", 3, 900, 576, 2, 333, False, True, 0),
+    ("ragged_L1000_K333_d504", 3, 1000, 504, 1, 333, True, True, 0),
+    ("ragged_L1000_K333_d520", 3, 1000, 520, 1, 333, False, True, 0),
+    ("ragged_L1000_K333_d640", 3, 1000, 640, 1, 333, True, True, 0),
+    ("ragged_L900_K333_d712", 3, 900, 712, 1, 333, False, True, 0),
+    ("ragged_L1000_K333_d776", 3, 1000, 776, 1, 333, False, True, 0),
+    ("ragged_L1000_K333_d1024", 3, 1000, 1024, 1, 333, True, True, 0),
+    ("ragged_L1000_K333_d1032", 3, 1000, 1032, 1, 333, False, True, 0),
 ]
 # (name, B, L, E, H, K, shared context, bias, dtype): one appearance
 # launch of a flagship frame batch (B 16, L = K = 1024, its key bias on)
 # at widths the d-chunked kernels served before: bf16 d = 96 (E 192 at
 # n_head 2: the d = 128 wgmma design at D = 96), bf16 d = 192 (E 384 at
-# n_head 2: the d = 256 design at D = 192) and float32 d = 320 (E 320 at
-# n_head 1: the float32 wide kernel at C = 384); checked in both layouts,
-# timed against the d-chunked kernel and SDPA
+# n_head 2: the d = 256 design at D = 192), float32 d = 320 (E 320 at
+# n_head 1: the float32 wide kernel at C = 384), bf16 d = 384 (E 384 at
+# n_head 1: the d = 512 design at W = 192) and float32 d = 640 (E 640 at
+# n_head 1 against a shared (512, 640) codebook: the float32 wide kernel
+# at C = 640); checked in both layouts, timed against the d-chunked kernel
+# and SDPA
 TIMED_WIDTHS = [
     ("frame_E192_H2_d96", FRAME_BATCH, 1024, 192, 2, 1024, False, True,
      "bfloat16"),
     ("frame_E384_H2_d192", FRAME_BATCH, 1024, 384, 2, 1024, False, True,
      "bfloat16"),
     ("frame_E320_H1_d320", FRAME_BATCH, 1024, 320, 1, 1024, False, True,
+     "float32"),
+    ("frame_E384_H1_d384", FRAME_BATCH, 1024, 384, 1, 1024, False, True,
+     "bfloat16"),
+    ("frame_E640_H1_K512_d640", FRAME_BATCH, 1024, 640, 1, 512, True, True,
      "float32"),
 ]
 WIDTHS_TIMEOUT = 300  # seconds for the phase's process
@@ -2154,13 +2187,15 @@ def timed_widths(torch, fa, rate, card):
 
     gen = torch.Generator(device="cuda").manual_seed(3456)
     rows = []
-    for name, B, L, E, H, K, _, _, dtype_name in TIMED_WIDTHS:
+    for name, B, L, E, H, K, shared, _, dtype_name in TIMED_WIDTHS:
         dtype = getattr(torch, dtype_name)
         d = E // H
-        q, k, v = (torch.randn(B, n, E, generator=gen, device="cuda").to(
-            dtype) for n in (L, K, K))
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(
+            dtype) for shape in ((B, L, E),) + 2 * (
+                ((K, E),) if shared else ((B, K, E),)))
         bias = random_bias(torch, gen, B, K)
-        heads = [t.view(B, -1, H, d).transpose(1, 2) for t in (q, k, v)]
+        heads = [t.view(-1, t.shape[-2], H, d).transpose(1, 2)
+                 for t in (q, k, v)]
         chunked = forced_kernel(fa, fa.Plan("chunked",
                                             fa.CHUNKED_ROWS[dtype]), H)
         before = fa.launch_kernels.copy()
@@ -2184,6 +2219,8 @@ def timed_widths(torch, fa, rate, card):
                .max().item()}
         del out, out_chunked, out_k2, ref, ref_k2
         qh, kh, vh = (t.contiguous() for t in heads)
+        # SDPA takes no shared context: the codebook expanded to the batch
+        ks, vs = (t.expand(B, -1, -1, -1).contiguous() for t in (kh, vh))
         mask = bias.to(dtype)[:, None, None, :]
 
         def new():
@@ -2194,7 +2231,7 @@ def timed_widths(torch, fa, rate, card):
                 torch, new,
                 lambda: fa.fused_attention_packed_reference(
                     q, k, v, bias, num_heads=H),
-                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                lambda: F.scaled_dot_product_attention(qh, ks, vs,
                                                        attn_mask=mask)))
             turns = [device_ms(torch, f) for f in
                      (new, lambda: chunked(q, k, v, bias),
@@ -2219,7 +2256,7 @@ def timed_widths(torch, fa, rate, card):
               f"{row['bound_share']:.3f}); max_abs_err {row['max_abs_err']:.3e}"
               f" (d-chunked {row['max_abs_err_chunked']:.3e}, K2 "
               f"{row['max_abs_err_k2']:.3e}) on {card}", flush=True)
-        del q, k, v, bias, heads, qh, kh, vh, mask
+        del q, k, v, bias, heads, qh, kh, vh, ks, vs, mask
     return rows
 
 
@@ -2231,11 +2268,13 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
     bfloat16 (timed against the bound and SDPA as the K1 and K2 phases
     time theirs), and at RAGGED_WIDTHS; one flagship frame batch at each
     n_head through ReenactmentPipeline.animate (ablation_inference), its
-    32 K1 launches counted by kernel against what plan names, and one in
-    float32 at n_head 1 (the appearance transformer's 16 on the float32
-    wide kernel); the tiny variant with motion d = 1 and appearance d =
-    128 in float32 on the card against the CPU, within 1 level, on the
-    d = 1 and the float32 wide kernels."""
+    32 K1 launches counted by kernel against what plan names, one at
+    appearance d = 96 and one at d = 384 (the latter's captured inputs
+    held against the plain version), and one in float32 at n_head 1 (the
+    appearance transformer's 16 on the float32 wide kernel); the tiny
+    variants with motion d = 1 and appearance d = 128, and at appearance
+    d = 320 and 640, in float32 on the card against the CPU, within 1
+    level, on the d = 1 and the float32 wide kernels."""
     t0 = time.perf_counter()
     sms = rate["sms"]
     report = {"k1": {}, "k2": {}, "frame_batches": {}, "halves": {}}
@@ -2300,6 +2339,26 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
           f"{row['frames_per_s']:.2f} frames/s (one frame batch of "
           f"{FRAME_BATCH}), K1 {row['k1_launches']} launches by kernel "
           f"{row['k1_kernels']} on {card}", flush=True)
+    # appearance d = 384 (n_head 1, E 384): the appearance half on the
+    # d = 512 wgmma design at W = 192; K1 held against the plain version on
+    # the frame batch's 32 captured inputs (its 12 unbiased appearance
+    # calls among them)
+    row, captured = ablation_inference(torch, configs, ReenactmentPipeline,
+                                       seeded_nets, fa, "app_d384", seed,
+                                       capture=True)
+    row["k1_kernels"] = dict(fa.launch_kernels)
+    want = head_width_kernels(torch, fa, 1, sms, E_app=384)
+    assert fa.launch_kernels == want == {"f32": 16, "wgmma512": 16}, (
+        fa.launch_kernels, want)
+    row["captured"] = check_captured_attention(
+        torch, fa, captured, "one flagship frame batch at appearance d = 384")
+    del captured
+    report["frame_batch_app_d384"] = row
+    torch.cuda.empty_cache()
+    print(f"attention widths: flagship-256 bf16 at appearance d = 384: "
+          f"{row['frames_per_s']:.2f} frames/s (one frame batch of "
+          f"{FRAME_BATCH}), K1 {row['k1_launches']} launches by kernel "
+          f"{row['k1_kernels']} on {card}", flush=True)
     # a float32 generator at n_head 1: the appearance half at d = 256
     row, _ = ablation_inference(torch, configs, ReenactmentPipeline,
                                 seeded_nets, fa, "n_head_1", seed,
@@ -2332,8 +2391,18 @@ def attention_widths(torch, configs, ReenactmentPipeline, seeded_nets, fa,
     report["tiny_d320"] = {"max_diff_levels": int(diff.max()),
                            "mean_diff_levels": float(diff.mean()),
                            "k1_launches": launches, "k1_kernels": kernels}
-    report["seconds"] = time.perf_counter() - t0
     print(f"attention widths: tiny f32 (appearance d = 320) card vs CPU max "
+          f"|diff| {diff.max()} levels, K1 {kernels}", flush=True)
+    diff, launches = tiny_frames(
+        torch, ablation_cfg(configs.get("tiny"), "tiny_d640"),
+        ReenactmentPipeline, seeded_nets, fa, seed, 6)
+    kernels = dict(fa.launch_kernels)
+    assert set(kernels) == {"f32", "f32wide"}, kernels
+    report["tiny_d640"] = {"max_diff_levels": int(diff.max()),
+                           "mean_diff_levels": float(diff.mean()),
+                           "k1_launches": launches, "k1_kernels": kernels}
+    report["seconds"] = time.perf_counter() - t0
+    print(f"attention widths: tiny f32 (appearance d = 640) card vs CPU max "
           f"|diff| {diff.max()} levels, K1 {kernels}; phase "
           f"{report['seconds']:.1f} s on {card}", flush=True)
     return report
@@ -5020,6 +5089,10 @@ TIMED_ENTRIES = [
      192, None),
     ("fused_attention_packed (f32 wide d = 320)",
      "fused_attention_chunked.cu", 320, ("tiny_d320", "f32wide")),
+    ("fused_attention_packed (wgmma d = 384)", "fused_attention_wgmma512.cu",
+     384, ("frame_batch_app_d384", "wgmma512")),
+    ("fused_attention_packed (f32 wide d = 640)",
+     "fused_attention_chunked.cu", 640, ("tiny_d640", "f32wide")),
 ]
 
 
@@ -5091,7 +5164,7 @@ def width_kernel_entries(widths):
             launches_note="launches over the three frame batches of the "
                           "attention_widths phase (n_head 1, 2, 32): "
                           "none takes its widths (bf16 above 64 where the "
-                          "wgmma kernels do not run, float32 above 511); "
+                          "wgmma kernels do not run, float32 above 1024); "
                           "0 on every shipped config (n_head 8)",
             max_abs_err_k2=max(r["max_abs_err"]
                                for r in width_rows("k2", "chunked"))),
@@ -5245,12 +5318,14 @@ def main():
                                "fused_attention_wgmma",
                                "fused_attention_wgmma128",
                                "fused_attention_wgmma256",
+                               "fused_attention_wgmma512",
                                "fused_attention_chunked", "conv3x3",
                                "conv3x3_wgmma")
     print(f"built fused_attention_packed, fused_attention_wgmma, "
           f"fused_attention_wgmma128, fused_attention_wgmma256, "
-          f"fused_attention_chunked, conv3x3 and conv3x3_wgmma (one nvcc "
-          f"each, in parallel) in {build_s:.2f} s", flush=True)
+          f"fused_attention_wgmma512, fused_attention_chunked, conv3x3 and "
+          f"conv3x3_wgmma (one nvcc each, in parallel) in {build_s:.2f} s",
+          flush=True)
 
     report = PhaseClock(card=card, torch=torch.__version__,
                         cuda=torch.version.cuda, build_s=build_s)
@@ -5283,13 +5358,19 @@ def main():
         "attn_packed_kernel_wgmma256",
         no_spill=("attn_packed_kernel_wgmma256",),
         tc_op="HGMMA", instances={"attn_packed_kernel_wgmma256": 10})
-    # the wide kernel at C = 128, 256, 384 and 512
+    # <W, BIAS>: W = 160, 192, 224 and 256
+    report["attention_wgmma512_build"] = build_report(
+        cuda_build, "fused_attention_wgmma512", "attn_packed_kernel",
+        "attn_packed_kernel_wgmma512",
+        no_spill=("attn_packed_kernel_wgmma512",), tc_op="HGMMA",
+        instances={"attn_packed_kernel_wgmma512": 8})
+    # the wide kernel at C = 128, 256, .., 1024
     report["attention_chunked_build"] = build_report(
         cuda_build, "fused_attention_chunked", "attn_packed_kernel",
         "attn_packed_kernel_chunked_tc",
         no_spill=("attn_packed_kernel_chunked",
                   "attn_packed_kernel_f32wide"),
-        instances={"attn_packed_kernel_f32wide": 4})
+        instances={"attn_packed_kernel_f32wide": 8})
     rate = exp_rate(torch)
     report["exp_rate"] = rate
     print(f"exponentials: {EXP_PER_SM_CLOCK} per SM per clock x "

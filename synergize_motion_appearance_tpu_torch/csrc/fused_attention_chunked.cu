@@ -1,19 +1,19 @@
 // Softmax attention at the head widths the other attention kernels do not
 // take, in both layouts, on three kernels:
-// - float32 at d = 65..511: `attn_packed_kernel_f32wide<C>` (plan kernel
+// - float32 at d = 65..1024: `attn_packed_kernel_f32wide<C>` (plan kernel
 //   "f32wide"), a block all output columns of its query rows, so q.k and
 //   every exponential run once a head;
 // - d = 1, either dtype: `attn_packed_kernel_chunked_f32<1, 1, T>` (plan
 //   kernel "d1"), one query row a thread on the CUDA cores, bf16 loads
 //   widened to f32 (the name says its arithmetic);
 // - the rest (plan kernel "chunked"): bfloat16 above 64 at d % 8 != 0,
-//   at a pointer TMA cannot take or above 256, on
-//   `attn_packed_kernel_chunked_tc`; float32 above 511 on
+//   at a pointer TMA cannot take or above 512, on
+//   `attn_packed_kernel_chunked_tc`; float32 above 1024 on
 //   `attn_packed_kernel_chunked_f32<16, 64, float>`, whose blocks of 64
 //   output columns each repeat their head's q.k.
 // No shipped config reaches these widths; a generator at n_head 32 (d = 1
 // in the motion transformer) or a float32 one at n_head 1 or 2 (d = 256,
-// 128 in the appearance transformer) does. bfloat16 at d = 65..256 with
+// 128 in the appearance transformer) does. bfloat16 at d = 65..512 with
 // d % 8 = 0 at aligned pointers runs the wgmma kernels (PERF.md section 6
 // has the times).
 //
@@ -31,27 +31,34 @@
 // The float32 wide kernel. f32 is exact FMAs on the CUDA cores (no TF32),
 // so the bound is the FMAs: 2d a score, q.k and p.v, at 128 a clock an SM.
 // A block owns all d columns of R query rows of one head (256 threads; d
-// rounded up to C = 128, 256, 384 or 512; R = 16384 / C up to 256, else
-// 32), so q.k and every exponential run once a head. q is staged once
+// rounded up to C = 128, 256, .., 1024; R = 16384 / C up to 256, 32 up to
+// 768, 16 past it, where q of 32 rows would not fit beside p and the
+// ring), so q.k and every exponential run once a head. q is staged once
 // (up to C = 256 times scale * log2(e); past it each score is scaled after
 // q.k, in one FMA with the bias: the pre-scaled q's rounding moved the
 // output by up to 3e-5 at d = 384); keys come in super-tiles of C (512
-// past 256): k in depth chunks, v in key chunks, each about 32 KiB,
-// through a 2-slot ring filled by `cp.async` (16 bytes a thread where d
-// and the pointers allow, else 4), each chunk landing while the one before
-// it is used. Each thread holds an 8 x 8 register tile of the scores and
-// one of O (8 x 6 at C = 384), so each float4 it reads from shared memory
-// feeds 16 FMAs: one byte a FMA, which is the rate at which shared memory
-// returns data to an SM's threads (128 bytes a clock), so the two bind
-// together. The lanes of a row (a warp at C = 256, a half-warp at 128)
-// take its max and sum by shuffles; past 256 a row's 64 lanes are two
-// warps, whose maxima and sums meet in shared memory (two more barriers a
-// super-tile). p goes through shared memory (keys x R rows). 206.0 KiB of
-// shared memory at C = 256, 202.0 at 128, 217.5 at 512, 201.5 at 384: one
-// block an SM. Padding columns cost FMAs (d = 160: three eighths of
-// them), in p.v only: the q.k loop stops at d. Unrolled, the q.k loop took
-// ptxas past 255 registers into a spill; rolled, 250 and no spill, at the
-// same time (247 at C = 384, 255 at 512, no spill).
+// past 256, 256 at C = 640 and 768): k in depth chunks, v in key chunks,
+// each about 32 KiB (up to 56 KiB past C = 512), through a 2-slot ring
+// filled by `cp.async` (16 bytes a thread where d and the pointers allow,
+// else 4), each chunk landing while the one before it is used. Each
+// thread holds an 8 x 8 register tile of the scores and one of O (8 x 6
+// at C = 384), so each float4 it reads from shared memory feeds 16 FMAs:
+// one byte a FMA, which is the rate at which shared memory returns data
+// to an SM's threads (128 bytes a clock), so the two bind together. Past
+// C = 512 the score tile is 8 rows x 4 keys and O's 8 rows x C / 64 (up
+// to 768) or C / 128 columns: the 8 q float4s a step are one broadcast
+// for a warp's lanes, so a warp's step is 24 shared-memory wavefronts for
+// 128 FMAs a lane. The lanes of a row (a warp at C = 256, a half-warp at
+// 128) take its max and sum by shuffles; past 256 a row's 64 lanes are two
+// warps (128 lanes, four, past 768), whose maxima and sums meet in shared
+// memory (two more barriers a super-tile). p goes through shared memory
+// (keys x R rows). 206.0 KiB of shared memory at C = 256, 202.0 at 128,
+// 217.5 at 512, 201.5 at 384, 198.0 at 640, 205.5 at 768, 209.5 at 896,
+// 185.0 at 1024: one block an SM. Padding columns cost FMAs (d = 160:
+// three eighths of them), in p.v only: the q.k loop stops at d. Unrolled,
+// the q.k loop took ptxas past 255 registers into a spill; rolled, 250 and
+// no spill, at the same time (247 at C = 384, 255 at 512, 640 and 768,
+// 221 at 896, 217 at 1024, no spill).
 //
 // The d-chunked kernels (a simple design that is right; no shipped config
 // runs them): a block owns a tile of query rows of one head and one chunk
@@ -79,7 +86,7 @@
 //   float32 kernel also takes d = 1, zero-padded to 4, and took 1.24
 //   times as long at the n_head 32 motion shapes on an H100 at 700 W:
 //   chip_attention_choice.py); at bf16 d = 1 the tensor-core kernel's
-//   k16 steps held one column of data in 16. Float32 above 256 runs
+//   k16 steps held one column of data in 16. Float32 above 1024 runs
 //   <16, 64, float>.
 // What bounds them: above d = 64 the q.k and p.v products, which grow
 // with d while the exponentials do not, times the ceil(d / 64) repeats of
@@ -334,7 +341,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // QC: columns of d a q.k chunk; VC: output columns a block (d = 1:
-// <1, 1, T> in either dtype; float32 above 256: <16, 64, float>); T the
+// <1, 1, T> in either dtype; float32 above 1024: <16, 64, float>); T the
 // element type of q, k, v and out, widened to f32 as it is staged. Block
 // (tile of 128 query rows, head * nc + output chunk, batch row), nc =
 // ceil(d / VC); thread i owns row i of the tile. Scores are in log2 units
@@ -456,52 +463,85 @@ attn_packed_kernel_chunked_f32(const T* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// float32, d = 65..511: one block all columns of its rows
+// float32, d = 65..1024: one block all columns of its rows
 // ---------------------------------------------------------------------------
 
 constexpr int kWideThreads = 256;
-constexpr int kWideMaxD = 511;
+constexpr int kWideMaxD = 1024;
 
-// C: d rounded up to 128, 256, 384 or 512. A block owns R query rows and
+// C: d rounded up to 128 (128 .. 1024). A block owns R query rows and
 // takes keys in super-tiles of KS: up to C = 256, R = 16384 / C and KS =
-// C, so that q (R x C) and p (KS x R) each fill 64 KiB; past it (WIDE), R
-// = 32 and KS = 512, q 64 KiB at most and p 72 KiB. k comes in depth
+// C, so that q (R x C) and p (KS x R) each fill 64 KiB; past it (WIDE), KS
+// = 512 and R = 32, q 64 KiB at most and p 72 KiB; past C = 512 (HUGE),
+// KS = 256 and R = 32 up to C = 768 (q up to 96.5 KiB, p 36 KiB), KS =
+// 512 and R = 16 past it (q up to 64 KiB, p 40 KiB). k comes in depth
 // chunks of DK columns of the KS keys, v in chunks of VK keys of all C
-// columns (VK dividing KS), each about 32 KiB, through a 2-slot ring.
-// Each thread holds an 8 x 8 register tile of the R x KS scores (rows rg +
-// TR i, keys kg + TK j) and one of O (rows rg + TR i, 4 columns at 4 kg
-// and W2 at 4 TK + W2 kg: 4 at C = 512 and up to 256, 2 at 384): each
-// float4 a thread reads from shared memory feeds 16 FMAs, one byte a FMA,
-// the rate at which shared memory returns data. A row's TK lanes are one
-// warp (or a half-warp) up to C = 256, two warps past it. Rows are padded
-// by 4 floats: 8 consecutive rows at one float4 fall in distinct banks.
+// columns (VK dividing KS), each at most about 56 KiB, through a 2-slot
+// ring. Each thread holds an 8 x KJ register tile of the R x KS scores
+// (rows rg + TR i, keys kg + TK j; KJ = 8, and 4 past C = 512) and one of
+// O (rows rg + TR i, 4 columns at 4 kg and W2 more: at 4 TK + W2 kg, 4 at
+// C = 512 and up to 256, 2 at 384; past 512 at 4 TK + TK e + kg, e < W2 =
+// C / TK - 4). Each float4 a thread reads from shared memory feeds 16
+// FMAs up to C = 512 (one byte a FMA, the rate at which shared memory
+// returns data) and at least 10 past it, where the q rows' float4s are
+// the same for a warp's 32 lanes (one broadcast). A row's TK lanes are one
+// warp (or a half-warp) up to C = 256, two warps up to 768, four past it.
+// Rows are padded by 4 floats: 8 consecutive rows at one float4 fall in
+// distinct banks.
 template <int C>
 struct Wide {
   static constexpr bool kWide = C > 256;
-  static constexpr int kRows = kWide ? 32 : 16384 / C;  // R
-  static constexpr int kKeys = kWide ? 512 : C;         // KS
-  static constexpr int kDk = kWide ? 16 : 8192 / C;     // DK
+  static constexpr bool kHuge = C > 512;
+  // R: past C = 512, 32 rows up to 768 (k and v staged once for twice
+  // the rows of a block of 16, which took longer on an H100: PERF.md
+  // section 6)
+  static constexpr int kRows = kHuge ? (C <= 768 ? 32 : 16)
+                               : kWide ? 32
+                                       : 16384 / C;
+  static constexpr int kKeys = kHuge && C <= 768 ? 256 : kWide ? 512 : C;
+  static constexpr int kKj = kHuge ? 4 : 8;             // KJ
+  // DK: 32 at C = 640 and 768, where k chunks of 16 columns (twice the
+  // units, each with its two barriers) took longer on an H100 (PERF.md
+  // section 6)
+  static constexpr int kDk = kHuge && C <= 768 ? 32 : kWide ? 16 : 8192 / C;
   static constexpr int kTr = kRows / 8;    // row groups
-  static constexpr int kTk = kKeys / 8;    // key groups (lanes of a row)
+  static constexpr int kTk = kKeys / kKj;  // key groups (lanes of a row)
+  static constexpr int kRowWarps = kTk / 32;  // warps of a row, past 256
   static constexpr int kQs = C + 4;        // row strides, floats
   static constexpr int kKs = kDk + 4;
   static constexpr int kPs = kRows + 4;
-  static constexpr int kVk = kWide ? 16 : 8192 / C;  // VK
+  static constexpr int kVk = C == 768 || C == 1024 ? 8
+                             : kWide                ? 16
+                                                    : 8192 / C;  // VK
   static constexpr int kW2 = (C - 4 * kTk) / kTk;  // O's second columns
   static constexpr int kSlot = kKeys * kKs > kVk * kQs ? kKeys * kKs
                                                        : kVk * kQs;
   // q, p, two slots; each row's running max, running sum, rescale and
-  // 1 / sum, and past 256 each of its two warps' max and sum
+  // 1 / sum, and past 256 each of its warps' max and sum
   static constexpr int kFloats =
-      kRows * kQs + kKeys * kPs + 2 * kSlot + (kWide ? 8 : 4) * kRows;
+      kRows * kQs + kKeys * kPs + 2 * kSlot +
+      (kWide ? 4 + 2 * kRowWarps : 4) * kRows;
   static constexpr int kSmem = 4 * kFloats;
   static_assert(kTr * kTk == kWideThreads, "a thread a score tile");
-  static_assert(kTk * (4 + kW2) == C && (kW2 == 4 || kW2 == 2),
+  static_assert(kTk * (4 + kW2) == C &&
+                    (kW2 == 4 || kW2 == 2 || (kHuge && kW2 >= 1)),
                 "a thread an O tile");
   static_assert(kSmem <= 232448, "shared memory of a block");
-  static_assert(kTk <= 32 || kTk == 64, "a row's lanes: a warp, or two");
+  static_assert(kTk <= 32 || kTk == 64 || kTk == 128,
+                "a row's lanes: a warp, two or four");
   static_assert(kKeys % kVk == 0, "v chunks stay in their super-tile");
 };
+
+// the largest of a row's warps' maxima past C = 256, from part[w * R +
+// row]
+template <int NW, int R>
+__device__ __forceinline__ float warps_max(const float* part, int row) {
+  if constexpr (NW == 2)
+    return fmaxf(part[row], part[R + row]);
+  else
+    return fmaxf(fmaxf(part[row], part[R + row]),
+                 fmaxf(part[2 * R + row], part[3 * R + row]));
+}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
@@ -574,7 +614,8 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
   float* const corr = lrow + R;       // each row's rescale this super-tile
   float* const linv = corr + R;       // each row's 1 / sum
   float* const mpart = linv + R;      // past 256: each warp's max, then
-  float* const spart = mpart + 2 * R;  // sum, of each row ([warp][row])
+  float* const spart = mpart + G::kRowWarps * R;  // sum, of each row
+                                                  // ([warp][row])
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
@@ -624,8 +665,9 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
     lrow[tid] = 0.f;
   }
   constexpr int NO = 4 + G::kW2;  // O columns a thread
-  float s[8][8];  // scores of the super-tile, then its p
-  float o[8][NO];  // O: rows rg + TR i, columns 4 kg .. and 4 TK + W2 kg ..
+  constexpr int KJ = G::kKj;      // keys a thread
+  float s[8][KJ];  // scores of the super-tile, then its p
+  float o[8][NO];  // O: rows rg + TR i, columns 4 kg .. and W2 more
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -651,7 +693,7 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
 #pragma unroll
           for (int x = 0; x < 8; ++x)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) s[x][j] = 0.f;
+            for (int j = 0; j < KJ; ++j) s[x][j] = 0.f;
         }
         const float* qr = qs + rg * G::kQs + i * G::kDk;
         const float* kr = slot + kg * G::kKs;
@@ -664,7 +706,7 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
                 qr + x * G::kTr * G::kQs + c);
           }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < KJ; ++j) {
             const float4 kv = *reinterpret_cast<const float4*>(
                 kr + j * G::kTk * G::kKs + c);
 #pragma unroll
@@ -678,27 +720,27 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
         }
       } else {
         if (i == nkd && G::kWide) {
-          // online softmax over the super-tile, a row's 64 lanes in two
-          // warps: the scores to log2 units (one FMA with the bias: q
+          // online softmax over the super-tile, a row's TK lanes in two
+          // warps (four past C = 512): the scores to log2 units (one FMA with the bias: q
           // scaled before q.k, rounded to float32, moved the output by up
           // to 3e-5 at d = 384), each warp's max of each row through shared
           // memory, then p, O's rescale in this thread's registers, and
           // each warp's sum; one thread a row updates the running max and
           // sum after the second barrier (no thread reads them again this
           // super-tile)
-          float bl[8];
+          float bl[KJ];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < KJ; ++j) {
             const int key = k0 + kg + G::kTk * j;
             bl[j] = key >= K ? -INFINITY
                              : (biasb ? __ldg(biasb + key) * kLog2e : 0.f);
           }
-          const int wh = kg / 32;  // which of the row's two warps
+          const int wh = kg / 32;  // which of the row's warps
 #pragma unroll
           for (int x = 0; x < 8; ++x) {
             float mx = -FLT_MAX;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < KJ; ++j) {
               s[x][j] = fmaf(s[x][j], scale_log2, bl[j]);
               mx = fmaxf(mx, s[x][j]);
             }
@@ -708,16 +750,17 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
             }
             if (kg % 32 == 0) mpart[wh * R + rg + G::kTr * x] = mx;
           }
-          __syncthreads();  // both warps' maxima written
+          __syncthreads();  // the warps' maxima written
 #pragma unroll
           for (int x = 0; x < 8; ++x) {
             const int row = rg + G::kTr * x;
             const float mo = mrow[row];
-            const float mn = fmaxf(mo, fmaxf(mpart[row], mpart[R + row]));
+            const float mn =
+                fmaxf(mo, warps_max<G::kRowWarps, R>(mpart, row));
             const float c = ex2(mo - mn);  // 1 when the max held
             float sum = 0.f;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < KJ; ++j) {
               s[x][j] = ex2(s[x][j] - mn);
               sum += s[x][j];
             }
@@ -730,7 +773,7 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
             for (int e = 0; e < NO; ++e) o[x][e] *= c;
           }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < KJ; ++j) {
             float* const pp = ps + (kg + G::kTk * j) * G::kPs + 8 * rg;
             *reinterpret_cast<float4*>(pp) =
                 make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
@@ -740,9 +783,13 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
           __syncthreads();  // p and the sums written, mrow read
           if (tid < R) {
             const float mo = mrow[tid];
-            const float mn = fmaxf(mo, fmaxf(mpart[tid], mpart[R + tid]));
+            const float mn =
+                fmaxf(mo, warps_max<G::kRowWarps, R>(mpart, tid));
             mrow[tid] = mn;
-            lrow[tid] = lrow[tid] * ex2(mo - mn) + spart[tid] + spart[R + tid];
+            float sum = lrow[tid] * ex2(mo - mn);
+#pragma unroll
+            for (int w = 0; w < G::kRowWarps; ++w) sum += spart[w * R + tid];
+            lrow[tid] = sum;
           }
         } else if (i == nkd) {
           // online softmax over the super-tile: each row's max and sum
@@ -750,9 +797,9 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
           // sum, and the rescale of O (below), kept in shared memory. The
           // bias of this thread's keys (times log2(e); -inf past K) comes
           // straight from device memory, once a super-tile.
-          float bl[8];
+          float bl[KJ];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < KJ; ++j) {
             const int key = k0 + kg + G::kTk * j;
             bl[j] = key >= K ? -INFINITY
                              : (biasb ? __ldg(biasb + key) * kLog2e : 0.f);
@@ -762,7 +809,7 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
             const int row = rg + G::kTr * x;
             float mx = -FLT_MAX;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < KJ; ++j) {
               s[x][j] += bl[j];
               mx = fmaxf(mx, s[x][j]);
             }
@@ -774,7 +821,7 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
             const float mn = fmaxf(mo, mx);
             float sum = 0.f;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < KJ; ++j) {
               s[x][j] = ex2(s[x][j] - mn);
               sum += s[x][j];
             }
@@ -790,7 +837,7 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
             }
           }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < KJ; ++j) {
             float* const pp = ps + (kg + G::kTk * j) * G::kPs + 8 * rg;
             *reinterpret_cast<float4*>(pp) =
                 make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
@@ -808,7 +855,9 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
         // O += p.v over this chunk's VK keys
         const float* pr = ps + ((i - nkd) * G::kVk) * G::kPs + 8 * rg;
         const float* vr = slot + 4 * kg;
-        const float* vr2 = slot + 4 * G::kTk + G::kW2 * kg;
+        // past C = 512 the second columns at 4 TK + TK e + kg, e < W2
+        const float* vr2 =
+            slot + 4 * G::kTk + (G::kHuge ? 1 : G::kW2) * kg;
 #pragma unroll 8
         for (int j = 0; j < G::kVk; ++j) {
           const float4 p0 = *reinterpret_cast<const float4*>(pr + j * G::kPs);
@@ -816,7 +865,11 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
               *reinterpret_cast<const float4*>(pr + j * G::kPs + 4);
           const float4 w0 = *reinterpret_cast<const float4*>(vr + j * G::kQs);
           float w[NO] = {w0.x, w0.y, w0.z, w0.w};
-          if constexpr (G::kW2 == 4) {
+          if constexpr (G::kHuge) {
+#pragma unroll
+            for (int e = 0; e < G::kW2; ++e)
+              w[4 + e] = vr2[j * G::kQs + G::kTk * e];
+          } else if constexpr (G::kW2 == 4) {
             const float4 w1 =
                 *reinterpret_cast<const float4*>(vr2 + j * G::kQs);
             w[4] = w1.x, w[5] = w1.y, w[6] = w1.z, w[7] = w1.w;
@@ -858,24 +911,45 @@ attn_packed_kernel_f32wide(const float* __restrict__ q,
     if (row >= L) continue;
     const float inv = linv[rg + G::kTr * x];
     float* op = ob + static_cast<long long>(row) * st.q_row;
-    // columns 4 kg .. + 3, then 4 TK + W2 kg .. + W2 - 1
-#pragma unroll
-    for (int hn = 0; hn < 2; ++hn) {
-      const int n = hn ? G::kW2 : 4;
-      const int c = hn ? 4 * G::kTk + G::kW2 * kg : 4 * kg;
-      if (c >= d) continue;
-      float rv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) rv[e] = e < n ? o[x][4 * hn + e] * inv : 0.f;
-      if (vec && n == 4) {
+    // columns 4 kg .. + 3, then 4 TK + W2 kg .. + W2 - 1 (past C = 512,
+    // 4 TK + TK e + kg, e < W2)
+    if constexpr (G::kHuge) {
+      const int c = 4 * kg;
+      if (vec && c < d) {
         *reinterpret_cast<float4*>(op + c) =
-            make_float4(rv[0], rv[1], rv[2], rv[3]);
-      } else if (vec) {
-        *reinterpret_cast<float2*>(op + c) = make_float2(rv[0], rv[1]);
+            make_float4(o[x][0] * inv, o[x][1] * inv, o[x][2] * inv,
+                        o[x][3] * inv);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          if (e < n && c + e < d) op[c + e] = rv[e];
+          if (c + e < d) op[c + e] = o[x][e] * inv;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < G::kW2; ++e) {
+        const int c2 = 4 * G::kTk + G::kTk * e + kg;
+        if (c2 < d) op[c2] = o[x][4 + e] * inv;
+      }
+    } else {
+#pragma unroll
+      for (int hn = 0; hn < 2; ++hn) {
+        const int n = hn ? G::kW2 : 4;
+        const int c = hn ? 4 * G::kTk + G::kW2 * kg : 4 * kg;
+        if (c >= d) continue;
+        float rv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          rv[e] = e < n ? o[x][4 * hn + e] * inv : 0.f;
+        if (vec && n == 4) {
+          *reinterpret_cast<float4*>(op + c) =
+              make_float4(rv[0], rv[1], rv[2], rv[3]);
+        } else if (vec) {
+          *reinterpret_cast<float2*>(op + c) = make_float2(rv[0], rv[1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (e < n && c + e < d) op[c + e] = rv[e];
+          }
         }
       }
     }
@@ -907,7 +981,7 @@ int launch_wide(const float* q, const float* k, const float* v,
 // 0 the d-chunked kernels (any d >= 1: attn_packed_kernel_chunked_tc for
 // bfloat16, attn_packed_kernel_chunked_f32<16, 64> for float32); 1 the
 // d = 1 kernel attn_packed_kernel_chunked_f32<1, 1, T> (d = 1, either
-// dtype); 2 attn_packed_kernel_f32wide (float32, d = 65..511). Returns the
+// dtype); 2 attn_packed_kernel_f32wide (float32, d = 65..1024). Returns the
 // CUDA error of the launch (0 on success), cudaErrorInvalidValue for what
 // the kernel named does not take.
 extern "C" int samt_attention_chunked(const void* q, const void* k,
@@ -957,8 +1031,20 @@ extern "C" int samt_attention_chunked(const void* q, const void* k,
     if (d <= 384)
       return launch_wide<384>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
                               vec, s);
-    return launch_wide<512>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2, vec,
-                            s);
+    if (d <= 512)
+      return launch_wide<512>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
+                              vec, s);
+    if (d <= 640)
+      return launch_wide<640>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
+                              vec, s);
+    if (d <= 768)
+      return launch_wide<768>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
+                              vec, s);
+    if (d <= 896)
+      return launch_wide<896>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2,
+                              vec, s);
+    return launch_wide<1024>(qf, kf, vf, bb, of, B, H, L, K, d, st, sl2, vec,
+                             s);
   }
   if (kernel == 1) {
     const dim3 grid((L + kThreads - 1) / kThreads, H, B);

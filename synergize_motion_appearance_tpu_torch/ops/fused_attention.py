@@ -20,23 +20,27 @@ raises; ``plan`` picks it by dtype and shape, for every head width d >= 1
 (as the JAX package's Pallas kernels take any d): bfloat16 at d = 16, 32
 and 64 runs on Hopper's warpgroup tensor cores
 (``attn_packed_kernel_wgmma`` of ``csrc/fused_attention_wgmma.cu``: TMA,
-``wgmma``, warp specialisation), and so does bfloat16 at d = 65..256 with
-d % 8 = 0, in D = d rounded up to 32 columns: d = 65..128 on
-``attn_packed_kernel_wgmma128<D, ..>`` of
+``wgmma``, warp specialisation), and so does bfloat16 at d = 65..512 with
+d % 8 = 0: d = 65..128 on ``attn_packed_kernel_wgmma128<D, ..>`` of
 ``csrc/fused_attention_wgmma128.cu`` (persistent blocks over items of 128
 query rows, in two consumer warpgroups that take turns on the tensor
 cores), d = 129..256 on ``attn_packed_kernel_wgmma256<D, ..>`` of
 ``csrc/fused_attention_wgmma256.cu`` (a block all D output columns of its
-64 query rows); the other bfloat16 widths up to 64 run on ``mma.sync``
+64 query rows), both at D = d rounded up to 32 columns, d = 257..512 on
+``attn_packed_kernel_wgmma512<W, ..>`` of
+``csrc/fused_attention_wgmma512.cu`` (two blocks a head row's 64 query
+rows, each W = d rounded up to 64, halved, output columns and the whole
+q.k); the other bfloat16 widths up to 64 run on ``mma.sync``
 (``attn_packed_kernel_tc`` of ``csrc/fused_attention_packed.cu``, in the
 variant ``tc_plan`` and ``copy_bytes`` pick), float32 up to 64 on the
 CUDA cores (``attn_packed_kernel``, ``f32_rows`` query rows a thread).
 The kernels of ``csrc/fused_attention_chunked.cu`` take the rest: float32
-at d = 65..511 ``attn_packed_kernel_f32wide`` (CUDA cores, a block all
+at d = 65..1024 ``attn_packed_kernel_f32wide`` (CUDA cores, a block all
 output columns of its query rows), d = 1 in either dtype the CUDA-core
 ``attn_packed_kernel_chunked_f32<1, 1, T>``, and the d-chunked kernels
 (a block a chunk of at most 64 output columns) bfloat16 above 64 where
-the wgmma kernels do not run and float32 above 511. On a CPU
+the wgmma kernels do not run (d % 8 != 0, pointers TMA cannot take,
+above 512) and float32 above 1024. On a CPU
 tensor it runs the plain PyTorch version
 (``fused_attention_packed_reference``, ``fused_attention_reference``),
 which the tests hold against the JAX package and the on-card check holds
@@ -66,8 +70,8 @@ from . import cuda_build
 
 # Kernel launches since the last reset, of either dtype's kernel: by
 # `fused_attention_packed` (K1) and by `fused_attention` (K2); and of both,
-# by the kernel `plan` named ("wgmma", "wgmma128", "wgmma256", "mma",
-# "f32", "f32wide", "d1", "chunked").
+# by the kernel `plan` named ("wgmma", "wgmma128", "wgmma256", "wgmma512",
+# "mma", "f32", "f32wide", "d1", "chunked").
 launches = 0
 split_launches = 0
 launch_kernels: Counter = Counter()
@@ -152,12 +156,15 @@ WGMMA_ROWS = 64
 # query rows per item of the d = 128 wgmma kernel's persistent blocks:
 # two consumer warpgroups of 64, one block an SM
 WGMMA128_ROWS = 128
-# the widths of the d = 128 and d = 256 wgmma designs
-# (attn_packed_kernel_wgmma128<D, ..> and _wgmma256<D, ..>): bf16 d =
-# 65..128 and 129..256 with d % 8 = 0 (a head row's bytes a multiple of 16,
-# the stride TMA takes), at D = wgmma_cols(d) columns
+# the widths of the d = 128, d = 256 and d = 512 wgmma designs
+# (attn_packed_kernel_wgmma128<D, ..>, _wgmma256<D, ..> and
+# _wgmma512<W, ..>): bf16 d = 65..128, 129..256 and 257..512 with d % 8 = 0
+# (a head row's bytes a multiple of 16, the stride TMA takes), at D =
+# wgmma_cols(d) columns, and for the d = 512 design in two parts of W =
+# wgmma512_part(d) columns
 WGMMA128_MIN_D = 65
 WGMMA256_MAX_D = 256
+WGMMA512_MAX_D = 512
 # query rows per block of the d-chunked kernels, by dtype
 # (attn_packed_kernel_chunked_tc: 16 a warp; _f32: one a thread), and of the
 # d = 1 kernel (one a thread, either dtype)
@@ -165,10 +172,12 @@ CHUNKED_ROWS = {torch.bfloat16: 64, torch.float32: 128}
 D1_ROWS = 128
 # the float32 wide kernel (attn_packed_kernel_f32wide<C>) takes d above 64
 # up to F32WIDE_MAX_D: all columns of its query rows, d rounded up to C =
-# 128, 256, 384 or 512; 16384 / C rows a block up to 256, so that q fills
-# 64 KiB of shared memory, and 32 past it, with 512-key super-tiles (the
-# JAX package's Pallas kernels reach E = 511 at L = K = 1024)
-F32WIDE_MAX_D = 511
+# 128, 256, .., 1024; 16384 / C rows a block up to 256, so that q fills
+# 64 KiB of shared memory, 32 up to 768 and 16 past it, with 512-key
+# super-tiles past 256 (256-key ones at 640 and 768; the JAX package's
+# Pallas kernels reach E = 511 at L = K = 1024, and wider heads at shorter
+# lengths)
+F32WIDE_MAX_D = 1024
 
 
 def f32wide_cols(d: int) -> int:
@@ -178,7 +187,7 @@ def f32wide_cols(d: int) -> int:
 
 def f32wide_rows(d: int) -> int:
     """Query rows per block of the float32 wide kernel at head width d."""
-    return 16384 // f32wide_cols(d) if d <= 256 else 32
+    return 16384 // f32wide_cols(d) if d <= 256 else 32 if d <= 768 else 16
 
 
 def wgmma_cols(d: int) -> int:
@@ -188,16 +197,23 @@ def wgmma_cols(d: int) -> int:
     return -(-d // 32) * 32
 
 
+def wgmma512_part(d: int) -> int:
+    """The part width W of the d = 512 wgmma design at head width d: d
+    rounded up to 64, halved (a head row's two parts, each a block)."""
+    return -(-d // 64) * 32
+
+
 # C entry samt_attention_chunked's kernel argument, by plan kernel
 CHUNKED_ENTRY_KERNELS = {"chunked": 0, "d1": 1, "f32wide": 2}
 
 
 class Plan(NamedTuple):
     """The kernel a call launches: ``kernel`` is "wgmma", "wgmma128",
-    "wgmma256", "mma", "f32", "f32wide", "d1" or "chunked"; ``rows`` its
-    query rows per block (wgmma: always 64, one consumer warpgroup, as
-    wgmma256; wgmma128: 128 an item, two; f32wide: ``f32wide_rows``; mma; d1;
-    chunked) or per thread (f32); ``nv`` and
+    "wgmma256", "wgmma512", "mma", "f32", "f32wide", "d1" or "chunked";
+    ``rows`` its query rows per block (wgmma: always 64, one consumer
+    warpgroup, as wgmma256 and wgmma512; wgmma128: 128 an item, two;
+    f32wide: ``f32wide_rows``; mma; d1; chunked) or per thread (f32);
+    ``nv`` and
     ``copy_bytes`` the mma.sync variant's P.V width in n8 tiles and bytes
     per cp.async of a key row (0 for the others)."""
     kernel: str
@@ -214,11 +230,12 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
     16-byte aligned (TMA's rule for a tensor map's base): the wgmma kernel
     where d is in WGMMA_WIDTHS; at d % 8 = 0 the d = 128 wgmma design at
     d = 65..128 and the d = 256 one at d = 129..256, each at
-    ``wgmma_cols(d)`` columns.
+    ``wgmma_cols(d)`` columns, and the d = 512 one at d = 257..512, in two
+    parts of ``wgmma512_part(d)`` columns.
     Else: d = 1, the CUDA-core d = 1 kernel of either dtype; float32 at
-    d = 65..F32WIDE_MAX_D the float32 wide kernel; above 64 the rest (bf16
-    at d % 8 != 0, at other pointers or above 256, float32 above
-    F32WIDE_MAX_D) the d-chunked kernel of its dtype; at d = 2..64 the
+    d = 65..F32WIDE_MAX_D (1024) the float32 wide kernel; above 64 the
+    rest (bf16 at d % 8 != 0, at other pointers or above 512, float32
+    above F32WIDE_MAX_D) the d-chunked kernel of its dtype; at d = 2..64 the
     mma.sync kernel's ``tc_plan`` variant (bfloat16) or the CUDA-core
     kernel at ``f32_rows`` rows a thread (float32)."""
     if d < 1:
@@ -231,6 +248,8 @@ def plan(dtype, B: int, H: int, L: int, d: int, sms: int, q_ptr: int,
             return Plan("wgmma128", WGMMA128_ROWS)
         if d % 8 == 0 and 128 < d <= WGMMA256_MAX_D:
             return Plan("wgmma256", WGMMA_ROWS)
+        if d % 8 == 0 and WGMMA256_MAX_D < d <= WGMMA512_MAX_D:
+            return Plan("wgmma512", WGMMA_ROWS)
     if d == 1:
         return Plan("d1", D1_ROWS)
     if dtype == torch.float32 and 8 * TC_WIDTHS[-1] < d <= F32WIDE_MAX_D:
@@ -366,7 +385,7 @@ def _launch_cuda(q, k, v, bias, num_heads):
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None, out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if p.kernel in ("wgmma", "wgmma128", "wgmma256"):
+    if p.kernel in ("wgmma", "wgmma128", "wgmma256", "wgmma512"):
         fn = getattr(cuda_build.load(f"fused_attention_{p.kernel}"),
                      f"samt_attention_{p.kernel}")
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [

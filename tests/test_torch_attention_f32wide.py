@@ -1,20 +1,21 @@
 """The float32 wide kernel and the d = 1 kernel of
 ``csrc/fused_attention_chunked.cu`` (kernels K1 and K2 at float32 d =
-65..511 and at d = 1 in either dtype), on the CPU.
+65..1024 and at d = 1 in either dtype), on the CPU.
 
 - ``attn_packed_kernel_f32wide<C>``'s arithmetic emulated in torch: d
-  zero-padded to C = 128, 256, 384 or 512 columns, q times scale *
-  log2(e) first up to 256 (past it each score times it after q.k, in one
-  FMA with the bias), keys in super-tiles of C up to 256 and of 512 past it
+  zero-padded to C = 128, 256, .., 1024 columns, q times scale * log2(e)
+  first up to 256 (past it each score times it after q.k, in one FMA
+  with the bias), keys in super-tiles of C up to 256 and of 512 past it
   (-inf past K), a running max from -FLT_MAX rescaling the sum and the
   accumulator once a super-tile (past 256 each row's max and sum taken
-  over its two warps' keys, kg < 32 and kg >= 32 of the 64 key groups,
-  and p.v in chunks of 16 keys), exp2, f32 weights, 0 for an all-masked
-  row. Held against the JAX package's Pallas kernels in interpret mode
-  and the plain version at d = 65, 96, 128, 160, 256, 257, 320, 384, 400
-  and 511, ragged L and K over two super-tiles, a shared context, in both
-  layouts, at ``chip_smoke.py``'s float32 tolerance (2e-5). Above 511
-  float32 stays on the d-chunked kernel, emulated at d = 512.
+  over its warps' keys: two warps, kg < 32 and kg >= 32 of 64 key groups,
+  up to 768, four of 128 past it; p.v in chunks of 16 keys, 8 at C =
+  768 and 1024; at C = 640 and 768 256-key super-tiles), exp2, f32 weights, 0 for an all-masked row. Held against the
+  JAX package's Pallas kernels in interpret mode and the plain version at
+  d = 65, 96, 128, 160, 256, 257, 320, 384, 400, 511, 520, 640, 712, 776
+  and 1024, ragged L and K over two super-tiles, a shared context, in both
+  layouts, at ``chip_smoke.py``'s float32 tolerance (2e-5). Above 1024 float32 stays on the d-chunked
+  kernel, emulated at d = 1032.
 - The d = 1 kernel in bfloat16: bf16 q, k and v widened to f32, the
   float32 d = 1 kernel's arithmetic, one rounding, at one bf16 ulp.
 - ``plan``'s routing of these widths, and the pairs that
@@ -48,17 +49,25 @@ from _torch_threads import two_torch_threads  # noqa: E402,F401
 
 def wide_columns(d):
     """The padded width C of the kernel instance that takes d (its rows
-    per block are 16384 / C up to 256 and 32 past it, its keys per
-    super-tile C up to 256 and 512 past it)."""
+    per block are 16384 / C up to 256, 32 up to 768 and 16 past it, its
+    keys per super-tile C up to 256, 256 at 640 and 768 and 512 else)."""
     return -(-d // 128) * 128
 
 
 def super_tile(C):
     """Keys a super-tile of the instance at C."""
-    return C if C <= 256 else 512
+    return C if C <= 256 else 256 if 512 < C <= 768 else 512
 
 
-WIDE_V_KEYS = 16  # keys a v chunk past C = 256
+def wide_v_keys(C):
+    """Keys a v chunk past C = 256."""
+    return 8 if C in (768, 1024) else 16
+
+
+def key_groups(C):
+    """A row's lanes (key groups) past C = 256: 64 (two warps) up to 768,
+    128 (four warps) past it, each holding keys kg + TK j."""
+    return 64 if C <= 768 else 128
 
 
 def emulate_f32wide(q, k, v, bias, num_heads):
@@ -71,8 +80,9 @@ def emulate_f32wide(q, k, v, bias, num_heads):
     K = k.shape[-2]
     C = wide_columns(d)
     KS = super_tile(C)
-    # past 256 a row's keys kg + 64 j lie in two warps: kg < 32 and >= 32
-    second = torch.arange(KS) % 64 >= 32
+    # past 256 a row's keys kg + TK j lie in warp kg // 32 of its TK / 32
+    warp = torch.arange(KS) % key_groups(C) // 32
+    warps = [warp == w for w in range(key_groups(C) // 32)]
 
     def pad(t):  # zero past d, up to C columns
         return torch.nn.functional.pad(t, (0, C - d))
@@ -106,17 +116,19 @@ def emulate_f32wide(q, k, v, bias, num_heads):
         # max of the row (from -FLT_MAX), then both warps' sums
         s = torch.addcmul(bl[:, None, None, :], qh @ kt.transpose(-1, -2),
                           sl2)
-        parts = (s[..., ~second], s[..., second])
-        m_new = torch.maximum(m, torch.maximum(
-            *(torch.clamp(x.amax(-1), min=-FLT_MAX) for x in parts)))
+        mx = torch.stack([torch.clamp(s[..., w].amax(-1), min=-FLT_MAX)
+                          for w in warps]).amax(0)
+        m_new = torch.maximum(m, mx)
         c = torch.exp2(m - m_new)
         m = m_new
         p = torch.exp2(s - m[..., None])
-        l = l * c + p[..., ~second].sum(-1) + p[..., second].sum(-1)
+        l = l * c
+        for w in warps:  # the warps' sums, in order
+            l = l + p[..., w].sum(-1)
         acc = acc * c[..., None]
-        for j0 in range(0, KS, WIDE_V_KEYS):  # v chunks, in order
-            j1 = j0 + WIDE_V_KEYS
-            acc = acc + p[..., j0:j1] @ vt[:, :, j0:j1]
+        vk = wide_v_keys(C)
+        for j0 in range(0, KS, vk):  # v chunks, in order
+            acc = acc + p[..., j0:j0 + vk] @ vt[:, :, j0:j0 + vk]
     o = acc / l[..., None]
     if bias is not None:
         keep = m > torch.tensor(-1e29, dtype=torch.float32) * LOG2E
@@ -155,6 +167,11 @@ WIDE_CASES = [
     (384, 2, 1, 17, 530, False, True),  # C = 384, shared, a short tile
     (400, 1, 2, 9, 100, True, False),   # C = 512, 112 zero columns
     (511, 1, 2, 12, 520, True, True),   # C = 512, d % 4 = 3
+    (520, 1, 2, 18, 70, True, False),    # C = 640, 120 zero columns
+    (640, 1, 2, 40, 600, True, True),    # three 256-key super-tiles
+    (712, 1, 1, 33, 300, True, False),   # C = 768: 8-key v chunks
+    (776, 1, 1, 17, 130, False, False),  # C = 896: four warps a row
+    (1024, 1, 2, 9, 600, True, True),    # two super-tiles of 512
 ]
 
 
@@ -166,7 +183,8 @@ def test_f32wide_emulation_matches_pallas_and_plain(d, H, B, L, K, masked,
                             split=split)
     assert port.plan(torch.float32, B, H, L, d, H100_SMS, 0, 0, 0,
                      0) == port.Plan("f32wide", 16384 // wide_columns(d)
-                                     if d <= 256 else 32)
+                                     if d <= 256 else 32 if d <= 768
+                                     else 16)
     got = emulate_f32wide(*(_token_major(q, k, v) if split else (q, k, v)),
                           bias, H)
     if split:
@@ -183,15 +201,18 @@ def test_f32wide_emulation_matches_pallas_and_plain(d, H, B, L, K, masked,
 
 
 def test_f32_above_256_stays_on_the_d_chunked_kernel():
-    """float32 above 256: d = 320 now runs the wide kernel at C = 384 (32
-    rows a block, 512-key super-tiles), whose arithmetic matches the
-    Pallas kernel and the plain version; only above F32WIDE_MAX_D = 511
-    (d = 512 here) plan keeps the d-chunked kernel (<16, 64>: eight
+    """float32 above 256: d = 320 runs the wide kernel at C = 384 (32 rows
+    a block, 512-key super-tiles), d = 512 at C = 512 and d = 640 at C =
+    640 (32 rows, 256-key super-tiles), whose arithmetic matches the
+    Pallas kernel and the plain version; only above F32WIDE_MAX_D = 1024
+    (d = 1032 here) plan keeps the d-chunked kernel (<16, 64>: seventeen
     64-column blocks, each repeating q.k), whose arithmetic matches
     them too."""
     for d, K, want, emulate in (
             (320, 90, port.Plan("f32wide", 32), emulate_f32wide),
-            (512, 40, port.Plan("chunked", 128), emulate_chunked)):
+            (512, 40, port.Plan("f32wide", 32), emulate_f32wide),
+            (640, 40, port.Plan("f32wide", 32), emulate_f32wide),
+            (1032, 40, port.Plan("chunked", 128), emulate_chunked)):
         H, B, L = 1, 2, 17
         assert port.plan(torch.float32, B, H, L, d, H100_SMS, 0, 0, 0,
                          0) == want
@@ -244,16 +265,18 @@ def test_d1_bf16_emulation_matches_pallas_and_plain(H, B, L, K, masked,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_plan_routes_d1_and_f32_wide_at_any_address(dtype):
-    """d = 1 goes to the d = 1 kernel and float32 65..511 to the wide
+    """d = 1 goes to the d = 1 kernel and float32 65..1024 to the wide
     kernel at every address (neither reads through TMA), and the C
     entry's kernel argument names each."""
     for ptr in (4096, 4096 + 4, 4096 + 2 * (dtype == torch.bfloat16)):
         for B, H, L in ((16, 32, 1024), (1, 1, 1)):
             assert port.plan(dtype, B, H, L, 1, H100_SMS, ptr, ptr, ptr,
                              ptr) == port.Plan("d1", 128)
-            for d in (65, 97, 128, 129, 200, 256, 257, 320, 385, 511):
+            for d in (65, 97, 128, 129, 200, 256, 257, 320, 385, 511, 512,
+                      513, 640, 641, 777, 1023, 1024):
                 want = (port.Plan("f32wide", 128 if d <= 128 else
-                                  64 if d <= 256 else 32)
+                                  64 if d <= 256 else 32 if d <= 768
+                                  else 16)
                         if dtype == torch.float32
                         else port.plan(dtype, B, H, L, d, H100_SMS, ptr,
                                        ptr, ptr, ptr))
@@ -261,10 +284,12 @@ def test_plan_routes_d1_and_f32_wide_at_any_address(dtype):
                                  ptr) == want
                 if dtype == torch.bfloat16:
                     assert want.kernel != "f32wide"
-    assert port.F32WIDE_MAX_D == 511
+    assert port.F32WIDE_MAX_D == 1024
     assert [port.f32wide_cols(d) for d in (65, 128, 129, 256, 257, 384,
-                                           385, 511)] == [
-        128, 128, 256, 256, 384, 384, 512, 512]
+                                           385, 511, 513, 640, 641, 768,
+                                           769, 896, 897, 1024)] == [
+        128, 128, 256, 256, 384, 384, 512, 512, 640, 640, 768, 768, 896,
+        896, 1024, 1024]
     assert port.CHUNKED_ENTRY_KERNELS == {"chunked": 0, "d1": 1,
                                           "f32wide": 2}
 
@@ -294,41 +319,51 @@ def test_choice_times_each_new_kernel_against_the_one_it_replaced():
 
 def wide_geometry(C):
     """attn_packed_kernel_f32wide<C>'s Wide<C>, as the source computes it:
-    rows R, keys a super-tile KS, depth and key chunks DK and VK, row and
-    key groups TR and TK, O's second column group W2, shared bytes."""
-    wide = C > 256
-    R, KS = (32, 512) if wide else (16384 // C, C)
-    DK = 16 if wide else 8192 // C
-    VK = 16 if wide else 8192 // C
-    TR, TK = R // 8, KS // 8
+    rows R, keys a super-tile KS, keys of a thread's score tile KJ, depth
+    and key chunks DK and VK, row and key groups TR and TK, O's second
+    column group W2, shared bytes."""
+    wide, huge = C > 256, C > 512
+    R = (32 if C <= 768 else 16) if huge else 32 if wide else 16384 // C
+    KS = super_tile(C)
+    KJ = 4 if huge else 8
+    DK = 32 if huge and C <= 768 else 16 if wide else 8192 // C
+    VK = wide_v_keys(C) if wide else 8192 // C
+    TR, TK = R // 8, KS // KJ
     W2 = (C - 4 * TK) // TK
     qs, ks, ps = C + 4, DK + 4, R + 4
     slot = max(KS * ks, VK * qs)
-    smem = 4 * (R * qs + KS * ps + 2 * slot + (8 if wide else 4) * R)
-    return dict(R=R, KS=KS, DK=DK, VK=VK, TR=TR, TK=TK, W2=W2, smem=smem)
+    stats = 4 + 2 * (TK // 32) if wide else 4
+    smem = 4 * (R * qs + KS * ps + 2 * slot + stats * R)
+    return dict(R=R, KS=KS, KJ=KJ, DK=DK, VK=VK, TR=TR, TK=TK, W2=W2,
+                smem=smem)
 
 
-@pytest.mark.parametrize("C", [128, 256, 384, 512])
+@pytest.mark.parametrize("C", [128, 256, 384, 512, 640, 768, 896, 1024])
 def test_f32wide_threads_cover_rows_keys_and_columns_once(C):
     """Each of the 256 threads holds rows rg + TR i and keys kg + TK j of
     the scores, and rows rg + TR i and columns 4 kg .. + 3 and 4 TK + W2 kg
-    .. + W2 - 1 of O: every (row, key) and (row, column) of a block once;
-    a v chunk never crosses its super-tile; the block fits the SM's
-    shared memory (one block an SM)."""
+    .. + W2 - 1 of O (past C = 512, 4 TK + TK e + kg, e < W2): every (row,
+    key) and (row, column) of a block once; a v chunk never crosses its
+    super-tile; the block fits the SM's shared memory (one block an SM)."""
     g = wide_geometry(C)
     scores, outs = [], []
     for tid in range(256):
         rg, kg = tid // g["TK"], tid % g["TK"]
         rows = [rg + g["TR"] * i for i in range(8)]
-        scores += [(r, kg + g["TK"] * j) for r in rows for j in range(8)]
-        cols = [4 * kg + e for e in range(4)] + [
-            4 * g["TK"] + g["W2"] * kg + e for e in range(g["W2"])]
+        scores += [(r, kg + g["TK"] * j) for r in rows
+                   for j in range(g["KJ"])]
+        second = ([4 * g["TK"] + g["TK"] * e + kg for e in range(g["W2"])]
+                  if C > 512 else
+                  [4 * g["TK"] + g["W2"] * kg + e for e in range(g["W2"])])
+        cols = [4 * kg + e for e in range(4)] + second
         outs += [(r, c) for r in rows for c in cols]
     assert sorted(scores) == [(r, k) for r in range(g["R"])
                               for k in range(g["KS"])]
     assert sorted(outs) == [(r, c) for r in range(g["R"]) for c in range(C)]
     assert g["KS"] % g["VK"] == 0 and g["VK"] % 8 == 0
     assert g["smem"] <= 232448
-    # a row's key groups: one warp (or half) up to 256, two warps past it
-    assert g["TK"] == (64 if C > 256 else C // 8)
+    # a row's key groups: one warp (or half) up to 256, two warps up to
+    # 768, four past it
+    assert g["TK"] == (128 if C > 768 else 64 if C > 256 else C // 8)
+    assert g["TK"] == (key_groups(C) if C > 256 else C // 8)
     assert port.f32wide_rows(C) == g["R"] and port.f32wide_cols(C) == C

@@ -19,8 +19,9 @@ and K2 in bfloat16 at d = 65..256 with d % 8 = 0, on the CPU.
   ulp (``chip_smoke.py``'s bf16 tolerance), with ragged L and K, a shared
   codebook and a bias that masks batch row 0.
 - ``plan``'s routing: bf16 at aligned pointers and d % 8 = 0 from 65 to
-  256 on the two designs, d = 128 and 256 on their exact instantiations;
-  unaligned pointers, d % 8 != 0 and d above 256 on the d-chunked kernel.
+  256 on the two designs, d = 128 and 256 on their exact instantiations,
+  257 to 512 on the d = 512 design; unaligned pointers, d % 8 != 0 and d
+  above 512 on the d-chunked kernel.
 - The designs' shared memory, stages and part offsets at every D, as the
   sources compute them.
 - The 4-d maps' addressing (``layout_maps4``) in both layouts: a box at
@@ -179,12 +180,13 @@ def test_wgmma_cols_emulation_matches_pallas_and_plain(d, H, B, L, K,
 
 @pytest.mark.parametrize("d", [65, 66, 72, 80, 96, 100, 104, 120, 127, 128,
                                129, 136, 160, 161, 168, 192, 200, 224, 248,
-                               255, 256, 264, 320])
+                               255, 256, 257, 264, 320, 512, 513, 520])
 def test_plan_routes_bf16_widths(d):
     """bf16 above 64: at 16-byte aligned q, k, v and out and d % 8 = 0 the
     d = 128 design up to 128 (128 query rows an item) and the d = 256
-    design up to 256 (64 rows a block), at D = d rounded up to 32; off 16
-    bytes, at d % 8 != 0 or above 256 the d-chunked kernel."""
+    design up to 256 (64 rows a block), at D = d rounded up to 32, and the
+    d = 512 design up to 512 (64 rows a block, two parts of W columns);
+    off 16 bytes, at d % 8 != 0 or above 512 the d-chunked kernel."""
     aligned = port.plan(torch.bfloat16, 16, 2, 1024, d, H100_SMS, 4096,
                         4096, 4096, 4096)
     chunked = port.Plan("chunked", port.CHUNKED_ROWS[torch.bfloat16])
@@ -192,13 +194,19 @@ def test_plan_routes_bf16_widths(d):
         assert aligned == port.Plan("wgmma128", port.WGMMA128_ROWS)
     elif d % 8 == 0 and d <= 256:
         assert aligned == port.Plan("wgmma256", port.WGMMA_ROWS)
+    elif d % 8 == 0 and d <= 512:
+        assert aligned == port.Plan("wgmma512", port.WGMMA_ROWS)
     else:
         assert aligned == chunked
     for off in range(4):
         ptrs = [4096 + 8 * (i == off) for i in range(4)]
         assert port.plan(torch.bfloat16, 16, 2, 1024, d, H100_SMS,
                          *ptrs) == chunked, (d, off)
-    if aligned != chunked:
+    if aligned.kernel == "wgmma512":
+        W = port.wgmma512_part(d)
+        assert W % 32 == 0 and d <= 2 * W < d + 64
+        assert W in (160, 192, 224, 256)
+    elif aligned != chunked:
         D = port.wgmma_cols(d)
         assert D % 32 == 0 and d <= D < d + 32
         assert D in ((96, 128) if d <= 128 else (160, 192, 224, 256))

@@ -15,9 +15,10 @@ outside the shipped d = 4 and 32), on the CPU.
   for an all-masked row, one rounding. Held against the Pallas kernel and
   the plain version at ``chip_smoke.py``'s tolerances (bf16: atol 1e-3,
   rtol 2^-7, one bf16 ulp; float32 2e-5).
-- ``plan`` for every d in 1..512 in both dtypes (no raise; d = 2..64 as
+- ``plan`` for every d in 1..1025 in both dtypes (no raise; d = 2..64 as
   before this kernel; bf16 d = 128 on the d = 128 wgmma kernel, d = 256 on
-  the d = 256 wgmma kernel), and the per-kernel counts
+  the d = 256 wgmma kernel, 257..512 on the d = 512 one), and the
+  per-kernel counts
   that ``chip_smoke.py``'s attention_widths phase expects at n_head 1, 2,
   8 and 32; the flagship generator's layers and parameters at n_head 1, 2
   and 32.
@@ -273,12 +274,13 @@ def _plan_before(dtype, B, H, L, d, sms, q_ptr, k_ptr, v_ptr, out_ptr):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_plan_takes_every_width(dtype):
-    """Every d in 1..512 gets a kernel, aligned or not; d = 2..64 the one
-    it got before; d = 1 the d = 1 kernel; float32 65..511 the wide
+    """Every d in 1..1025 gets a kernel, aligned or not; d = 2..64 the one
+    it got before; d = 1 the d = 1 kernel; float32 65..1024 the wide
     kernel; bf16 at aligned pointers and d % 8 = 0 the d = 128 wgmma
-    design at 65..128 and the d = 256 one at 129..256; the rest past 64
-    the d-chunked kernel."""
-    for d in range(1, 513):
+    design at 65..128, the d = 256 one at 129..256 and the d = 512 one at
+    257..512; the rest past 64 (float32 above 1024, bf16 above 512) the
+    d-chunked kernel."""
+    for d in range(1, 1026):
         for ptr in (4096, 4096 + 8):
             for B, H, L in ((16, 8, 1024), (2, 1, 33)):
                 got = port.plan(dtype, B, H, L, d, H100_SMS, 4096, ptr, 4096,
@@ -292,12 +294,15 @@ def test_plan_takes_every_width(dtype):
                 elif (dtype == torch.bfloat16 and d % 8 == 0
                       and 128 < d <= 256 and ptr == 4096):
                     assert got == port.Plan("wgmma256", 64)
+                elif (dtype == torch.bfloat16 and d % 8 == 0
+                      and 256 < d <= 512 and ptr == 4096):
+                    assert got == port.Plan("wgmma512", 64)
                 elif d == 1:
                     assert got == port.Plan("d1", 128)
-                elif dtype == torch.float32 and d <= 511:
+                elif dtype == torch.float32 and d <= 1024:
                     assert got == port.Plan(
                         "f32wide", 128 if d <= 128 else
-                        64 if d <= 256 else 32), d
+                        64 if d <= 256 else 32 if d <= 768 else 16), d
                 else:
                     assert got == port.Plan("chunked",
                                             port.CHUNKED_ROWS[dtype]), d

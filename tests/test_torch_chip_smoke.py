@@ -43,20 +43,20 @@ def test_kernel_entry_of_a_float32_only_kernel():
 def test_guards_hold_the_new_kernels():
     """The speed guards name the float32 wide kernel's float32 d = 256
     sum and the d = 1 kernel's bf16 sum, beside the earlier six, and the
-    three TIMED_WIDTHS instantiations' device times."""
+    five TIMED_WIDTHS instantiations' device times."""
     names = [(name, key) for name, key, _ in chip_smoke.PREVIOUS_MS]
     assert ("fused_attention_packed (f32 wide)", "device_ms") in names
     assert ("fused_attention_packed (d = 1)", "device_ms_bf16") in names
     for name, _, _, _ in chip_smoke.TIMED_ENTRIES:
         assert (name, "device_ms") in names
-    assert len(names) == 11 == len(set(names))
+    assert len(names) == 13 == len(set(names))
 
 
 def _source_instantiations(cuda_build):
-    """{(plan kernel, D or C, M4)}: the instantiations that the C entries of
-    the d = 128 and d = 256 wgmma designs (launch_d<D, M4>) and of the
-    float32 wide kernel (launch_wide<C>, M4 None) launch, read from their
-    sources."""
+    """{(plan kernel, D, W or C, M4)}: the instantiations that the C entries
+    of the d = 128 and d = 256 wgmma designs (launch_d<D, M4>), of the
+    d = 512 one (launch_w<W>, M4 None) and of the float32 wide kernel
+    (launch_wide<C>, M4 None) launch, read from their sources."""
     import re
 
     found = set()
@@ -64,6 +64,9 @@ def _source_instantiations(cuda_build):
         src = (cuda_build.CSRC / f"fused_attention_{kernel}.cu").read_text()
         found |= {(kernel, int(D), m4 == "true") for D, m4 in re.findall(
             r"launch_d<(\d+), (true|false)>\(", src)}
+    src = (cuda_build.CSRC / "fused_attention_wgmma512.cu").read_text()
+    found |= {("wgmma512", int(W), None)
+              for W in re.findall(r"launch_w<(\d+)>\(", src)}
     src = (cuda_build.CSRC / "fused_attention_chunked.cu").read_text()
     found |= {("f32wide", int(C), None)
               for C in re.findall(r"launch_wide<(\d+)>\(", src)}
@@ -72,15 +75,17 @@ def _source_instantiations(cuda_build):
 
 def test_ragged_widths_reach_each_wide_kernel():
     """RAGGED_WIDTHS, at aligned pointers, run the float32 wide kernel
-    (float32 d = 72 to 448), the d = 128 and d = 256 wgmma designs (bf16
-    d = 72, 96, 112, 128 and 160, 224, 248, 256) and the d-chunked kernels
-    (bf16 d = 161, off d % 8 = 0, and 320 to 512, past 256; float32 d =
-    512, past the wide kernel), so the d-chunked kernels, on no frame
-    batch, are checked and timed there; TIMED_WIDTHS run the wgmma designs
-    at D = 96 and 192 and the wide kernel at C = 384. Together they reach
+    (float32 d = 72 to 1024), the d = 128, d = 256 and d = 512 wgmma
+    designs (bf16 d = 72, 96, 112, 128; 160, 224, 248, 256; 264, 288,
+    320, 384, 448, 504, 512) and the d-chunked kernels (bf16 d = 161, off
+    d % 8 = 0, and 520 to 1032, past 512; float32 d = 1032, past the wide
+    kernel), so the d-chunked kernels, on no frame batch, are checked and
+    timed there; TIMED_WIDTHS run the wgmma designs at D = 96 and 192 and
+    W = 192, and the wide kernel at C = 384 and 640. Together they reach
     every instantiation that the sources' C entries launch: each (D, M4)
-    of the wgmma designs (M4 at every d but the design's own 128 or 256)
-    and each C of the wide kernel."""
+    of the d = 128 and d = 256 wgmma designs (M4 at every d but the
+    design's own 128 or 256), each W of the d = 512 one and each C of the
+    wide kernel."""
     import pytest
 
     torch = pytest.importorskip("torch")
@@ -92,6 +97,8 @@ def test_ragged_widths_reach_each_wide_kernel():
     def instance(kernel, d):
         if kernel == "f32wide":
             return kernel, fa.f32wide_cols(d), None
+        if kernel == "wgmma512":
+            return kernel, fa.wgmma512_part(d), None
         return kernel, fa.wgmma_cols(d), d != int(kernel[5:])
 
     got, reached = {}, set()
@@ -103,23 +110,31 @@ def test_ragged_widths_reach_each_wide_kernel():
             if kernel != "chunked":
                 reached.add(instance(kernel, E // H))
     assert got == {
-        "f32wide": {("float32", d) for d in (72, 96, 112, 128, 160, 161,
-                                             224, 248, 256, 320, 384, 448)},
+        "f32wide": {("float32", d) for d in (
+            72, 96, 112, 128, 160, 161, 224, 248, 256, 264, 288, 320, 384,
+            448, 504, 512, 520, 640, 712, 776, 1024)},
         "wgmma128": {("bfloat16", d) for d in (72, 96, 112, 128)},
         "wgmma256": {("bfloat16", d) for d in (160, 224, 248, 256)},
-        "chunked": {("bfloat16", d) for d in (161, 320, 384, 448, 512)}
-        | {("float32", 512)}}
+        "wgmma512": {("bfloat16", d) for d in (264, 288, 320, 384, 448, 504,
+                                               512)},
+        "chunked": {("bfloat16", d) for d in (161, 520, 640, 712, 776, 1024,
+                                              1032)}
+        | {("float32", 1032)}}
     timed = {(dtype, E // H, fa.plan(getattr(torch, dtype), B, H, L, E // H,
                                      132, 0, 0, 0, 0).kernel)
              for _, B, L, E, H, K, _, _, dtype in chip_smoke.TIMED_WIDTHS}
     assert timed == {("bfloat16", 96, "wgmma128"),
                      ("bfloat16", 192, "wgmma256"),
-                     ("float32", 320, "f32wide")}
-    assert [fa.wgmma_cols(96), fa.wgmma_cols(192),
-            fa.f32wide_cols(320)] == [96, 192, 384]
+                     ("float32", 320, "f32wide"),
+                     ("bfloat16", 384, "wgmma512"),
+                     ("float32", 640, "f32wide")}
+    assert [fa.wgmma_cols(96), fa.wgmma_cols(192), fa.f32wide_cols(320),
+            fa.wgmma512_part(384), fa.f32wide_cols(640)] == [
+        96, 192, 384, 192, 640]
     reached |= {instance(kernel, d) for _, d, kernel in timed}
     assert reached == _source_instantiations(cuda_build)
-    assert len(reached) == 12  # 3 + 5 wgmma (D, M4), 4 wide C
+    # 3 + 5 wgmma (D, M4), 4 d = 512 design W, 8 wide C
+    assert len(reached) == 20
 
 
 def _widths_report(torch, fa):
@@ -171,6 +186,9 @@ def _widths_report(torch, fa):
     report["frame_batch_app_d96"] = {"k1_kernels": dict(
         chip_smoke.head_width_kernels(torch, fa, 2, 132, E_app=192))}
     report["tiny_d320"] = {"k1_kernels": {"f32": 12, "f32wide": 12}}
+    report["frame_batch_app_d384"] = {"k1_kernels": dict(
+        chip_smoke.head_width_kernels(torch, fa, 1, 132, E_app=384))}
+    report["tiny_d640"] = {"k1_kernels": {"f32": 12, "f32wide": 12}}
     report["timed"] = []
     for name, B, L, E, H, K, _, _, dtype in chip_smoke.TIMED_WIDTHS:
         kernel = fa.plan(getattr(torch, dtype), B, H, L, E // H, 132, 0, 0,
@@ -212,7 +230,9 @@ def test_width_kernel_entries_from_the_phase_report():
         "fused_attention_packed (wgmma d = 256)",
         "fused_attention_packed (wgmma d = 96)",
         "fused_attention_packed (wgmma d = 192)",
-        "fused_attention_packed (f32 wide d = 320)"]
+        "fused_attention_packed (f32 wide d = 320)",
+        "fused_attention_packed (wgmma d = 384)",
+        "fused_attention_packed (f32 wide d = 640)"]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for e in entries.values():
@@ -225,13 +245,15 @@ def test_width_kernel_entries_from_the_phase_report():
                         "fused_attention_packed (wgmma d = 256)": 16,
                         "fused_attention_packed (wgmma d = 96)": 16,
                         "fused_attention_packed (wgmma d = 192)": 0,
-                        "fused_attention_packed (f32 wide d = 320)": 12}
-    # the ragged bf16 d = 161, 320, 384, 448 and 512 and float32 d = 512,
-    # one call each, named in the entry's note
+                        "fused_attention_packed (f32 wide d = 320)": 12,
+                        "fused_attention_packed (wgmma d = 384)": 16,
+                        "fused_attention_packed (f32 wide d = 640)": 12}
+    # the ragged bf16 d = 161 and 520 to 1032 and float32 d = 1032, one
+    # call each, named in the entry's note
     chunked = entries["fused_attention_packed (d-chunked)"]
-    assert chunked["ms"] == pytest.approx(6 * 0.2)
-    assert ("(bfloat16 d = 161, 320, 384, 448 and 512, float32 d = 512;"
-            in chunked["times_are"])
+    assert chunked["ms"] == pytest.approx(8 * 0.2)
+    assert ("(bfloat16 d = 161, 520, 640, 712, 776, 1024 and 1032, float32 "
+            "d = 1032;" in chunked["times_are"])
     for name, _, d, _ in chip_smoke.TIMED_ENTRIES:
         e = entries[name]
         assert e["ms"] == 0.3 and e["device_ms"] == 0.1
@@ -241,9 +263,10 @@ def test_width_kernel_entries_from_the_phase_report():
     assert wide["device_ms"] == pytest.approx(16 * 0.1)
     assert wide["device_ms_d128"] == pytest.approx(16 * 0.1)
     assert wide["device_ms_k2"] == pytest.approx(16 * 0.1)
-    assert wide["max_abs_err"] == pytest.approx(448e-6)  # ragged d = 448
+    assert wide["max_abs_err"] == pytest.approx(1024e-6)  # ragged 1024
     assert ("ragged float32 d = 72, 96, 112, 128, 160, 161, 224, 248, 256, "
-            "320, 384 and 448 cases" in wide["times_are"])
+            "264, 288, 320, 384, 448, 504, 512, 520, 640, 712, 776 and 1024 "
+            "cases" in wide["times_are"])
     for width in (128, 256):
         wg = entries[f"fused_attention_packed (wgmma d = {width})"]
         assert wg["device_ms"] == pytest.approx(16 * 0.1)
